@@ -1,0 +1,194 @@
+"""Text-transformer family: the DistilBERT-shaped encoder of
+the JAX package's ``models/transformer.py`` as ``torch.nn`` modules.
+
+6 layers, width 768, 12 heads, GELU FFN 3072, learned positional
+embeddings, post-LN residuals. Token inputs are integers; padding id 0 is
+masked out of attention and pooling. The flax modules are followed as
+written, since the parity tests hold the two against each other:
+
+- params are f32; compute is in ``dtype`` (bf16 by default): every Dense
+  casts its input, kernel and bias to ``dtype``;
+- embedding plus positional embedding is f32, then cast; the mean-pool and
+  the classifier head are f32;
+- LayerNorm has epsilon 1e-6 and takes its statistics in f32;
+- GELU is the tanh approximation;
+- ``attention_impl="dense"`` is flax's ``MultiHeadDotProductAttention``:
+  separate query/key/value/out projections, the query scaled by
+  1/sqrt(D), masked scores set to ``finfo(dtype).min`` and the softmax in
+  the compute dtype (so a query row with no real key attends uniformly);
+- ``attention_impl="flash"`` is one fused qkv projection, the
+  :func:`~olearning_sim_tpu_torch.ops.flash_attention` kernel (forward
+  only: evaluation, not training) and an ``attn_out`` projection.
+
+Linear layers keep PyTorch's ``[out, in]`` weight layout;
+:mod:`olearning_sim_tpu_torch.weights` converts from and to the flax
+parameter tree.
+"""
+
+from __future__ import annotations
+
+import math
+from typing import Dict
+
+import numpy as np
+import torch
+import torch.nn as nn
+import torch.nn.functional as F
+
+from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
+from olearning_sim_tpu_torch.ops import flash_attention
+
+LN_EPS = 1e-6
+# flax's lecun_normal: truncated normal at +-2 sigma, rescaled to unit variance.
+_TRUNC_STD = 0.87962566103423978
+
+
+def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
+    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, LN_EPS)
+    return y.to(dtype)
+
+
+class TransformerBlock(nn.Module):
+    def __init__(self, width: int, heads: int, mlp_dim: int,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attention_impl: str = "dense"):
+        super().__init__()
+        if attention_impl == "ring":
+            raise NotImplementedError(
+                "attention_impl='ring' (sequence-parallel ring attention) is "
+                "not ported yet; see ROADMAP.md"
+            )
+        if attention_impl not in ("dense", "flash"):
+            raise ValueError(f"unknown attention_impl {attention_impl!r}")
+        if width % heads:
+            raise ValueError(f"width {width} is not a multiple of heads {heads}")
+        self.heads, self.dtype = heads, dtype
+        self.attention_impl = attention_impl
+        if attention_impl == "flash":
+            self.qkv = nn.Linear(width, 3 * width)
+            self.attn_out = nn.Linear(width, width)
+        else:
+            self.query = nn.Linear(width, width)
+            self.key = nn.Linear(width, width)
+            self.value = nn.Linear(width, width)
+            self.out = nn.Linear(width, width)
+        self.ln_1 = nn.LayerNorm(width)
+        self.mlp_in = nn.Linear(width, mlp_dim)
+        self.mlp_out = nn.Linear(mlp_dim, width)
+        self.ln_2 = nn.LayerNorm(width)
+
+    def _dense_attention(self, x, pad_mask):
+        B, L, W = x.shape
+        H, dt = self.heads, self.dtype
+        D = W // H
+        q = _dense(x, self.query, dt).view(B, L, H, D)
+        k = _dense(x, self.key, dt).view(B, L, H, D)
+        v = _dense(x, self.value, dt).view(B, L, H, D)
+        q = q / torch.tensor(math.sqrt(D), dtype=dt)
+        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+        mask = pad_mask[:, None, :, None] & pad_mask[:, None, None, :]
+        s = torch.where(mask, s, torch.finfo(dt).min)
+        w = torch.softmax(s, dim=-1).to(dt)
+        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, W)
+        return _dense(o, self.out, dt)
+
+    def _flash_attention(self, x, pad_mask):
+        B, L, W = x.shape
+        H = self.heads
+        qkv = _dense(x, self.qkv, self.dtype).view(B, L, 3, H, W // H)
+        q, k, v = (qkv[:, :, i].transpose(1, 2).contiguous() for i in range(3))
+        o = flash_attention(q, k, v, kv_mask=pad_mask)
+        o = o.transpose(1, 2).reshape(B, L, W)
+        return _dense(o, self.attn_out, self.dtype)
+
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+        # pad_mask: [B, L] bool, True = real token.
+        if self.attention_impl == "flash":
+            y = self._flash_attention(x, pad_mask)
+        else:
+            y = self._dense_attention(x, pad_mask)
+        x = _layer_norm(x + y, self.ln_1, self.dtype)  # post-LN, BERT-style
+        y = _dense(x, self.mlp_in, self.dtype)
+        y = F.gelu(y, approximate="tanh")
+        y = _dense(y, self.mlp_out, self.dtype)
+        return _layer_norm(x + y, self.ln_2, self.dtype)
+
+
+class TextTransformer(nn.Module):
+    def __init__(self, vocab_size: int = 30522, max_len: int = 128,
+                 width: int = 768, depth: int = 6, heads: int = 12,
+                 mlp_dim: int = 3072, num_classes: int = 2, pad_id: int = 0,
+                 dtype: torch.dtype = torch.bfloat16,
+                 attention_impl: str = "dense"):
+        super().__init__()
+        self.pad_id, self.dtype = pad_id, dtype
+        self.embed = nn.Embedding(vocab_size, width)
+        self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))
+        self.ln_emb = nn.LayerNorm(width)
+        self.blocks = nn.ModuleList(
+            TransformerBlock(width, heads, mlp_dim, dtype, attention_impl)
+            for _ in range(depth)
+        )
+        self.head = nn.Linear(width, num_classes)
+
+    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+        # tokens: [B, L] integer ids; returns [B, num_classes] f32 logits.
+        pad_mask = tokens != self.pad_id
+        L = tokens.shape[1]
+        emb = F.embedding(tokens, self.embed.weight)
+        x = (emb + self.pos_embedding[:, :L]).to(self.dtype)
+        x = _layer_norm(x, self.ln_emb, self.dtype)
+        for block in self.blocks:
+            x = block(x, pad_mask)
+        # Mean-pool over real tokens.
+        m = pad_mask[..., None].float()
+        s = (x.float() * m).sum(1)
+        c = m.sum(1)
+        pooled = s / torch.clamp(c, min=1.0)
+        return F.linear(pooled, self.head.weight, self.head.bias)
+
+    def init_params(self, generator: torch.Generator) -> Dict[str, torch.Tensor]:
+        """Fresh f32 parameters on the CPU, drawn from ``generator`` with
+        flax's initializers (normal(0.02) embeddings, lecun-normal kernels,
+        zero biases, unit LayerNorm scales). The module itself is left
+        untouched."""
+        out = {}
+        for name, p in self.named_parameters():
+            t = torch.empty(p.shape, dtype=torch.float32)
+            leaf = name.rsplit(".", 1)[-1]
+            if name in ("embed.weight", "pos_embedding"):
+                nn.init.normal_(t, std=0.02, generator=generator)
+            elif ".ln" in name or name.startswith("ln"):
+                nn.init.constant_(t, 1.0 if leaf == "weight" else 0.0)
+            elif leaf == "bias":
+                nn.init.zeros_(t)
+            else:
+                std = 1.0 / math.sqrt(p.shape[1]) / _TRUNC_STD
+                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
+                                      generator=generator)
+            out[name] = t
+        return out
+
+
+register_model(
+    ModelSpec(
+        name="distilbert",
+        builder=TextTransformer,
+        example_input_shape=(64,),
+        num_classes=2,
+        defaults={
+            "vocab_size": 30522,
+            "max_len": 64,
+            "width": 768,
+            "depth": 6,
+            "heads": 12,
+            "mlp_dim": 3072,
+            "num_classes": 2,
+        },
+        input_dtype=np.int32,
+    )
+)

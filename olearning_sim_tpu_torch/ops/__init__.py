@@ -1,0 +1,6 @@
+from olearning_sim_tpu_torch.ops.flash_attention import (
+    flash_attention,
+    flash_attention_reference,
+)
+
+__all__ = ["flash_attention", "flash_attention_reference"]

@@ -1,0 +1,140 @@
+#!/usr/bin/env python3
+"""Where the time goes in the PyTorch port's main path, on one GPU.
+
+Runs the configuration of ``chip_smoke.py``'s main path (full-width
+DistilBERT, FedAdam, 16 synthetic clients in blocks of 8, batch 16, 4 local
+steps; 2048 eval rows) and prints:
+
+- steady round time over ``--rounds`` rounds after one warm-up round
+  (host clock around work that ends in ``torch.cuda.synchronize()``);
+- for one profiled round and one profiled flash-attention ``evaluate``:
+  wall time, device busy time (union of kernel intervals), the device's
+  idle share, and the kernels that take the most device time.
+
+Usage::
+
+    python3 scripts/profile_torch_port.py [--rounds 10] [--out chiprun_out/profile]
+
+Needs a CUDA device; writes Chrome traces of the profiled windows to ``--out``.
+"""
+
+from __future__ import annotations
+
+import argparse
+import pathlib
+import statistics
+import subprocess
+import sys
+import time
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+
+
+def _busy_us(intervals):
+    busy, end = 0.0, float("-inf")
+    for s, e in sorted(intervals):
+        if s > end:
+            busy += e - s
+            end = e
+        elif e > end:
+            busy += e - end
+            end = e
+    return busy
+
+
+def profile(label, fn, out_dir, top=12):
+    import torch
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile as tprofile
+
+    torch.cuda.synchronize()
+    with tprofile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_us = (time.perf_counter() - t0) * 1e6
+    kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    trace = out_dir / f"{label}.json"
+    prof.export_chrome_trace(str(trace))
+    if not kernels:
+        print(f"{label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
+              f"(the profiler recorded no CUDA events)")
+        return
+    busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
+    by_name = {}
+    for e in kernels:
+        calls, total = by_name.get(e.name, (0, 0.0))
+        by_name[e.name] = (calls + 1, total + e.time_range.elapsed_us())
+    print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
+          f"idle share {1 - busy / wall_us:.4f}, {len(kernels)} kernel launches; "
+          f"trace {trace}")
+    total = sum(t for _, t in by_name.values())
+    for name, (calls, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
+        print(f"  {t / 1e3:9.3f} ms {t / total:7.2%} {calls:6d}x  {name[:110]}")
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
+    ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--out", default=str(REPO / "chiprun_out" / "profile"))
+    args = ap.parse_args()
+
+    import torch
+
+    if not torch.cuda.is_available():
+        print("profile_torch_port: needs a CUDA device", file=sys.stderr)
+        return 1
+    sys.path.insert(0, str(REPO))
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        fedadam,
+        make_central_text_eval_set,
+        make_synthetic_text_dataset,
+    )
+
+    out_dir = pathlib.Path(args.out)
+    out_dir.mkdir(parents=True, exist_ok=True)
+    smi = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.strip()
+    print(f"card: {smi} | torch {torch.__version__}")
+
+    dev = torch.device("cuda", 0)
+    cfg = FedCoreConfig(batch_size=16, max_local_steps=4, block_clients=8)
+    ds = make_synthetic_text_dataset(0, 16, 24, 64, dirichlet_alpha=0.8)
+    ds = ds.pad_for(cfg.block_clients).to(dev)
+    x_eval, y_eval = make_central_text_eval_set(0, 2048, 64)
+    core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, device=dev)
+    holder = {"state": core.init_state(seed=0, device=dev)}
+
+    def one_round():
+        holder["state"], metrics = core.round_step(holder["state"], ds)
+        return float(metrics.mean_loss)
+
+    one_round()  # warm-up: allocator, cuBLAS handles, lazy module setup
+    times = []
+    for _ in range(args.rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    med = statistics.median(times)
+    print(f"round: {args.rounds} steady rounds, median {med:.4f} s "
+          f"({1 / med:.4f} rounds/sec), min {min(times):.4f} s, max {max(times):.4f} s; "
+          f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
+    profile("round_step", one_round, out_dir)
+
+    flash = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg,
+                          model_overrides={"attention_impl": "flash"}, device=dev)
+    fparams = flash.init_state(seed=0, device=dev).params
+    flash.evaluate(fparams, x_eval, y_eval)  # warm-up, builds the kernel
+    profile("flash_evaluate", lambda: flash.evaluate(fparams, x_eval, y_eval), out_dir)
+    dense_params = holder["state"].params
+    profile("dense_evaluate", lambda: core.evaluate(dense_params, x_eval, y_eval), out_dir)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
