@@ -10,20 +10,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 1. The card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. Build every kernel under ``olearning_sim_tpu_torch/csrc`` with ``nvcc``
    (one process per source, all started together) and print the build time.
-3. Kernel phase: each kernel against its plain PyTorch version on the card,
-   at the main path's shape and at ragged, multi-tile and masked shapes, with
-   the tolerance stated; then kernel, plain and library times at the main
-   path's shape beside the card's least possible time (the bound).
+3. Kernel phase: each kernel (K1 ``flash_attention``, K2
+   ``flash_attention_stats``) against its plain PyTorch version on the card,
+   at its path's shape and at ragged, multi-tile and masked shapes, in bf16
+   and f32, with the tolerance stated; K2's stats over two K/V halves,
+   folded by the ring merge, against the whole; then kernel, plain and
+   library times at each path's shape beside the card's least possible time
+   (the bound).
 4. Main path: two full-width DistilBERT FedAdam rounds (768/12/6/3072,
    vocab 30522, L 64; dense attention) on 16 synthetic clients, then
    ``evaluate`` on 2048 held-out rows.
 5. Flash evaluate: the same model with ``attention_impl="flash"`` evaluated
-   on the 2048 rows, which must launch the flash kernel 6 times per eval
-   batch; one eval batch is checked against the CPU path (plain version).
+   on the 2048 rows, which must launch K1 6 times per eval batch; one eval
+   batch is checked against the CPU path (plain version).
+6. Long-context path: full-width DistilBERT with ``attention_impl="ring"``,
+   ``ring_use_flash=True`` and ``max_len=2048`` on a ring of one (one card),
+   on 8 synthetic rows of 2048 tokens with padded tails: two forwards, whose
+   logits must agree with the dense-combine ring model's, and one SGD step
+   whose gradients must agree with the dense-combine step's; K2 must launch
+   6 times per forward.
 
-Launch counts are zeroed just before phase 4 and read just after phase 5.
-The last lines are the ``kernels`` JSON, the ``nvidia-smi`` line and
-``{"ok": true, "device": {...}}``. Exits non-zero without CUDA.
+Both launch counts are zeroed just before phase 4 and again just before
+phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
+``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
+{...}}``. Exits non-zero without CUDA.
 """
 
 from __future__ import annotations
@@ -36,16 +46,27 @@ import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
 
-# Tolerances of the kernel against its plain version: |err| <= ATOL + RTOL*|ref|.
+# Tolerances of a kernel's o against its plain version: |err| <= ATOL + RTOL*|ref|.
 # bf16: the two round p to bf16 at different running maxima and may round
 # the output one bf16 ulp (2^-8 relative) apart; f32: summation order only.
 TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}
+# K2's m and l are f32 whatever the input type: the kernel's FMA chain and
+# online rescaling against the plain version's matmul, summation order only.
+STATS_TOL = (1e-4, 1e-4)
 # Loss of one eval batch, flash kernel on the card vs plain version on the CPU.
 EVAL_LOSS_TOL = 2e-2
-# The Pallas kernel that csrc/flash_attention.cu replaces: _attn_kernel in
-# the JAX package's ops/flash_attention.py (the port's code names that
-# package nowhere else).
+# Long-context phase, K2's ring model against the dense-combine ring model
+# (same parameters, bf16 compute): the kernel rounds p to bf16 before P.V
+# where the dense combine keeps it f32, through 6 layers. Logits: absolute;
+# gradients: ||g_flash - g_dense|| / ||g_dense|| over all parameters.
+LC_LOGITS_ATOL = 5e-2
+LC_GRAD_REL = 5e-2
+# The Pallas kernels that csrc/flash_attention.cu replaces: _attn_kernel and
+# _attn_stats_kernel in the JAX package's ops/flash_attention.py (the port's
+# code names that package nowhere else).
 REPLACES_FLASH = "olearning_sim_" "tpu/ops/flash_attention.py:84"
+REPLACES_STATS = "olearning_sim_" "tpu/ops/flash_attention.py:52"
+KERNEL_SOURCE = "olearning_sim_tpu_torch/csrc/flash_attention.cu"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
 F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
@@ -116,11 +137,17 @@ def make_mask(B, Lk, gen, dev):
     return mask.to(dev)
 
 
-def check_flash(case, dtype, gen, dev):
+def check_kernel(stats, case, dtype, gen, dev):
+    """K1 (``stats`` False: o) or K2 (True: o, m, l) against its plain
+    version at ``case`` = (B, H, Lq, Lk, D); rows with no real key must come
+    out exactly 0. Returns the max |err| of o."""
     import torch
 
-    from olearning_sim_tpu_torch.ops import flash_attention
-    from olearning_sim_tpu_torch.ops.flash_attention import flash_attention_reference
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+    from olearning_sim_tpu_torch.ops.flash_attention import (
+        flash_attention_reference,
+        flash_attention_stats_reference,
+    )
 
     B, H, Lq, Lk, D = case
     q = torch.randn((B, H, Lq, D), generator=gen).to(dev, dtype)
@@ -128,26 +155,75 @@ def check_flash(case, dtype, gen, dev):
     v = torch.randn((B, H, Lk, D), generator=gen).to(dev, dtype)
     mask = make_mask(B, Lk, gen, dev)
     with torch.no_grad():
-        out = flash_attention(q, k, v, kv_mask=mask).float()
-        ref = flash_attention_reference(q, k, v, kv_mask=mask).float()
+        if stats:
+            outs = flash_attention_stats(q, k, v, kv_mask=mask)
+            refs = flash_attention_stats_reference(q, k, v, kv_mask=mask)
+        else:
+            outs = (flash_attention(q, k, v, kv_mask=mask),)
+            refs = (flash_attention_reference(q, k, v, kv_mask=mask),)
     torch.cuda.synchronize()
-    atol, rtol = TOL[str(dtype).split(".")[-1]]
-    err = (out - ref).abs()
-    max_err = float(err.max())
-    bad = int((err > atol + rtol * ref.abs()).sum())
+    tols = [TOL[str(dtype).split(".")[-1]], STATS_TOL, STATS_TOL]
     dead = mask.sum(1) == 0
-    dead_max = float(out[dead].abs().max()) if bool(dead.any()) else 0.0
-    ok = bad == 0 and math.isfinite(max_err) and dead_max == 0.0
-    log(f"kernel flash_attention {str(dtype):15s} B={B} H={H} Lq={Lq} Lk={Lk} D={D}: "
-        f"max_abs_err={max_err:.3e} (atol {atol:g} + rtol {rtol:g}*|ref|, "
-        f"{bad} outside), fully-masked rows max|o|={dead_max:g} -> "
-        f"{'ok' if ok else 'FAIL'}")
+    name = "flash_attention_stats" if stats else "flash_attention"
+    errs, ok, parts = [], True, []
+    for what, out, ref, (atol, rtol) in zip("oml", outs, refs, tols):
+        out, ref = out.float(), ref.float()
+        err = (out - ref).abs()
+        max_err = float(err.max())
+        bad = int((err > atol + rtol * ref.abs()).sum())
+        dead_max = float(out[dead].abs().max()) if bool(dead.any()) else 0.0
+        ok = ok and bad == 0 and math.isfinite(max_err) and dead_max == 0.0
+        errs.append(max_err)
+        parts.append(f"{what}: max_abs_err={max_err:.3e} (atol {atol:g} + rtol {rtol:g}*|ref|, "
+                     f"{bad} outside), fully-masked rows max|{what}|={dead_max:g}")
+    log(f"kernel {name} {str(dtype):15s} B={B} H={H} Lq={Lq} Lk={Lk} D={D}: "
+        + "; ".join(parts) + f" -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError(f"flash_attention disagrees with its plain version at {case} {dtype}")
-    return max_err
+        raise AssertionError(f"{name} disagrees with its plain version at {case} {dtype}")
+    return errs[0]
+
+
+# K1's ragged, multi-tile, Lq != Lk and D 96/128 cases, shared by K2.
+RAGGED_CASES = [
+    (3, 5, 50, 50, 40),      # ragged Lq, Lk and D
+    (2, 4, 512, 512, 64),    # multi-tile Lk
+    (2, 3, 70, 200, 128),    # Lq != Lk, widest head dim
+    (4, 2, 33, 130, 96),     # ragged D above 64
+]
+
+
+def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, dev):
+    """Kernel, plain and library times (ms) at ``slice_shape`` in bf16 with
+    every key real, and the bound: the larger of the bytes the function must
+    move (q, k, v and the mask read once; o, and K2's m and l, written once)
+    over 3.35 TB/s and its 4*B*H*Lq*Lk*D operations over the bf16 peak."""
+    import torch
+
+    B, H, Lq, Lk, D = slice_shape
+    q, k, v = (torch.randn((B, H, L, D), generator=gen).to(dev, torch.bfloat16)
+               for L in (Lq, Lk, Lk))
+    mask = torch.ones((B, Lk), dtype=torch.float32, device=dev)
+    bool_mask = (mask > 0)[:, None, None, :]
+    with torch.no_grad():
+        ms = cuda_time_ms(lambda: kernel(q, k, v, kv_mask=mask))
+        plain_ms = cuda_time_ms(lambda: plain(q, k, v, kv_mask=mask))
+        library_ms = cuda_time_ms(lambda: library(q, k, v, attn_mask=bool_mask))
+    stats_bytes = 2 * B * H * Lq * 4 if name == "flash_attention_stats" else 0
+    nbytes = 2 * (B * H * Lq * D * 2 + B * H * Lk * D * 2) + B * Lk * 4 + stats_bytes
+    flops = 4 * B * H * Lq * Lk * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
+    bound_ms = max(t_bytes, t_ops)
+    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    log(f"time {name} bf16 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel {ms:.4f} ms, "
+        f"plain {plain_ms:.4f} ms, library ({library_name}) {library_ms:.4f} ms, "
+        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
+        f"{flops / 1e9:.2f} GFLOP)")
+    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+            "library_ms": library_ms}
 
 
 def kernel_phase(dev):
+    """K1 against its plain version, and its times at the flash evaluate's shape."""
     import torch
     import torch.nn.functional as F
 
@@ -158,51 +234,79 @@ def kernel_phase(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     slice_shape = (1024, 12, 64, 64, 64)  # B, H, Lq, Lk, D of the flash evaluate
-    cases = [
-        slice_shape,
-        (3, 5, 50, 50, 40),      # ragged Lq, Lk and D
-        (2, 4, 512, 512, 64),    # multi-tile Lk
-        (2, 3, 70, 200, 128),    # Lq != Lk, widest head dim
-        (4, 2, 33, 130, 96),     # ragged D above 64
-    ]
     slice_err = None
     for dtype in (torch.bfloat16, torch.float32):
-        for case in cases:
-            err = check_flash(case, dtype, gen, dev)
+        for case in [slice_shape] + RAGGED_CASES:
+            err = check_kernel(False, case, dtype, gen, dev)
+            if case == slice_shape and dtype == torch.bfloat16:
+                slice_err = err
+    times = time_kernel("flash_attention", slice_shape, flash_attention,
+                        flash_attention_reference, F.scaled_dot_product_attention,
+                        "scaled_dot_product_attention", gen, dev)
+    return {"name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES_FLASH, "max_abs_err": slice_err, **times}
+
+
+def stats_kernel_phase(dev):
+    """K2 against its plain version, the compose check through the ring
+    merge, and its times at the long-context path's shape."""
+    import torch
+    import torch.nn.functional as F
+
+    from olearning_sim_tpu_torch.ops import flash_attention_stats
+    from olearning_sim_tpu_torch.ops.flash_attention import flash_attention_stats_reference
+    from olearning_sim_tpu_torch.parallel.ring_attention import NEG_INF, combine_flash
+
+    gen = torch.Generator().manual_seed(1)
+    slice_shape = (8, 12, 2048, 2048, 64)  # B, H, Lq, Lk, D of the long-context forward
+    slice_err = None
+    for dtype in (torch.bfloat16, torch.float32):
+        for case in [slice_shape] + RAGGED_CASES:
+            err = check_kernel(True, case, dtype, gen, dev)
             if case == slice_shape and dtype == torch.bfloat16:
                 slice_err = err
 
-    # Times at the main path's shape and type (all keys real, as in the eval set).
-    B, H, Lq, Lk, D = slice_shape
-    q, k, v = (torch.randn((B, H, L, D), generator=gen).to(dev, torch.bfloat16)
-               for L in (Lq, Lk, Lk))
-    mask = torch.ones((B, Lk), dtype=torch.float32, device=dev)
-    bool_mask = (mask > 0)[:, None, None, :]
-    with torch.no_grad():
-        ms = cuda_time_ms(lambda: flash_attention(q, k, v, kv_mask=mask))
-        plain_ms = cuda_time_ms(lambda: flash_attention_reference(q, k, v, kv_mask=mask))
-        library_ms = cuda_time_ms(
-            lambda: F.scaled_dot_product_attention(q, k, v, attn_mask=bool_mask))
-    nbytes = 2 * (B * H * Lq * D * 2 + B * H * Lk * D * 2) + B * Lk * 4
-    flops = 4 * B * H * Lq * Lk * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
-    log(f"time flash_attention bf16 B={B} H={H} L={Lq} D={D}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library (scaled_dot_product_attention) "
-        f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: "
-        f"{nbytes / 1e6:.1f} MB, {flops / 1e9:.2f} GFLOP)")
-    return {
-        "name": "flash_attention", "route": "cuda",
-        "source": "olearning_sim_tpu_torch/csrc/flash_attention.cu",
-        "replaces": REPLACES_FLASH,
-        "max_abs_err": slice_err, "ms": ms, "plain_ms": plain_ms,
-        "bound_ms": bound_ms, "bound_by": bound_by, "library_ms": library_ms,
-    }
+    # Compose: the kernel's stats over the two K/V halves, folded by the
+    # ring merge, against the kernel over the whole (make_mask's rows include
+    # an all-masked half and rows with no real key).
+    B, H, L, _, D = slice_shape
+    for dtype in (torch.bfloat16, torch.float32):
+        q, k, v = (torch.randn((B, H, L, D), generator=gen).to(dev, dtype) for _ in range(3))
+        mask = make_mask(B, L, gen, dev) > 0
+        with torch.no_grad():
+            whole, _, _ = flash_attention_stats(q, k, v, kv_mask=mask)
+            qf = q.float()
+            m = torch.full_like(qf[..., :1], NEG_INF)
+            l = torch.zeros_like(qf[..., :1])
+            acc = torch.zeros_like(qf)
+            for h in (slice(0, L // 2), slice(L // 2, L)):
+                m, l, acc = combine_flash(q, k[:, :, h].contiguous(), v[:, :, h].contiguous(),
+                                          mask[:, h], m, l, acc, 1.0 / math.sqrt(D))
+            merged = acc / torch.clamp(l, min=1e-20)
+        torch.cuda.synchronize()
+        atol, rtol = TOL[str(dtype).split(".")[-1]]
+        err = (merged - whole.float()).abs()
+        bad = int((err > atol + rtol * whole.float().abs()).sum())
+        dead = ~mask.any(1)
+        dead_max = float(merged[dead].abs().max()) if bool(dead.any()) else 0.0
+        ok = bad == 0 and math.isfinite(float(err.max())) and dead_max == 0.0
+        log(f"compose flash_attention_stats {str(dtype):15s} two halves of Lk={L} folded by "
+            f"combine_flash vs whole: max_abs_err={float(err.max()):.3e} (atol {atol:g} + "
+            f"rtol {rtol:g}*|ref|, {bad} outside), fully-masked rows max|o|={dead_max:g} -> "
+            f"{'ok' if ok else 'FAIL'}")
+        if not ok:
+            raise AssertionError(f"K2's halves do not compose to the whole in {dtype}")
+
+    times = time_kernel("flash_attention_stats", slice_shape, flash_attention_stats,
+                        flash_attention_stats_reference, F.scaled_dot_product_attention,
+                        "scaled_dot_product_attention: the same o, without m and l",
+                        gen, dev)
+    return {"name": "flash_attention_stats", "route": "cuda", "source": KERNEL_SOURCE,
+            "replaces": REPLACES_STATS, "max_abs_err": slice_err, **times}
 
 
 def main_path(dev):
-    """Phases 4 and 5; returns the flash kernel's launches in them."""
+    """Phases 4 and 5; returns K1's launches in them."""
     import torch
 
     from olearning_sim_tpu_torch.engine import (
@@ -212,7 +316,7 @@ def main_path(dev):
         make_central_text_eval_set,
         make_synthetic_text_dataset,
     )
-    from olearning_sim_tpu_torch.ops import flash_attention
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
 
     cfg = FedCoreConfig(batch_size=16, max_local_steps=4, block_clients=8)
     seq_len, eval_n = 64, 2048
@@ -220,7 +324,7 @@ def main_path(dev):
     ds = ds.pad_for(cfg.block_clients).to(dev)
     x_eval, y_eval = make_central_text_eval_set(0, eval_n, seq_len)
 
-    flash_attention.launches = 0
+    flash_attention.launches = flash_attention_stats.launches = 0
     core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, device=dev)
     state = core.init_state(seed=0, device=dev)
     n_params = sum(p.numel() for p in state.params.values())
@@ -280,6 +384,98 @@ def main_path(dev):
     return launches
 
 
+def long_context_path(dev):
+    """Phase 6; returns K2's launches in it."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from olearning_sim_tpu_torch.engine.algorithms import SGD
+    from olearning_sim_tpu_torch.models import get_model
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+
+    B, L, lr = 8, 2048, 0.01
+    rng = np.random.default_rng(0)
+    spec = get_model("distilbert")
+    tokens = rng.integers(1, spec.defaults["vocab_size"], size=(B, L))
+    for row, n in ((1, 1536), (3, 1000), (5, 257), (7, 1800)):  # padded tails
+        tokens[row, n:] = 0
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    labels = torch.as_tensor(rng.integers(0, 2, size=B), dtype=torch.long, device=dev)
+
+    models = {use_flash: spec.build(max_len=L, attention_impl="ring",
+                                    ring_use_flash=use_flash)
+              for use_flash in (True, False)}
+    params = models[True].init_params(torch.Generator().manual_seed(0))
+    for m in models.values():
+        m.load_state_dict(params)
+        m.to(dev)
+    n_params = sum(p.numel() for p in params.values())
+    depth = len(models[True].blocks)
+    log(f"long-context path: distilbert {n_params} params, ring of one, "
+        f"{B} rows x {L} tokens ({int((tok != 0).sum())} real)")
+
+    flash_attention.launches = flash_attention_stats.launches = 0
+    forwards = 0
+    fwd_s = []
+    with torch.no_grad():
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            logits = models[True](tok)
+            torch.cuda.synchronize()
+            fwd_s.append(time.perf_counter() - t0)
+            forwards += 1
+        ref = models[False](tok)
+        torch.cuda.synchronize()
+    diff = float((logits - ref).abs().max())
+    ok = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (B, 2) \
+        and diff <= LC_LOGITS_ATOL
+    log(f"long-context forward (K2 ring): seconds {fwd_s[0]:.4f} (first), {fwd_s[1]:.4f} "
+        f"(second); logits vs dense-combine ring max|diff| {diff:.3e} "
+        f"(tol {LC_LOGITS_ATOL:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the K2 ring model's logits disagree with the dense combine's")
+
+    def sgd_step(model):
+        """One SGD step through the model's ring attention; returns the loss,
+        the gradients, the seconds and the peak device memory (GiB)."""
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats(dev)
+        t0 = time.perf_counter()
+        model.zero_grad(set_to_none=True)
+        loss = F.cross_entropy(model(tok).float(), labels)
+        loss.backward()
+        grads = {k: p.grad for k, p in model.named_parameters()}
+        updates, _ = SGD(lr).update(grads, {})
+        with torch.no_grad():
+            for k, p in model.named_parameters():
+                p.add_(updates[k])
+        torch.cuda.synchronize()
+        secs = time.perf_counter() - t0
+        return float(loss.detach()), grads, secs, torch.cuda.max_memory_allocated(dev) / 2**30
+
+    loss_f, g_f, secs_f, peak_f = sgd_step(models[True])
+    forwards += 1
+    launches = flash_attention_stats.launches
+    loss_d, g_d, secs_d, peak_d = sgd_step(models[False])
+    num = math.sqrt(sum(float(((g_f[k] - g_d[k]).float() ** 2).sum()) for k in g_d))
+    den = math.sqrt(sum(float((g_d[k].float() ** 2).sum()) for k in g_d))
+    finite = all(bool(torch.isfinite(g).all()) for g in g_f.values())
+    ok = math.isfinite(loss_f) and finite and num / den <= LC_GRAD_REL
+    log(f"long-context SGD step (lr {lr}): K2 ring loss {loss_f:.6f} in {secs_f:.4f} s, "
+        f"peak {peak_f:.2f} GiB; dense-combine ring loss {loss_d:.6f} in {secs_d:.4f} s, "
+        f"peak {peak_d:.2f} GiB; gradient rel L2 diff {num / den:.3e} "
+        f"(tol {LC_GRAD_REL:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError("the K2 ring step disagrees with the dense-combine step")
+    if launches != depth * forwards:
+        raise AssertionError(f"K2 launched {launches} times, expected {depth} layers x "
+                             f"{forwards} forwards")
+    log(f"long-context K2 launches: {launches} ({depth} layers x {forwards} forwards)")
+    return launches
+
+
 def main() -> int:
     import torch
 
@@ -296,9 +492,11 @@ def main() -> int:
     log(f"card: {smi} | torch {torch.__version__} cuda {torch.version.cuda} | "
         f"{torch.cuda.get_device_name(0)}")
     build_all()
-    kernel = kernel_phase(dev)
-    kernel["launches"] = main_path(dev)
-    log(json.dumps({"kernels": [kernel]}))
+    k1 = kernel_phase(dev)
+    k2 = stats_kernel_phase(dev)
+    k1["launches"] = main_path(dev)
+    k2["launches"] = long_context_path(dev)
+    log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -8,8 +8,10 @@ caller passes ``device="cpu"``; hand-written CUDA kernels live under
 ``csrc/`` and are built with ``nvcc`` at first use (``ops/_build.py``).
 
 Ported so far: the synchronous FedAvg/FedAdam round on one device, the
-DistilBERT-shaped ``TextTransformer`` (dense and flash attention), and the
-flash-attention forward kernel. ``ROADMAP.md`` lists what is still to come.
+DistilBERT-shaped ``TextTransformer`` (dense, flash and ring attention),
+the long-context sequence-parallel entry points (``parallel``), and both
+attention kernels (the flash forward and its softmax-stats variant).
+``ROADMAP.md`` lists what is still to come.
 """
 
 from olearning_sim_tpu_torch.device import resolve_device

@@ -1,16 +1,24 @@
-// Masked self-attention forward (flash-style) for NVIDIA Hopper (sm_90a).
+// Masked self-attention forward (flash-style) for NVIDIA Hopper (sm_90a),
+// with and without the per-row softmax statistics.
 //
-// Replaces _attn_kernel in the JAX package's ops/flash_attention.py, the Pallas
-// TPU kernel behind TransformerBlock(attention_impl="flash"):
+// Replaces two Pallas TPU kernels of the JAX package's ops/flash_attention.py:
 //
-//   o = softmax(scale * q k^T + (1 - kv_mask) * NEG_INF) v,   NEG_INF = -1e30
+//   _attn_kernel (flash_attention_fwd below), behind
+//   TransformerBlock(attention_impl="flash"):
+//     o = softmax(scale * q k^T + (1 - kv_mask) * NEG_INF) v,   NEG_INF = -1e30
 //
-// with f32 scores, softmax and accumulation whatever the input type, the
-// probabilities rounded to the input type before the P.V product (the TPU
-// kernel's p.astype(v.dtype)), and a row whose keys are all masked written
-// as 0 (the TPU kernel pins its max to 0 and floors l at 1e-20).
+//   _attn_stats_kernel (flash_attention_stats_fwd below), ring attention's
+//   per-step primitive: the same o plus, per query row, the f32 max
+//   m = max_j s_j and normaliser l = sum_j exp(s_j - m) of the scores s,
+//   so that a caller can merge several K/V blocks (acc_blk = o * l).
 //
-// Design. The TPU kernel holds a whole K/V chunk in VMEM; a Hopper block has
+// Both take f32 scores, softmax and accumulation whatever the input type,
+// round the probabilities to the input type before the P.V product (the TPU
+// kernels' p.astype(v.dtype)), and sum l from the unrounded f32 p. A row
+// whose keys are all masked is written as o = 0 and, with stats, m = l = 0
+// (the TPU kernels pin its max to 0 and floor l at 1e-20).
+//
+// Design. The TPU kernels hold a whole K/V chunk in VMEM; a Hopper block has
 // at most 227 KB of shared memory, so here one CTA owns one (batch*head,
 // 64-row query tile) and streams K/V through shared memory in tiles of 64
 // keys with an online softmax (running max m, normaliser l, f32 accumulator
@@ -19,19 +27,26 @@
 // each takes every fourth output column; row max and sum are two
 // butterfly shuffles. Tiles are stored as f32 in shared memory with an odd
 // row stride so that the rows a warp reads fall in different banks. Ragged
-// Lq, Lk and D (D <= 128) are masked here, not padded by the caller.
+// Lq, Lk and D (D <= 128) are masked here, not padded by the caller. The
+// statistics are a template switch on the epilogue (WITH_STATS), so the two
+// entries share one loop.
 //
 // The masking rule needs no special case inside the loop: a tile whose keys
-// are all masked sets m to about -1e30 and fills the accumulator with
-// garbage, and the first tile with a real key rescales it by
-// exp(-1e30 - m_real) = 0. After the last tile, m <= NEG_INF / 2 marks a
-// row with no real key, and its output is 0.
+// are all masked sets m to about -1e30 and fills the accumulator and l with
+// garbage (l counts the masked keys, since exp(-1e30 - (-1e30)) = 1), and
+// the first tile with a real key rescales both by exp(-1e30 - m_real) = 0.
+// A row with no real key never gets that rescale: after the last tile
+// m <= NEG_INF / 2 marks it, and its o (and m and l) are written as 0
+// instead of the garbage.
 //
-// Bound. At the slice's shape (B=1024, H=12, Lq=Lk=D=64, bf16) the kernel
-// must move q, k, v and o, about 403 MB, or 0.12 ms at 3.35 TB/s; its
-// 12.9 GFLOP take about 13 us at the bf16 tensor-core peak, so it is
-// memory-bound. This first version computes with f32 FMAs from shared
-// memory (no tensor cores, no TMA); wgmma and TMA are later work.
+// Bound. K1 at its slice's shape (B=1024, H=12, Lq=Lk=D=64, bf16) must move
+// q, k, v and o, about 403 MB, or 0.12 ms at 3.35 TB/s; its 12.9 GFLOP take
+// about 13 us at the bf16 tensor-core peak, so it is memory-bound. The
+// stats kernel at the long-context shape (B=8, H=12, Lq=Lk=2048, D=64,
+// bf16) moves about 102 MB (0.03 ms) but does 103 GFLOP (0.10 ms at the
+// bf16 peak), so it is bound by operations. This first version computes
+// with f32 FMAs from shared memory (no tensor cores, no TMA); mma/wgmma and
+// TMA are later work.
 
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
@@ -68,11 +83,13 @@ __device__ __forceinline__ void load_tile(float* dst, int ld, const T* __restric
   }
 }
 
-// NI: output columns per thread, ceil(max D / TPR).
-template <typename T, int NI>
+// NI: output columns per thread, ceil(max D / TPR). WITH_STATS: also write
+// each row's m and l (m_out, l_out [B*H*Lq] f32; unused otherwise).
+template <typename T, int NI, bool WITH_STATS>
 __global__ void __launch_bounds__(THREADS)
 attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __restrict__ v,
                 const float* __restrict__ kv_mask, T* __restrict__ o,
+                float* __restrict__ m_out, float* __restrict__ l_out,
                 int H, int Lq, int Lk, int D, int ld, float scale) {
   extern __shared__ float smem[];
   float* sQ = smem;                   // [BQ][ld]
@@ -166,26 +183,56 @@ attn_fwd_kernel(const T* __restrict__ q, const T* __restrict__ k, const T* __res
       const int d = t + TPR * i;
       if (d < D) orow[d] = from_float<T>(no_real_key ? 0.f : acc[i] / denom);
     }
+    if (WITH_STATS && t == 0) {
+      const size_t idx = (size_t)bh * Lq + row;
+      m_out[idx] = no_real_key ? 0.f : m;
+      l_out[idx] = no_real_key ? 0.f : l;
+    }
   }
 }
 
-template <typename T, int NI>
+template <typename T, int NI, bool WITH_STATS>
 cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_mask, void* o,
-                   int B, int H, int Lq, int Lk, int D, float scale, cudaStream_t stream) {
+                   void* m_out, void* l_out, int B, int H, int Lq, int Lk, int D,
+                   float scale, cudaStream_t stream) {
   const int ld = (D % 2 == 0) ? D + 1 : D;  // odd stride: conflict-free row reads
   const size_t smem = sizeof(float) * ((size_t)BQ * ld + 2 * (size_t)BK * ld +
                                        (size_t)BQ * (BK + 1) + BK);
   // Above 48 KB a kernel's dynamic shared memory must be opted into; set
   // on every launch, since the attribute belongs to the current device.
-  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, NI>,
+  cudaError_t err = cudaFuncSetAttribute(attn_fwd_kernel<T, NI, WITH_STATS>,
                                          cudaFuncAttributeMaxDynamicSharedMemorySize,
                                          (int)smem);
   if (err != cudaSuccess) return err;
   const dim3 grid((unsigned)(B * H), (unsigned)((Lq + BQ - 1) / BQ));
-  attn_fwd_kernel<T, NI><<<grid, THREADS, smem, stream>>>(
+  attn_fwd_kernel<T, NI, WITH_STATS><<<grid, THREADS, smem, stream>>>(
       static_cast<const T*>(q), static_cast<const T*>(k), static_cast<const T*>(v),
-      static_cast<const float*>(kv_mask), static_cast<T*>(o), H, Lq, Lk, D, ld, scale);
+      static_cast<const float*>(kv_mask), static_cast<T*>(o), static_cast<float*>(m_out),
+      static_cast<float*>(l_out), H, Lq, Lk, D, ld, scale);
   return cudaGetLastError();
+}
+
+template <bool WITH_STATS>
+int dispatch(const void* q, const void* k, const void* v, const void* kv_mask, void* o,
+             void* m_out, void* l_out, int B, int H, int Lq, int Lk, int D, float scale,
+             int is_bf16, void* stream) {
+  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > MAX_D) {
+    return (int)cudaErrorInvalidValue;
+  }
+  cudaStream_t s = static_cast<cudaStream_t>(stream);
+  cudaError_t err;
+  if (is_bf16) {
+    err = D <= 64 ? launch<__nv_bfloat16, 16, WITH_STATS>(q, k, v, kv_mask, o, m_out, l_out,
+                                                          B, H, Lq, Lk, D, scale, s)
+                  : launch<__nv_bfloat16, 32, WITH_STATS>(q, k, v, kv_mask, o, m_out, l_out,
+                                                          B, H, Lq, Lk, D, scale, s);
+  } else {
+    err = D <= 64 ? launch<float, 16, WITH_STATS>(q, k, v, kv_mask, o, m_out, l_out,
+                                                  B, H, Lq, Lk, D, scale, s)
+                  : launch<float, 32, WITH_STATS>(q, k, v, kv_mask, o, m_out, l_out,
+                                                  B, H, Lq, Lk, D, scale, s);
+  }
+  return (int)err;
 }
 
 }  // namespace
@@ -197,17 +244,15 @@ cudaError_t launch(const void* q, const void* k, const void* v, const void* kv_m
 extern "C" int flash_attention_fwd(const void* q, const void* k, const void* v,
                                    const void* kv_mask, void* o, int B, int H, int Lq,
                                    int Lk, int D, float scale, int is_bf16, void* stream) {
-  if (B < 1 || H < 1 || Lq < 1 || Lk < 1 || D < 1 || D > MAX_D) {
-    return (int)cudaErrorInvalidValue;
-  }
-  cudaStream_t s = static_cast<cudaStream_t>(stream);
-  cudaError_t err;
-  if (is_bf16) {
-    err = D <= 64 ? launch<__nv_bfloat16, 16>(q, k, v, kv_mask, o, B, H, Lq, Lk, D, scale, s)
-                  : launch<__nv_bfloat16, 32>(q, k, v, kv_mask, o, B, H, Lq, Lk, D, scale, s);
-  } else {
-    err = D <= 64 ? launch<float, 16>(q, k, v, kv_mask, o, B, H, Lq, Lk, D, scale, s)
-                  : launch<float, 32>(q, k, v, kv_mask, o, B, H, Lq, Lk, D, scale, s);
-  }
-  return (int)err;
+  return dispatch<false>(q, k, v, kv_mask, o, nullptr, nullptr, B, H, Lq, Lk, D, scale,
+                         is_bf16, stream);
+}
+
+// As flash_attention_fwd, and also writes m and l, [B,H,Lq] contiguous f32:
+// each row's score max and softmax normaliser, both 0 on a row with no real key.
+extern "C" int flash_attention_stats_fwd(const void* q, const void* k, const void* v,
+                                         const void* kv_mask, void* o, void* m, void* l,
+                                         int B, int H, int Lq, int Lk, int D, float scale,
+                                         int is_bf16, void* stream) {
+  return dispatch<true>(q, k, v, kv_mask, o, m, l, B, H, Lq, Lk, D, scale, is_bf16, stream);
 }

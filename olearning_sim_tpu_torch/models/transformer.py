@@ -18,7 +18,15 @@ written, since the parity tests hold the two against each other:
   the compute dtype (so a query row with no real key attends uniformly);
 - ``attention_impl="flash"`` is one fused qkv projection, the
   :func:`~olearning_sim_tpu_torch.ops.flash_attention` kernel (forward
-  only: evaluation, not training) and an ``attn_out`` projection.
+  only: evaluation, not training) and an ``attn_out`` projection;
+- ``attention_impl="ring"`` is sequence-parallel ring attention
+  (:mod:`olearning_sim_tpu_torch.parallel.ring_attention`) with the dense
+  branch's ``query``/``key``/``value``/``out`` parameters, so the same
+  weights apply under either. ``tokens`` is then this rank's chunk of the
+  sequence: positions are offset by ``sp_rank * L``, and the mean-pool sums
+  over the ``sp_group`` passed to ``forward`` (``None``: a ring of one).
+  ``ring_use_flash`` takes each ring step through the stats kernel
+  (trainable) instead of plain torch ops.
 
 Linear layers keep PyTorch's ``[out, in]`` weight layout;
 :mod:`olearning_sim_tpu_torch.weights` converts from and to the flax
@@ -37,6 +45,11 @@ import torch.nn.functional as F
 
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.ops import flash_attention
+from olearning_sim_tpu_torch.parallel.ring_attention import (
+    all_reduce_sum,
+    group_rank,
+    ring_self_attention,
+)
 
 LN_EPS = 1e-6
 # flax's lecun_normal: truncated normal at +-2 sigma, rescaled to unit variance.
@@ -55,19 +68,15 @@ def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.
 class TransformerBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_dim: int,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", ring_use_flash: bool = False):
         super().__init__()
-        if attention_impl == "ring":
-            raise NotImplementedError(
-                "attention_impl='ring' (sequence-parallel ring attention) is "
-                "not ported yet; see ROADMAP.md"
-            )
-        if attention_impl not in ("dense", "flash"):
+        if attention_impl not in ("dense", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
         self.heads, self.dtype = heads, dtype
         self.attention_impl = attention_impl
+        self.ring_use_flash = ring_use_flash
         if attention_impl == "flash":
             self.qkv = nn.Linear(width, 3 * width)
             self.attn_out = nn.Linear(width, width)
@@ -105,10 +114,13 @@ class TransformerBlock(nn.Module):
         o = o.transpose(1, 2).reshape(B, L, W)
         return _dense(o, self.attn_out, self.dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, sp_group=None) -> torch.Tensor:
         # pad_mask: [B, L] bool, True = real token.
         if self.attention_impl == "flash":
             y = self._flash_attention(x, pad_mask)
+        elif self.attention_impl == "ring":
+            y = ring_self_attention(self, x, pad_mask, sp_group, self.heads, self.dtype,
+                                    self.ring_use_flash)
         else:
             y = self._dense_attention(x, pad_mask)
         x = _layer_norm(x + y, self.ln_1, self.dtype)  # post-LN, BERT-style
@@ -123,31 +135,41 @@ class TextTransformer(nn.Module):
                  width: int = 768, depth: int = 6, heads: int = 12,
                  mlp_dim: int = 3072, num_classes: int = 2, pad_id: int = 0,
                  dtype: torch.dtype = torch.bfloat16,
-                 attention_impl: str = "dense"):
+                 attention_impl: str = "dense", ring_use_flash: bool = False):
         super().__init__()
         self.pad_id, self.dtype = pad_id, dtype
+        self.max_len, self.attention_impl = max_len, attention_impl
         self.embed = nn.Embedding(vocab_size, width)
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))
         self.ln_emb = nn.LayerNorm(width)
         self.blocks = nn.ModuleList(
-            TransformerBlock(width, heads, mlp_dim, dtype, attention_impl)
+            TransformerBlock(width, heads, mlp_dim, dtype, attention_impl, ring_use_flash)
             for _ in range(depth)
         )
         self.head = nn.Linear(width, num_classes)
 
-    def forward(self, tokens: torch.Tensor) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, sp_group=None) -> torch.Tensor:
         # tokens: [B, L] integer ids; returns [B, num_classes] f32 logits.
+        # Under attention_impl="ring", tokens is this rank's chunk of the
+        # sequence over sp_group (None: the whole sequence, a ring of one).
+        ring = self.attention_impl == "ring"
+        if sp_group is not None and not ring:
+            raise ValueError("sp_group needs attention_impl='ring'")
         pad_mask = tokens != self.pad_id
         L = tokens.shape[1]
+        offset = group_rank(sp_group) * L if ring else 0
+        if offset + L > self.max_len:
+            raise ValueError(
+                f"positions {offset}..{offset + L - 1} exceed max_len {self.max_len}")
         emb = F.embedding(tokens, self.embed.weight)
-        x = (emb + self.pos_embedding[:, :L]).to(self.dtype)
+        x = (emb + self.pos_embedding[:, offset:offset + L]).to(self.dtype)
         x = _layer_norm(x, self.ln_emb, self.dtype)
         for block in self.blocks:
-            x = block(x, pad_mask)
-        # Mean-pool over real tokens.
+            x = block(x, pad_mask, sp_group)
+        # Mean-pool over real tokens (of the global sequence under ring).
         m = pad_mask[..., None].float()
-        s = (x.float() * m).sum(1)
-        c = m.sum(1)
+        s = all_reduce_sum((x.float() * m).sum(1), sp_group)
+        c = all_reduce_sum(m.sum(1), sp_group)
         pooled = s / torch.clamp(c, min=1.0)
         return F.linear(pooled, self.head.weight, self.head.bias)
 

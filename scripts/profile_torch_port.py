@@ -1,15 +1,21 @@
 #!/usr/bin/env python3
-"""Where the time goes in the PyTorch port's main path, on one GPU.
+"""Where the time goes in the PyTorch port's main paths, on one GPU.
 
-Runs the configuration of ``chip_smoke.py``'s main path (full-width
-DistilBERT, FedAdam, 16 synthetic clients in blocks of 8, batch 16, 4 local
-steps; 2048 eval rows) and prints:
+Runs the configurations of ``chip_smoke.py``'s paths and prints:
 
-- steady round time over ``--rounds`` rounds after one warm-up round
-  (host clock around work that ends in ``torch.cuda.synchronize()``);
-- for one profiled round and one profiled flash-attention ``evaluate``:
-  wall time, device busy time (union of kernel intervals), the device's
-  idle share, and the kernels that take the most device time.
+- FL path (full-width DistilBERT, FedAdam, 16 synthetic clients in blocks
+  of 8, batch 16, 4 local steps; 2048 eval rows): steady round time over
+  ``--rounds`` rounds after one warm-up round;
+- long-context path (full-width DistilBERT with ring attention on a ring of
+  one, max_len 2048, 8 rows of 2048 tokens with padded tails): steady
+  forward and SGD-step times over 5 repetitions after a warm-up,
+  with the stats kernel (``ring_use_flash=True``) and with the dense
+  combine;
+
+each on the host clock around work that ends in ``torch.cuda.synchronize()``,
+and, for one profiled round, flash and dense ``evaluate``, and long-context
+forward and step: wall time, device busy time (union of kernel intervals),
+the device's idle share, and the kernels that take the most device time.
 
 Usage::
 
@@ -133,7 +139,71 @@ def main() -> int:
     profile("flash_evaluate", lambda: flash.evaluate(fparams, x_eval, y_eval), out_dir)
     dense_params = holder["state"].params
     profile("dense_evaluate", lambda: core.evaluate(dense_params, x_eval, y_eval), out_dir)
+    long_context(dev, out_dir)
     return 0
+
+
+def _steady(fn, reps):
+    import torch
+
+    fn()  # warm-up
+    times = []
+    for _ in range(reps):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+    return statistics.median(times), min(times), max(times)
+
+
+def long_context(dev, out_dir, reps=5):
+    """Forward and SGD step of the full-width ring model on a ring of one,
+    through the stats kernel and through the dense combine."""
+    import numpy as np
+    import torch
+    import torch.nn.functional as F
+
+    from olearning_sim_tpu_torch.engine.algorithms import SGD
+    from olearning_sim_tpu_torch.models import get_model
+
+    B, L = 8, 2048
+    rng = np.random.default_rng(0)
+    spec = get_model("distilbert")
+    tokens = rng.integers(1, spec.defaults["vocab_size"], size=(B, L))
+    for row, n in ((1, 1536), (3, 1000), (5, 257), (7, 1800)):  # padded tails
+        tokens[row, n:] = 0
+    tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
+    labels = torch.as_tensor(rng.integers(0, 2, size=B), dtype=torch.long, device=dev)
+    params = None
+    for use_flash, tag in ((True, "k2"), (False, "dense_combine")):
+        model = spec.build(max_len=L, attention_impl="ring", ring_use_flash=use_flash)
+        if params is None:
+            params = model.init_params(torch.Generator().manual_seed(0))
+        model.load_state_dict(params)
+        model.to(dev)
+
+        def forward():
+            with torch.no_grad():
+                model(tok)
+
+        def step():
+            model.zero_grad(set_to_none=True)
+            F.cross_entropy(model(tok).float(), labels).backward()
+            grads = {k: p.grad for k, p in model.named_parameters()}
+            updates, _ = SGD(0.01).update(grads, {})
+            with torch.no_grad():
+                for k, p in model.named_parameters():
+                    p.add_(updates[k])
+
+        for what, fn in (("forward", forward), ("sgd_step", step)):
+            torch.cuda.reset_peak_memory_stats(dev)
+            med, lo, hi = _steady(fn, reps)
+            print(f"long-context {what} ({tag}, {B} x {L} tokens, ring of one): {reps} "
+                  f"steady reps, median {med:.4f} s, min {lo:.4f} s, max {hi:.4f} s; peak "
+                  f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.2f} GiB")
+            profile(f"long_context_{what}_{tag}", fn, out_dir)
+        model.to("cpu")
 
 
 if __name__ == "__main__":

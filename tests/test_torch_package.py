@@ -25,6 +25,9 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import olearning_sim_tpu_torch.engine, olearning_sim_tpu_torch.weights\n"
         "import olearning_sim_tpu_torch.models.transformer, chip_smoke\n"
+        "import olearning_sim_tpu_torch.parallel.mesh\n"
+        "import olearning_sim_tpu_torch.parallel.ring_attention\n"
+        "import olearning_sim_tpu_torch.parallel.long_context\n"
         "bad = sorted(m for m in sys.modules if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'olearning_sim_tpu', 'triton'))\n"
         "print(bad)\n"

@@ -1,5 +1,5 @@
-"""The port's TextTransformer (dense and flash attention) against the JAX
-package's flax module on the same parameters, carried over by
+"""The port's TextTransformer (dense, flash and ring attention) against the
+JAX package's flax module on the same parameters, carried over by
 olearning_sim_tpu_torch.weights; the weight converter's round trip; the
 registry's defaults."""
 
@@ -99,9 +99,28 @@ def test_flash_model_refuses_training():
         model(torch.from_numpy(_tokens()).long())
 
 
-def test_ring_attention_not_ported():
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        get_model("distilbert").build(**SMALL, attention_impl="ring")
+@pytest.mark.parametrize("ring_use_flash", [False, True])
+def test_ring_of_one_matches_jax_ring_model(ring_use_flash):
+    """The ring model with sp_group=None (a ring of one, as on one GPU)
+    against JAX's ring model on a 1-device sp mesh (tests/test_ops.py), on
+    the dense model's parameters, which both carry unchanged."""
+    from jax.sharding import Mesh, PartitionSpec as P
+
+    params = _jax_params(_jax_model("dense"), 5)
+    tok = _tokens(5)
+    jm = _jax_model("ring", ring_use_flash=ring_use_flash)
+    mesh1 = Mesh(np.array(jax.devices()[:1]), ("sp",))
+    ref = jax.jit(jax.shard_map(lambda p, t: jm.apply({"params": p}, t), mesh=mesh1,
+                                in_specs=(P(), P(None, "sp")), out_specs=P()))(params, tok)
+    model = get_model("distilbert").build(**SMALL, dtype=torch.float32,
+                                          attention_impl="ring",
+                                          ring_use_flash=ring_use_flash)
+    model.load_state_dict(params_from_jax(params))
+    with torch.no_grad():
+        out = model(torch.from_numpy(tok).long())
+    np.testing.assert_allclose(out.numpy(), np.asarray(ref), atol=LOGITS_ATOL, rtol=0)
+    with pytest.raises(ValueError, match="max_len"):
+        model(torch.ones((1, SMALL["max_len"] + 1), dtype=torch.long))
 
 
 def test_registry_defaults_match_jax():
