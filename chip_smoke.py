@@ -13,10 +13,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 3. Kernel phase: each kernel (K1 ``flash_attention``, K2
    ``flash_attention_stats``) against its plain PyTorch version on the card,
    at its path's shape and at ragged, multi-tile and masked shapes, in bf16
-   and f32, with the tolerance stated; K2's stats over two K/V halves,
-   folded by the ring merge, against the whole; then kernel, plain and
-   library times at each path's shape beside the card's least possible time
-   (the bound).
+   and f32, with the tolerance stated (bf16 runs the wgmma + TMA
+   instance, f32 the SIMT one); K2's stats over two K/V halves, folded by
+   the ring merge, against the whole; then kernel, plain and library times
+   at each path's shape beside the card's least possible time (the bound),
+   and the f32 instance's time there.
 4. Main path: two full-width DistilBERT FedAdam rounds (768/12/6/3072,
    vocab 30522, L 64; dense attention) on 16 synthetic clients, then
    ``evaluate`` on 2048 held-out rows.
@@ -41,6 +42,7 @@ from __future__ import annotations
 import json
 import math
 import pathlib
+import re
 import subprocess
 import sys
 import time
@@ -96,9 +98,13 @@ def build_all():
     log(f"build: {len(sources)} kernel source(s) in {time.perf_counter() - t0:.1f} s: "
         + ", ".join(str(p) for p in libs))
     for src, text in _build.build_logs.items():
+        kernel = ""
         for line in text.splitlines():
+            if "Compiling entry function" in line:
+                found = re.search(r"(attn_\w+?_kernel)ILi(\d+)ELb(\d)", line)
+                kernel = f" {found[1]}<{found[2]}, {found[3]}>" if found else ""
             if "registers" in line or "spill" in line:
-                log(f"  ptxas {src}: {line.strip()}")
+                log(f"  ptxas {src}{kernel}: {line.strip()}")
 
 
 def cuda_time_ms(fn, iters=20, warmup=3) -> float:
@@ -189,6 +195,8 @@ RAGGED_CASES = [
     (2, 4, 512, 512, 64),    # multi-tile Lk
     (2, 3, 70, 200, 128),    # Lq != Lk, widest head dim
     (4, 2, 33, 130, 96),     # ragged D above 64
+    (2, 3, 100, 77, 36),     # D not a multiple of 8: the wrapper pads bf16 D to 40
+    (2, 4, 300, 1000, 64),   # Lq != Lk over several 128-key tiles, ragged last tile
 ]
 
 
@@ -196,8 +204,12 @@ def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, de
     """Kernel, plain and library times (ms) at ``slice_shape`` in bf16 with
     every key real, and the bound: the larger of the bytes the function must
     move (q, k, v and the mask read once; o, and K2's m and l, written once)
-    over 3.35 TB/s and its 4*B*H*Lq*Lk*D operations over the bf16 peak."""
+    over 3.35 TB/s and its 4*B*H*Lq*Lk*D operations over the bf16 peak; the
+    roofline share bound / kernel time; the design of each dtype's instance
+    and the f32 instance's time at the same shape."""
     import torch
+
+    from olearning_sim_tpu_torch.ops.flash_attention import plan_launch
 
     B, H, Lq, Lk, D = slice_shape
     q, k, v = (torch.randn((B, H, L, D), generator=gen).to(dev, torch.bfloat16)
@@ -208,6 +220,10 @@ def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, de
         ms = cuda_time_ms(lambda: kernel(q, k, v, kv_mask=mask))
         plain_ms = cuda_time_ms(lambda: plain(q, k, v, kv_mask=mask))
         library_ms = cuda_time_ms(lambda: library(q, k, v, attn_mask=bool_mask))
+        qf, kf, vf = q.float(), k.float(), v.float()
+        f32_ms = cuda_time_ms(lambda: kernel(qf, kf, vf, kv_mask=mask), iters=5, warmup=1)
+    design = {str(dt).split(".")[-1]: plan_launch(dt, D, Lk).design
+              for dt in (torch.bfloat16, torch.float32)}
     stats_bytes = 2 * B * H * Lq * 4 if name == "flash_attention_stats" else 0
     nbytes = 2 * (B * H * Lq * D * 2 + B * H * Lk * D * 2) + B * Lk * 4 + stats_bytes
     flops = 4 * B * H * Lq * Lk * D
@@ -217,9 +233,11 @@ def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, de
     log(f"time {name} bf16 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library ({library_name}) {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP)")
+        f"{flops / 1e9:.2f} GFLOP), roofline share {bound_ms / ms:.4f}; f32 kernel "
+        f"{f32_ms:.4f} ms; design {design}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms}
+            "library_ms": library_ms, "roofline_share": bound_ms / ms, "design": design,
+            "f32_ms": f32_ms}
 
 
 def kernel_phase(dev):

@@ -4,8 +4,10 @@
 
 :func:`flash_attention` and :func:`flash_attention_stats` take the JAX
 entry points' signatures and layout (``[B, H, L, D]``). On CUDA tensors
-they launch the hand-written Hopper kernel in ``csrc/flash_attention.cu``
-(two entries of one kernel template); on CPU tensors they run the plain
+they launch the hand-written Hopper kernels in ``csrc/flash_attention.cu``
+(two entries; bf16 runs the wgmma + TMA instance, f32 the SIMT one, as
+:func:`plan_launch` records, with bf16 D zero-padded to a multiple of 8 by
+:func:`pad_inputs`); on CPU tensors they run the plain
 PyTorch versions of the same arithmetic, :func:`flash_attention_reference`
 and :func:`flash_attention_stats_reference`. There is no fall-back from one
 to the other.
@@ -23,7 +25,7 @@ from __future__ import annotations
 
 import ctypes
 import math
-from typing import Optional, Tuple
+from typing import NamedTuple, Optional, Tuple
 
 import torch
 
@@ -104,6 +106,49 @@ def _check(q, k, v, kv_mask, name):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
+# Keys per K/V tile of the bf16 kernel: its mask rows are padded to a multiple.
+KV_TILE = 128
+
+
+class LaunchPlan(NamedTuple):
+    """How :func:`_launch` hands a call to ``csrc/flash_attention.cu``."""
+
+    design: str     # "wgmma+tma" (bf16) or "simt" (f32): the kernel instance
+    d_pad: int      # head dim the kernel sees (bf16: D zero-padded to a multiple of 8)
+    mask_cols: int  # row length of the f32 mask the kernel reads (zeros past Lk)
+
+
+def plan_launch(dtype: torch.dtype, D: int, Lk: int) -> LaunchPlan:
+    """The kernel instance and padding for a call, as the C entries choose
+    them: bf16 takes the wgmma + TMA kernel, whose TMA rows must be a
+    multiple of 16 bytes (D padded to a multiple of 8) and whose mask tiles
+    are 128 keys; f32 takes the SIMT kernel as it is."""
+    if D > 128:
+        raise ValueError(f"the CUDA kernel takes head dims up to 128, got {D}")
+    if dtype == torch.bfloat16:
+        d_pad = -(-D // 8) * 8
+        return LaunchPlan("wgmma+tma", d_pad, -(-Lk // KV_TILE) * KV_TILE)
+    return LaunchPlan("simt", D, Lk)
+
+
+def pad_inputs(q, k, v, kv_mask, plan: LaunchPlan):
+    """``(q, k, v, mask)`` as the kernel takes them: q, k, v with D
+    zero-padded to ``plan.d_pad`` (zero columns add nothing to q k^T) on
+    16-byte aligned storage, and the f32 mask ``[B, plan.mask_cols]``, 0
+    past Lk. The caller keeps the scale of the unpadded D and slices o."""
+    B, _, _, D = q.shape
+    Lk = k.shape[2]
+
+    def prep(t):
+        if plan.d_pad != D:
+            t = torch.nn.functional.pad(t, (0, plan.d_pad - D))
+        return t if t.data_ptr() % 16 == 0 else t.clone()
+
+    mask = torch.zeros((B, plan.mask_cols), dtype=torch.float32, device=q.device)
+    mask[:, :Lk] = 1.0 if kv_mask is None else kv_mask.to(torch.float32)
+    return prep(q), prep(k), prep(v), mask
+
+
 def _launch(q, k, v, kv_mask, scale, stats):
     """Launch the CUDA kernel on contiguous CUDA tensors; returns ``o``, or
     ``(o, m, l)`` when ``stats``. Counts nothing: the callers do."""
@@ -111,19 +156,15 @@ def _launch(q, k, v, kv_mask, scale, stats):
 
     B, H, Lq, D = q.shape
     Lk = k.shape[2]
-    if D > 128:
-        raise ValueError(f"the CUDA kernel takes head dims up to 128, got {D}")
+    plan = plan_launch(q.dtype, D, Lk)
     for name, t in (("q", q), ("k", k), ("v", v)):
         if not t.is_contiguous():
             raise ValueError(f"{name} must be contiguous")
-    if kv_mask is None:
-        mask = torch.ones((B, Lk), dtype=torch.float32, device=q.device)
-    else:
-        mask = kv_mask.to(torch.float32).contiguous()
+    qp, kp, vp, mask = pad_inputs(q, k, v, kv_mask, plan)
     lib = _build.load("flash_attention.cu")
-    vp, ci = ctypes.c_void_p, ctypes.c_int
-    o = torch.empty_like(q)
-    ptrs = [q.data_ptr(), k.data_ptr(), v.data_ptr(), mask.data_ptr(), o.data_ptr()]
+    c_ptr, c_int = ctypes.c_void_p, ctypes.c_int
+    o = torch.empty_like(qp)
+    ptrs = [qp.data_ptr(), kp.data_ptr(), vp.data_ptr(), mask.data_ptr(), o.data_ptr()]
     if stats:
         m = torch.empty((B, H, Lq), dtype=torch.float32, device=q.device)
         l = torch.empty_like(m)
@@ -131,12 +172,15 @@ def _launch(q, k, v, kv_mask, scale, stats):
         fn = lib.flash_attention_stats_fwd
     else:
         fn = lib.flash_attention_fwd
-    fn.argtypes = [vp] * len(ptrs) + [ci, ci, ci, ci, ci, ctypes.c_float, ci, vp]
-    fn.restype = ci
+    fn.argtypes = [c_ptr] * len(ptrs) + [c_int] * 6 + [ctypes.c_float, c_int, c_ptr]
+    fn.restype = c_int
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    err = fn(*ptrs, B, H, Lq, Lk, D, float(scale), int(q.dtype == torch.bfloat16), stream)
+    err = fn(*ptrs, B, H, Lq, Lk, plan.d_pad, plan.mask_cols, float(scale),
+             int(q.dtype == torch.bfloat16), stream)
     if err != 0:
         raise RuntimeError(f"{fn.__name__} CUDA launch failed: cudaError {err}")
+    if plan.d_pad != D:
+        o = o[..., :D].contiguous()
     return (o, m, l) if stats else o
 
 
