@@ -31,6 +31,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    whose gradients must agree with the dense-combine step's; K2 must launch
    6 times per forward.
 
+7. Headline families (no kernel of the repo is on this path: ``mlp2`` and
+   ``cnn4`` are torch convolutions, matrix products and elementwise ops, as
+   the JAX package leaves them to XLA), each at its task config's
+   population and published width, seed 0:
+   7a ``fedavg_mnist_mlp``: mlp2 784-200-10, 100 IID clients (n_local 64,
+      class_sep 2.0), block 32, batch 32, 10 local steps, FedAvg lr 0.05,
+      3 rounds, ``evaluate`` on 1024 rows;
+   7b ``fedavg_cifar10_cnn``: cnn4 (32/64/128) at 32x32x3, 1000 clients
+      (n_local 50, Dirichlet 0.5), block 128, 3 rounds, 2048 eval rows;
+   7c ``scaffold_mnist_mlp``: SCAFFOLD at 7a's population, 2 rounds; the
+      server control must be finite and non-zero;
+   7d FedProx (mu 0.1, lr 0.03) on cnn4 at 7b's population, 2 rounds;
+   7e Ditto (lam 0.1, lr 0.03, bf16 personal params) on mlp2 at 7a's
+      population with local steps 8 / 5 / 2 over thirds of the clients,
+      2 rounds, then ``evaluate_personal``;
+   7f ``fedavg_mnist_mlp_bf16``: 7a with the bf16 local-SGD carry, 2 rounds;
+   then one FedAvg round of cnn4, two SCAFFOLD rounds (the second applies
+   the correction g + c - c_i) and one Ditto round of mlp2 on 8 clients,
+   each on the card and on the CPU with the same indices, held against
+   each other.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -39,6 +60,7 @@ phase 6; K1's is read just after phase 5, K2's just after phase 6. The last line
 
 from __future__ import annotations
 
+import dataclasses
 import json
 import math
 import pathlib
@@ -63,6 +85,15 @@ EVAL_LOSS_TOL = 2e-2
 # gradients: ||g_flash - g_dense|| / ||g_dense|| over all parameters.
 LC_LOGITS_ATOL = 5e-2
 LC_GRAD_REL = 5e-2
+# Phase 7, a round on the card against the same round on the CPU (same
+# parameters, data and indices, bf16 compute with f32 accumulation on both,
+# TF32 off): the two differ where cuDNN/cuBLAS and the CPU accumulate in
+# another order and a bf16 activation or gradient rounds to the neighbouring
+# value (2^-8 relative). Over one round of up to 10 local steps that moves
+# each step's update by well under 1%; a wrong padding, layout or update
+# rule moves it by O(1). Compared: what the (last) round moved (global
+# params, and SCAFFOLD's c_i and c, Ditto's v_k), as ||card - cpu|| / ||cpu||.
+CARD_CPU_REL = 5e-2
 # The Pallas kernels that csrc/flash_attention.cu replaces: _attn_kernel and
 # _attn_stats_kernel in the JAX package's ops/flash_attention.py (the port's
 # code names that package nowhere else).
@@ -494,6 +525,207 @@ def long_context_path(dev):
     return launches
 
 
+def fl_rounds(label, core, ds, dev, rounds, x_eval, y_eval, num_steps=None):
+    """Drive ``rounds`` rounds of ``core`` on the placed population ``ds``
+    through the entry points a user calls, check every round, print the
+    sub-phase's numbers and return the final state and per-client state."""
+    import statistics
+
+    import torch
+
+    alg = core.algorithm
+    real = ds.num_real_clients
+    steps = num_steps if num_steps is not None else torch.full(
+        (ds.num_clients,), core.config.max_local_steps, dtype=torch.int64)
+    expect = int(((steps[:real] > 0) & (ds.weight[:real].cpu() > 0)).sum())
+    state = core.init_state(seed=0, device=dev)
+    aux = {}  # the round's per-client state, passed in and returned
+    if alg.control_variates:
+        aux = {"control": core.init_control(state, ds.num_clients)}
+    if alg.personalized:
+        aux = {"personal": core.init_personal(state, ds.num_clients)}
+    n_params = sum(p.numel() for p in state.params.values())
+    log(f"{label}: {n_params} params, {real} clients (padded to {ds.num_clients}), "
+        f"block {core.config.block_clients}, batch {core.config.batch_size}, steps "
+        f"{core.config.max_local_steps}, {alg.name}")
+    torch.cuda.reset_peak_memory_stats(dev)
+    times = []
+    for r in range(rounds):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state, metrics, *new_aux = core.round_step(state, ds, num_steps=num_steps, **aux)
+        aux = dict(zip(aux, new_aux))
+        loss = float(metrics.mean_loss)
+        torch.cuda.synchronize()
+        times.append(time.perf_counter() - t0)
+        trained = float(metrics.clients_trained)
+        client_loss = metrics.client_loss[:real][steps[:real].to(dev) > 0]
+        if not (math.isfinite(loss) and bool(torch.isfinite(client_loss).all())):
+            raise AssertionError(f"{label} round {r}: non-finite loss {loss}")
+        if trained != expect:
+            raise AssertionError(f"{label} round {r}: {trained} clients trained, "
+                                 f"expected {expect}")
+        extra = (f" personal_loss={float(metrics.personal_loss):.6f}"
+                 if alg.personalized else "")
+        log(f"{label} round {r}: mean_loss={loss:.6f}{extra} clients_trained="
+            f"{trained:.0f} seconds={times[-1]:.4f}")
+    rps = 1.0 / statistics.median(times[1:])
+    peak = torch.cuda.max_memory_allocated(dev) / 2**30
+    eval_loss, eval_acc = core.evaluate(state.params, x_eval, y_eval)
+    if not math.isfinite(eval_loss):
+        raise AssertionError(f"{label}: evaluate loss is not finite")
+    line = (f"{label}: rounds/sec after the first {rps:.4f}, device-rounds/sec "
+            f"{real * rps:.1f}, peak device memory {peak:.3f} GiB, evaluate on "
+            f"{len(y_eval)} rows loss={eval_loss:.6f} acc={eval_acc:.4f}")
+    if alg.personalized:
+        p_loss, p_acc = core.evaluate_personal(aux["personal"], ds)
+        if not math.isfinite(p_loss):
+            raise AssertionError(f"{label}: evaluate_personal loss is not finite")
+        line += f", evaluate_personal loss={p_loss:.6f} acc={p_acc:.4f}"
+    log(line + f" | {card_line()}")
+    return state, aux
+
+
+def card_vs_cpu(dev, label, family, alg, cfg, shape, n_local, alpha, num_steps=None,
+                rounds=1):
+    """``rounds`` rounds of 8 clients on the card and on the CPU from the
+    same parameters, data and minibatch indices; what the last round moved
+    (and the controls it left) must agree within CARD_CPU_REL (relative
+    L2). SCAFFOLD takes two rounds: in the first c = c_i = 0, so only the
+    second applies the correction g + c - c_i."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import build_fedcore, make_synthetic_dataset
+
+    host = make_synthetic_dataset(0, 8, n_local, shape, 10, dirichlet_alpha=alpha)
+    gen = torch.Generator().manual_seed(7)
+    draws, results = [], []
+    for where in (dev, torch.device("cpu")):
+        core = build_fedcore(family, alg, cfg, input_shape=shape, device=where)
+        ds = host.to(where)
+        state = core.init_state(seed=0, device=where)
+        if not draws:
+            draws = [(core.draw_indices(gen, ds.num_samples),
+                      core.draw_indices(gen, ds.num_samples) if alg.personalized else None)
+                     for _ in range(rounds)]
+        aux = {}
+        if alg.control_variates:
+            aux["control"] = core.init_control(state, ds.num_clients)
+        if alg.personalized:
+            aux["personal"] = core.init_personal(state, ds.num_clients)
+        for idx, pidx in draws:
+            kw = {"indices": idx, "num_steps": num_steps}
+            if alg.personalized:
+                kw["personal_indices"] = pidx
+                v0 = {k: v.clone() for k, v in aux["personal"].params.items()}
+            correction = (max(float((c - ci).abs().max()) for c, ci in zip(
+                aux["control"].server_control.values(),
+                aux["control"].client_controls.values()))
+                if alg.control_variates else 0.0)
+            before = {k: v.clone() for k, v in state.params.items()}
+            out = core.round_step(state, ds, **kw, **aux)
+            state, aux = out[0], dict(zip(aux, out[2:]))
+        if alg.control_variates and rounds > 1 and not correction > 0:
+            raise AssertionError(f"{label}: the compared round ran with c = c_i")
+        moved = {f"params.{k}": out[0].params[k] - before[k] for k in before}
+        if alg.control_variates:
+            moved.update({f"c_i.{k}": v for k, v in out[2].client_controls.items()})
+            moved.update({f"c.{k}": v for k, v in out[2].server_control.items()})
+        if alg.personalized:
+            moved.update({f"v_k.{k}": v.float() - v0[k].float()
+                          for k, v in out[2].params.items()})
+        results.append(({k: v.float().cpu() for k, v in moved.items()},
+                        float(out[1].mean_loss), correction))
+    (card, card_loss, corr), (cpu, cpu_loss, _) = results
+    parts, ok = [], True
+    for group in sorted({k.split(".")[0] for k in cpu}):
+        keys = [k for k in cpu if k.split(".")[0] == group]
+        num = math.sqrt(sum(float(((card[k] - cpu[k]) ** 2).sum()) for k in keys))
+        den = math.sqrt(sum(float((cpu[k] ** 2).sum()) for k in keys))
+        max_abs = max(float((card[k] - cpu[k]).abs().max()) for k in keys)
+        rel = num / den if den > 0 else float("inf")
+        ok = ok and rel <= CARD_CPU_REL
+        parts.append(f"{group} rel L2 {rel:.3e} (max |diff| {max_abs:.3e})")
+    extra = f", last round's max |c - c_i| {corr:.3e}" if alg.control_variates else ""
+    log(f"card vs CPU, {label} ({rounds} round(s){extra}): mean_loss card {card_loss:.6f} "
+        f"CPU {cpu_loss:.6f}; " + "; ".join(parts) + f" (tol {CARD_CPU_REL:g}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"{label}: the round on the card disagrees with the CPU's")
+
+
+def headline_path(dev):
+    """Phase 7: the headline families and the other algorithms."""
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        ditto,
+        fedavg,
+        fedprox,
+        make_central_eval_set,
+        make_synthetic_dataset,
+        scaffold,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    mlp_shape, cnn_shape = (784,), (32, 32, 3)
+    mlp_cfg = FedCoreConfig(batch_size=32, max_local_steps=10, block_clients=32)
+    cnn_cfg = FedCoreConfig(batch_size=32, max_local_steps=10, block_clients=128)
+    t0 = time.perf_counter()
+    mlp_ds = make_synthetic_dataset(0, 100, 64, mlp_shape, 10, class_sep=2.0)
+    mlp_ds = mlp_ds.pad_for(mlp_cfg.block_clients).to(dev)
+    cnn_ds = make_synthetic_dataset(0, 1000, 50, cnn_shape, 10, dirichlet_alpha=0.5)
+    cnn_ds = cnn_ds.pad_for(cnn_cfg.block_clients).to(dev)
+    mlp_eval = make_central_eval_set(0, 1024, mlp_shape, 10, class_sep=2.0)
+    cnn_eval = make_central_eval_set(0, 2048, cnn_shape, 10)
+    log(f"phase 7 data: mlp2 {tuple(mlp_ds.x.shape)}, cnn4 {tuple(cnn_ds.x.shape)} "
+        f"{cnn_ds.x.dtype}, made and placed in {time.perf_counter() - t0:.1f} s")
+
+    def core(family, alg, cfg):
+        shape = mlp_shape if family == "mlp2" else cnn_shape
+        return build_fedcore(family, alg, cfg, input_shape=shape, device=dev)
+
+    fl_rounds("7a fedavg_mnist_mlp", core("mlp2", fedavg(0.05), mlp_cfg), mlp_ds, dev, 3,
+              *mlp_eval)
+    fl_rounds("7b fedavg_cifar10_cnn", core("cnn4", fedavg(0.05), cnn_cfg), cnn_ds, dev, 3,
+              *cnn_eval)
+    _, aux = fl_rounds("7c scaffold_mnist_mlp", core("mlp2", scaffold(0.05), mlp_cfg),
+                       mlp_ds, dev, 2, *mlp_eval)
+    c = aux["control"].server_control
+    c_abs = max(float(v.abs().max()) for v in c.values())
+    if not (all(bool(torch.isfinite(v).all()) for v in c.values()) and c_abs > 0):
+        raise AssertionError(f"7c: server control not finite and non-zero (max |c| {c_abs})")
+    log(f"7c server control: finite, max |c| {c_abs:.4e}")
+    fl_rounds("7d fedprox cnn4", core("cnn4", fedprox(0.03, mu=0.1), cnn_cfg), cnn_ds, dev, 2,
+              *cnn_eval)
+    ditto_cfg = FedCoreConfig(batch_size=32, max_local_steps=8, block_clients=32,
+                              personal_dtype=torch.bfloat16)
+    profile_steps = np.zeros(mlp_ds.num_clients, np.int64)  # padding: no step
+    for steps, third in zip((8, 5, 2), np.array_split(np.arange(mlp_ds.num_real_clients), 3)):
+        profile_steps[third] = steps  # compute profiles high / mid / low
+    fl_rounds("7e ditto mlp2", core("mlp2", ditto(0.03, lam=0.1), ditto_cfg), mlp_ds, dev, 2,
+              *mlp_eval, num_steps=torch.from_numpy(profile_steps))
+    carry_cfg = dataclasses.replace(mlp_cfg, carry_dtype=torch.bfloat16)
+    fl_rounds("7f fedavg_mnist_mlp_bf16", core("mlp2", fedavg(0.05), carry_cfg), mlp_ds, dev,
+              2, *mlp_eval)
+    del mlp_ds, cnn_ds
+
+    small = dict(batch_size=32, max_local_steps=10, block_clients=8)
+    card_vs_cpu(dev, "cnn4 FedAvg", "cnn4", fedavg(0.05), FedCoreConfig(**small),
+                cnn_shape, 50, 0.5)
+    card_vs_cpu(dev, "mlp2 SCAFFOLD", "mlp2", scaffold(0.05), FedCoreConfig(**small),
+                mlp_shape, 64, None, rounds=2)
+    card_vs_cpu(dev, "mlp2 Ditto", "mlp2", ditto(0.03, lam=0.1),
+                FedCoreConfig(**dict(small, max_local_steps=8),
+                              personal_dtype=torch.bfloat16),
+                mlp_shape, 64, None, num_steps=torch.tensor([8, 8, 8, 5, 5, 5, 2, 2]))
+    log(f"phase 7 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -514,6 +746,7 @@ def main() -> int:
     k2 = stats_kernel_phase(dev)
     k1["launches"] = main_path(dev)
     k2["launches"] = long_context_path(dev)
+    headline_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -43,6 +43,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from olearning_sim_tpu_torch.models.common import dense as _dense
+from olearning_sim_tpu_torch.models.common import default_init_params
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.ops import flash_attention
 from olearning_sim_tpu_torch.parallel.ring_attention import (
@@ -52,12 +54,6 @@ from olearning_sim_tpu_torch.parallel.ring_attention import (
 )
 
 LN_EPS = 1e-6
-# flax's lecun_normal: truncated normal at +-2 sigma, rescaled to unit variance.
-_TRUNC_STD = 0.87962566103423978
-
-
-def _dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
-    return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
 def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
@@ -178,22 +174,17 @@ class TextTransformer(nn.Module):
         flax's initializers (normal(0.02) embeddings, lecun-normal kernels,
         zero biases, unit LayerNorm scales). The module itself is left
         untouched."""
-        out = {}
-        for name, p in self.named_parameters():
-            t = torch.empty(p.shape, dtype=torch.float32)
-            leaf = name.rsplit(".", 1)[-1]
+
+        def special(name, t):
             if name in ("embed.weight", "pos_embedding"):
                 nn.init.normal_(t, std=0.02, generator=generator)
             elif ".ln" in name or name.startswith("ln"):
-                nn.init.constant_(t, 1.0 if leaf == "weight" else 0.0)
-            elif leaf == "bias":
-                nn.init.zeros_(t)
+                nn.init.constant_(t, 1.0 if name.endswith("weight") else 0.0)
             else:
-                std = 1.0 / math.sqrt(p.shape[1]) / _TRUNC_STD
-                nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std,
-                                      generator=generator)
-            out[name] = t
-        return out
+                return False
+            return True
+
+        return default_init_params(self, generator, special)
 
 
 register_model(

@@ -1,21 +1,25 @@
 """Carry parameters between the JAX package's flax trees and the port.
 
-:func:`params_from_jax` takes the flax parameter tree of a
-``TextTransformer`` as nested dicts of numpy arrays (for example
-``jax.tree.map(np.asarray, state.params)``) and returns the port's
-parameter dict (``state_dict`` names, f32 CPU tensors);
-:func:`params_to_jax` is its inverse. Both attention layouts are handled.
-Every conversion is a reshape or transpose, so the round trip is exact.
+:func:`params_from_jax` takes a flax parameter tree as nested dicts of
+numpy arrays (for example ``jax.tree.map(np.asarray, state.params)``) and
+returns the port's parameter dict (``state_dict`` names, f32 CPU tensors);
+:func:`params_to_jax` is its inverse. Both dispatch on the tree: a
+``TextTransformer`` (either attention layout), or a stack of ``Conv_i`` /
+``Dense_j`` layers (``mlp2``, ``cnn4``, ``cnn4_pool``), which the port
+names ``conv.i`` / ``dense.j``. Every conversion is a reshape or transpose,
+so the round trip is exact.
 
 Layouts: a flax ``Dense`` kernel is ``[in, out]`` and a torch ``Linear``
-weight ``[out, in]``. The dense attention's ``DenseGeneral`` kernels are
-``query/key/value: [W, H, D]`` and ``out: [H, D, W]``; the flash branch's
-fused ``qkv`` kernel is ``[W, 3, H, D]``.
+weight ``[out, in]``; a flax ``Conv`` kernel is ``[kh, kw, c_in, c_out]``
+and a torch ``Conv2d`` weight ``[c_out, c_in, kh, kw]``. The dense
+attention's ``DenseGeneral`` kernels are ``query/key/value: [W, H, D]``
+and ``out: [H, D, W]``; the flash branch's fused ``qkv`` kernel is
+``[W, 3, H, D]``.
 """
 
 from __future__ import annotations
 
-from typing import Dict
+from typing import Dict, Optional
 
 import numpy as np
 import torch
@@ -47,8 +51,34 @@ def _norm_from(p) -> Dict[str, torch.Tensor]:
     return {"weight": _t(p["scale"]), "bias": _t(p["bias"])}
 
 
+def _layers_from(tree) -> Dict[str, torch.Tensor]:
+    out: Dict[str, torch.Tensor] = {}
+    for name, p in tree.items():
+        kind, i = name.split("_")
+        k = np.asarray(p["kernel"])
+        w = k.transpose(3, 2, 0, 1) if kind == "Conv" else k.T
+        out[f"{kind.lower()}.{i}.weight"] = _t(w)
+        out[f"{kind.lower()}.{i}.bias"] = _t(p["bias"])
+    return out
+
+
+def _layers_to(params) -> dict:
+    tree = {}
+    for name in params:
+        kind, i, leaf = name.split(".")
+        if leaf == "weight":
+            w = _n(params[name])
+            tree[f"{kind.capitalize()}_{i}"] = {
+                "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0) if kind == "conv" else w.T),
+                "bias": _n(params[f"{kind}.{i}.bias"]),
+            }
+    return tree
+
+
 def params_from_jax(tree) -> Dict[str, torch.Tensor]:
-    """flax ``TextTransformer`` params (numpy leaves) -> port param dict."""
+    """flax params (numpy leaves) -> port param dict."""
+    if "Embed_0" not in tree:
+        return _layers_from(tree)
     out: Dict[str, torch.Tensor] = {}
 
     def put(prefix, sub):
@@ -92,10 +122,14 @@ def _norm_to(params, prefix):
             "bias": _n(params[f"{prefix}.bias"])}
 
 
-def params_to_jax(params: Dict[str, torch.Tensor], heads: int) -> dict:
-    """Port param dict -> flax ``TextTransformer`` tree of numpy arrays.
-    ``heads`` fixes the head split of the attention kernels, which the
-    port's ``[out, in]`` weights do not record."""
+def params_to_jax(params: Dict[str, torch.Tensor], heads: Optional[int] = None) -> dict:
+    """Port param dict -> flax tree of numpy arrays. For a
+    ``TextTransformer``, ``heads`` fixes the head split of the attention
+    kernels, which the port's ``[out, in]`` weights do not record."""
+    if "embed.weight" not in params:
+        return _layers_to(params)
+    if heads is None:
+        raise ValueError("params_to_jax needs heads= for a TextTransformer")
     W = params["embed.weight"].shape[1]
     D = W // heads
     tree = {

@@ -12,22 +12,36 @@ Runs the configurations of ``chip_smoke.py``'s paths and prints:
   with the stats kernel (``ring_use_flash=True``) and with the dense
   combine;
 
+- headline families (``chip_smoke.py`` 7a and 7b): mlp2 FedAvg on 100
+  clients (block 32) and cnn4 FedAvg on 1000 clients (block 128), batch
+  32, 10 local steps: steady round time over ``--headline-rounds`` rounds
+  after a warm-up round, rounds/sec, device-rounds/sec (real clients x
+  rounds/sec) and peak memory;
+
 each on the host clock around work that ends in ``torch.cuda.synchronize()``,
-and, for one profiled round, flash and dense ``evaluate``, and long-context
-forward and step: wall time, device busy time (union of kernel intervals),
-the device's idle share, and the kernels that take the most device time.
+and, for one profiled round, flash and dense ``evaluate``, long-context
+forward and step, and one steady round of each headline family: wall time,
+device busy time (union of kernel intervals), the device's idle share,
+kernel launches, and the kernels that take the most device time, each with
+its kind (cuDNN convolution, GEMM, other). Under ``vmap`` the convolutions
+of per-client weights are one grouped convolution per block (groups =
+clients in the block); the cnn4 profile prints each convolution's input
+and weight shapes and its groups as the dispatcher receives them.
 
 Usage::
 
-    python3 scripts/profile_torch_port.py [--rounds 10] [--out chiprun_out/profile]
+    python3 scripts/profile_torch_port.py [--rounds 10] [--headline-rounds 5]
+        [--out chiprun_out/profile]
 
-Needs a CUDA device; writes Chrome traces of the profiled windows to ``--out``.
+Needs a CUDA device; writes gzipped Chrome traces of the profiled windows
+to ``--out``.
 """
 
 from __future__ import annotations
 
 import argparse
 import pathlib
+import re
 import statistics
 import subprocess
 import sys
@@ -48,7 +62,23 @@ def _busy_us(intervals):
     return busy
 
 
-def profile(label, fn, out_dir, top=12):
+# Kernel kinds by name: cuDNN's convolution kernels (implicit-GEMM fprop,
+# dgrad and wgrad, and its direct and grouped kernels), then GEMMs (cuBLAS's
+# xmma and nvjet kernels, CUTLASS).
+_CONV = re.compile(r"conv|fprop|dgrad|wgrad|cudnn", re.I)
+_GEMM = re.compile(r"gemm|nvjet|cutlass|cublas", re.I)
+
+
+def kernel_kind(name: str) -> str:
+    if _CONV.search(name):
+        return "cuDNN conv"
+    return "GEMM" if _GEMM.search(name) else "other"
+
+
+def profile(label, fn, out_dir, top=12, steady_s=None):
+    """Profile one call of ``fn``; ``steady_s``, the unprofiled median wall
+    time of the same call, adds the idle share against it (the profiler
+    itself lengthens the wall time of a launch-bound call)."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -60,28 +90,67 @@ def profile(label, fn, out_dir, top=12):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    trace = out_dir / f"{label}.json"
+    trace = out_dir / f"{label}.json.gz"
     prof.export_chrome_trace(str(trace))
     if not kernels:
         print(f"{label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
               f"(the profiler recorded no CUDA events)")
         return
     busy = _busy_us([(e.time_range.start, e.time_range.end) for e in kernels])
-    by_name = {}
+    by_name, by_kind = {}, {}
     for e in kernels:
         calls, total = by_name.get(e.name, (0, 0.0))
         by_name[e.name] = (calls + 1, total + e.time_range.elapsed_us())
+        calls, total = by_kind.get(kernel_kind(e.name), (0, 0.0))
+        by_kind[kernel_kind(e.name)] = (calls + 1, total + e.time_range.elapsed_us())
+    steady = ("" if steady_s is None else
+              f" (against the unprofiled median {steady_s * 1e3:.3f} ms: "
+              f"{max(0.0, 1 - busy / (steady_s * 1e6)):.4f})")
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-          f"idle share {1 - busy / wall_us:.4f}, {len(kernels)} kernel launches; "
+          f"idle share {1 - busy / wall_us:.4f}{steady}, {len(kernels)} kernel launches; "
           f"trace {trace}")
     total = sum(t for _, t in by_name.values())
+    print("  by kind: " + ", ".join(
+        f"{kind} {t / 1e3:.3f} ms ({t / total:.2%}, {calls} launches)"
+        for kind, (calls, t) in sorted(by_kind.items(), key=lambda kv: -kv[1][1])))
     for name, (calls, t) in sorted(by_name.items(), key=lambda kv: -kv[1][1])[:top]:
-        print(f"  {t / 1e3:9.3f} ms {t / total:7.2%} {calls:6d}x  {name[:110]}")
+        print(f"  {t / 1e3:9.3f} ms {t / total:7.2%} {calls:6d}x  "
+              f"[{kernel_kind(name)}] {name[:100]}")
+
+
+def conv_calls(label, fn):
+    """The ``aten.convolution`` / ``convolution_backward`` calls one call of
+    ``fn`` makes below ``vmap``: (input shape, weight shape, groups) each,
+    recorded by a dispatch mode (a profiler recording shapes holds on to
+    the round's tensors)."""
+    import torch
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    aten = torch.ops.aten
+
+    class ConvLog(TorchDispatchMode):
+        def __init__(self):
+            super().__init__()
+            self.seen = set()
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if func.overloadpacket is aten.convolution:
+                self.seen.add(("fwd", tuple(args[0].shape), tuple(args[1].shape), args[8]))
+            elif func.overloadpacket is aten.convolution_backward:
+                self.seen.add(("bwd", tuple(args[1].shape), tuple(args[2].shape), args[9]))
+            return func(*args, **(kwargs or {}))
+
+    log = ConvLog()
+    with log:
+        fn()
+    print(f"{label}: convolutions below vmap (pass, input, weight, groups): "
+          + "; ".join(str(c) for c in sorted(log.seen)))
 
 
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.splitlines()[0])
     ap.add_argument("--rounds", type=int, default=10)
+    ap.add_argument("--headline-rounds", type=int, default=5)
     ap.add_argument("--out", default=str(REPO / "chiprun_out" / "profile"))
     args = ap.parse_args()
 
@@ -140,7 +209,47 @@ def main() -> int:
     dense_params = holder["state"].params
     profile("dense_evaluate", lambda: core.evaluate(dense_params, x_eval, y_eval), out_dir)
     long_context(dev, out_dir)
+    headline(dev, out_dir, args.headline_rounds)
     return 0
+
+
+def headline(dev, out_dir, rounds):
+    """Steady FedAvg rounds of chip_smoke.py's 7a (mlp2) and 7b (cnn4), and
+    one profiled round of each."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        fedavg,
+        make_synthetic_dataset,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    for label, family, block, clients, n_local, shape, alpha in (
+            ("7a_mlp2", "mlp2", 32, 100, 64, (784,), None),
+            ("7b_cnn4", "cnn4", 128, 1000, 50, (32, 32, 3), 0.5)):
+        cfg = FedCoreConfig(batch_size=32, max_local_steps=10, block_clients=block)
+        ds = make_synthetic_dataset(0, clients, n_local, shape, 10, dirichlet_alpha=alpha)
+        ds = ds.pad_for(block).to(dev)
+        core = build_fedcore(family, fedavg(0.05), cfg, input_shape=shape, device=dev)
+        holder = {"state": core.init_state(seed=0, device=dev)}
+
+        def one_round():
+            holder["state"], metrics = core.round_step(holder["state"], ds)
+            return float(metrics.mean_loss)
+
+        torch.cuda.reset_peak_memory_stats(dev)
+        med, lo, hi = _steady(one_round, rounds)
+        print(f"headline {label}: {clients} clients, block {block}, {rounds} steady rounds, "
+              f"median {med:.4f} s ({1 / med:.4f} rounds/sec, {clients / med:.1f} "
+              f"device-rounds/sec), min {lo:.4f} s, max {hi:.4f} s; peak device memory "
+              f"{torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+        profile(f"headline_{label}_round", one_round, out_dir, steady_s=med)
+        if family == "cnn4":
+            conv_calls(f"headline {label}", one_round)
+        del ds, core, holder
 
 
 def _steady(fn, reps):

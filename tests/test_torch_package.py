@@ -25,6 +25,13 @@ def test_port_imports_no_jax():
         "import sys\n"
         "import olearning_sim_tpu_torch.engine, olearning_sim_tpu_torch.weights\n"
         "import olearning_sim_tpu_torch.models.transformer, chip_smoke\n"
+        "import olearning_sim_tpu_torch.models.mlp, olearning_sim_tpu_torch.models.cnn\n"
+        "from olearning_sim_tpu_torch.engine import (ControlState, PersonalState,\n"
+        "    make_synthetic_dataset, make_synthetic_texture_dataset, from_config,\n"
+        "    parse_float_dtype, Yogi, Adagrad)\n"
+        "from olearning_sim_tpu_torch.models import get_model\n"
+        "for name in ('mlp2', 'cnn4', 'cnn4_pool', 'distilbert'):\n"
+        "    get_model(name)\n"
         "import olearning_sim_tpu_torch.parallel.mesh\n"
         "import olearning_sim_tpu_torch.parallel.ring_attention\n"
         "import olearning_sim_tpu_torch.parallel.long_context\n"
