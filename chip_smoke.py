@@ -52,6 +52,38 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    each on the card and on the CPU with the same indices, held against
    each other.
 
+8. The task path (no kernel of the repo is on it either): task JSONs from
+   ``configs/`` through ``build_runner_from_taskconfig(..., device=dev)``
+   and the runner's ``begin``/``step``/``finish`` (what ``run()`` is), at
+   each config's published width, cut only in rounds and, for DistilBERT,
+   clients and the block of clients, by editing the loaded JSON (never the
+   file); each cut is printed:
+   8a ``fedavg_mnist_mlp`` uncut but for rounds (3 of 50), train + evaluate;
+   8b ``fedavg_cifar10_cnn`` (2 of 100 rounds); 8c ``scaffold_mnist_mlp``
+   (2 of 50); 8d ``fedadam_sent140_distilbert`` at full width, clients
+   10,000 -> 64, 2 of 200 rounds, its flow_dispatch strategy (sine
+   release, drop probability 0.05) live; its block of clients is cut from
+   64 to DISTILBERT_BLOCK, since one block of 64 does not fit the card.
+   Each prints steady rounds/sec, the per-phase times from the runner's own
+   ``ols_engine_round_phase_duration_seconds`` series, every round's
+   released/dropped/clients_trained/mean_loss/eval loss and accuracy, and
+   the task row's ``logical_result``. Then:
+   8e 8a's rounds driven directly with ``core.round_step`` from the same
+      seed, with the participation masks of ``compile_trace``: final params
+      within RUNNER_DIRECT_REL of 8a's;
+   8f 8a's task with ``{"resilience": {"failure_policy": "retry"}}``, run
+      twice: with ``runner.round_begin`` armed once at round 1 (the attempt
+      fails before it trains) and with ``runner.pre_checkpoint`` (a host
+      preemption after the attempt has trained and drawn its minibatch
+      indices from the shared generator). Each run completes with exactly
+      one rollback and final params within RETRY_REL of 8a's; the second
+      holds only if the snapshot restored the index generator's state;
+   8g 8a's task, train operator only, with ``quarantine_after: 1`` and
+      ``runner.poison_clients`` armed for clients [3, 7, 11] at round 0:
+      those three are failed in ``logical_result``, excluded from
+      ``clients_trained`` and are the clients the quarantine holds, and the
+      params stay finite.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -94,6 +126,17 @@ LC_GRAD_REL = 5e-2
 # rule moves it by O(1). Compared: what the (last) round moved (global
 # params, and SCAFFOLD's c_i and c, Ditto's v_k), as ||card - cpu|| / ||cpu||.
 CARD_CPU_REL = 5e-2
+# Phase 8e/8f: the runner against a direct loop, and a retried run against
+# a clean one: the same card, kernels, seed and minibatch draws, so the
+# two must agree to float rounding of identical work (relative L2 over all
+# parameters).
+RUNNER_DIRECT_REL = 1e-6
+RETRY_REL = 1e-6
+# Phase 8d's block of full-width DistilBERT clients (phase 4 uses 8). The
+# config's block of 64 runs an 80 GB card out of memory even alone
+# (scripts/task_path_memory.py measures each block size).
+DISTILBERT_BLOCK = 16
+ROOT = pathlib.Path(__file__).resolve().parent
 # The Pallas kernels that csrc/flash_attention.cu replaces: _attn_kernel and
 # _attn_stats_kernel in the JAX package's ops/flash_attention.py (the port's
 # code names that package nowhere else).
@@ -726,6 +769,264 @@ def headline_path(dev):
     log(f"phase 7 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+def _sync(dev):
+    import torch
+
+    if dev.type == "cuda":
+        torch.cuda.synchronize(dev)
+
+
+def _engine_params(task):
+    return json.loads(task["operatorflow"]["operators"][0]["logical_simulation"]
+                      ["operator_params"])
+
+
+def _set_engine_params(task, params):
+    task["operatorflow"]["operators"][0]["logical_simulation"]["operator_params"] = \
+        json.dumps(params)
+
+
+def block_edit(block):
+    """An ``edit`` for :func:`run_task` that sets the task's block of clients."""
+    def edit(task):
+        params = _engine_params(task)
+        old = params["fedcore"]["block_clients"]
+        params["fedcore"]["block_clients"] = block
+        _set_engine_params(task, params)
+        return f"block_clients {old} -> {block}"
+    return edit
+
+
+def _rel_l2(a, b):
+    num = sum(float(((a[k].double() - b[k].double()) ** 2).sum()) for k in b)
+    den = sum(float((b[k].double() ** 2).sum()) for k in b)
+    return math.sqrt(num / den)
+
+
+def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shrink=None):
+    """One task JSON from ``configs/`` through the port's bridge and runner.
+    ``rounds`` / ``clients`` cut the loaded JSON; ``edit(task)`` changes it
+    further and returns a description of the change; ``chaos`` is a fault
+    plan armed in the port's injector for the run; ``shrink(task)`` is for
+    rehearsals on the CPU only. Prints the sub-phase's numbers and returns
+    (runner, history)."""
+    import statistics
+    from contextlib import nullcontext
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.resilience import faults
+    from olearning_sim_tpu_torch.telemetry import MetricsRegistry, default_tracer
+
+    task = json.loads((ROOT / "configs" / f"{name}.json").read_text())
+    fs = task["operatorflow"]["flow_setting"]
+    cuts = [f"rounds {fs['round']} -> {rounds}"]
+    fs["round"] = rounds
+    for td in task["target"]["data"]:
+        if clients is not None:
+            cuts.append(f"clients {td['total_simulation']['nums']} -> [{clients}]")
+            td["total_simulation"]["nums"] = [clients]
+            td["allocation"]["logical_simulation"] = [clients]
+    if edit is not None:
+        cuts.append(edit(task))
+    if chaos is not None:
+        cuts.append(f"fault plan {json.dumps(chaos['specs'])}")
+    if shrink is not None:
+        shrink(task)
+    log(f"{label} {name}: " + "; ".join(cuts))
+    registry = MetricsRegistry()
+    tracer = default_tracer()
+    tracer.clear()
+    if dev.type == "cuda":
+        import torch
+
+        torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    runner = build_runner_from_taskconfig(task, registry=registry, device=dev)
+    pop = runner.populations[0]
+    log(f"{label}: built in {time.perf_counter() - t0:.1f} s: {runner.core.algorithm.name}, "
+        f"{pop.dataset.num_real_clients} clients (padded to {pop.dataset.num_clients}), "
+        f"features {tuple(pop.dataset.x.shape)} {pop.dataset.x.dtype}, "
+        f"{len(runner.operators)} operator(s)")
+    times = []
+    with faults.chaos(faults.FaultPlan.from_dict(chaos)) if chaos else nullcontext():
+        runner.begin()
+        more = True
+        while more:
+            _sync(dev)
+            t0 = time.perf_counter()
+            more = runner.step()
+            _sync(dev)
+            times.append(time.perf_counter() - t0)
+        history = runner.finish()
+    if len(history) != rounds:
+        raise AssertionError(f"{label}: {len(history)} rounds in the history, expected {rounds}")
+    n_params = sum(v.numel() for v in runner.states["data_0"].params.values())
+    peak = (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
+            if dev.type == "cuda" else "")
+    log(f"{label}: {n_params} params{peak}")
+    for h, sec in zip(history, times if len(times) == len(history) else [None] * rounds):
+        tr = h["train"]["data_0"]
+        ev = h.get("evaluate", {}).get("data_0", {})
+        if not math.isfinite(tr["mean_loss"]) or tr["clients_trained"] <= 0:
+            raise AssertionError(f"{label} round {h['round']}: {tr}")
+        if ev and not math.isfinite(ev["eval_loss"]):
+            raise AssertionError(f"{label} round {h['round']}: eval loss {ev['eval_loss']}")
+        line = (f"{label} round {h['round']}: released={tr['released']} dropped={tr['dropped']} "
+                f"clients_trained={tr['clients_trained']} mean_loss={tr['mean_loss']:.6f}")
+        if ev:
+            line += f" eval_loss={ev['eval_loss']:.6f} eval_acc={ev['eval_acc']:.4f}"
+        log(line + ("" if sec is None else f" seconds={sec:.4f}"))
+    if len(times) == rounds and rounds > 1:
+        rps = 1.0 / statistics.median(times[1:])
+        log(f"{label}: rounds/sec after the first {rps:.4f} (device-rounds/sec "
+            f"{pop.dataset.num_real_clients * rps:.1f}), first round {times[0]:.4f} s "
+            f"| {card_line() if dev.type == 'cuda' else 'cpu'}")
+    # Per phase: count and mean from the runner's series; the median from
+    # the spans the same timer records (a histogram keeps only buckets).
+    series = registry.get("ols_engine_round_phase_duration_seconds")
+    spans = {}
+    for sp in tracer.spans():
+        if sp.attrs.get("round_idx", 0) >= (1 if rounds > 1 else 0) and sp.name.count(".") == 2:
+            spans.setdefault(sp.name[len("round."):], []).append(sp.duration_s)
+    parts = []
+    for (task_id, op, phase), child in series.children():
+        med = statistics.median(spans.get(f"{op}.{phase}", [float("nan")]))
+        parts.append(f"{op}.{phase} n={child.count} mean={child.sum / child.count * 1e3:.3f} "
+                     f"median(steady)={med * 1e3:.3f}")
+    log(f"{label} phase ms: " + "; ".join(parts))
+    log(f"{label} logical_result: "
+        f"{runner.task_repo.get_item_value(runner.task_id, 'logical_result')}")
+    return runner, history
+
+
+def direct_loop(dev, name, rounds, shrink=None):
+    """Phase 8e: a config's rounds driven directly through the library
+    entry points, from the seed and with the participation masks the runner
+    uses; returns the final params."""
+    import statistics
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.deviceflow import compile_trace
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        from_config,
+        make_synthetic_dataset,
+    )
+
+    task = json.loads((ROOT / "configs" / f"{name}.json").read_text())
+    if shrink is not None:
+        shrink(task)
+    params = _engine_params(task)
+    model, alg, syn = params["model"], dict(params["algorithm"]), params["data"]["synthetic"]
+    cfg = FedCoreConfig.from_dict(params["fedcore"])
+    shape = tuple(model["input_shape"])
+    core = build_fedcore(model["name"], from_config(alg.pop("name"), **alg), cfg,
+                         model_overrides=model["overrides"], input_shape=shape, device=dev)
+    n = task["target"]["data"][0]["allocation"]["logical_simulation"][0]
+    ds = make_synthetic_dataset(syn["seed"], n, syn["n_local"], shape, syn["num_classes"],
+                                class_sep=syn["class_sep"]).pad_for(cfg.block_clients).to(dev)
+    task_id = task["task_id"]
+    state = core.init_state(seed=zlib.crc32(task_id.encode()) & 0x7FFFFFFF, device=dev)
+    times = []
+    for r in range(rounds):
+        trace = compile_trace(None, n, r, task_id=task_id, operator="train", seed=0)
+        mask = np.zeros(ds.num_clients, np.float32)
+        mask[:n] = trace.participate
+        _sync(dev)
+        t0 = time.perf_counter()
+        state, metrics = core.round_step(state, ds, participate=torch.from_numpy(mask).to(dev))
+        loss = float(metrics.mean_loss)
+        _sync(dev)
+        times.append(time.perf_counter() - t0)
+        log(f"8e direct round {r}: mean_loss={loss:.6f} clients_trained="
+            f"{float(metrics.clients_trained):.0f} seconds={times[-1]:.4f}")
+    log(f"8e direct loop: rounds/sec after the first {1.0 / statistics.median(times[1:]):.4f}")
+    return state.params
+
+
+def task_path(dev, shrink=None):
+    """Phase 8: task JSONs through the port's task bridge and runner."""
+    import torch
+
+    from olearning_sim_tpu_torch.resilience import ROLLBACK, global_log
+
+    t_phase = time.perf_counter()
+    runner_a, hist_a = run_task("8a", "fedavg_mnist_mlp", dev, 3, shrink=shrink)
+    run_task("8b", "fedavg_cifar10_cnn", dev, 2, shrink=shrink)
+    run_task("8c", "scaffold_mnist_mlp", dev, 2, shrink=shrink)
+    _, hist_d = run_task("8d", "fedadam_sent140_distilbert", dev, 2,
+                         clients=64 if shrink is None else None,
+                         edit=block_edit(DISTILBERT_BLOCK) if shrink is None else None,
+                         shrink=shrink)
+    if not any(h["train"]["data_0"]["dropped"] > 0 for h in hist_d):
+        raise AssertionError("8d: the flow_dispatch strategy dropped no client")
+    clean = runner_a.states["data_0"].params
+
+    direct = direct_loop(dev, "fedavg_mnist_mlp", 3, shrink=shrink)
+    rel = _rel_l2(clean, direct)
+    log(f"8e runner vs direct loop: final params rel L2 {rel:.3e} (tol {RUNNER_DIRECT_REL:g})")
+    if not rel <= RUNNER_DIRECT_REL:
+        raise AssertionError("8e: the runner's rounds disagree with the direct loop's")
+
+    def resilience(obj):
+        def edit(task):
+            params = _engine_params(task)
+            params["resilience"] = obj
+            _set_engine_params(task, params)
+            return f"resilience {json.dumps(obj)}"
+        return edit
+
+    # A fault at round_begin fails round 1 before it trains; one at
+    # pre_checkpoint after it has trained, so the failed attempt has moved
+    # the params and drawn from the shared index generator, and only a
+    # snapshot that cloned the tensors and copied the generator replays it.
+    task_id = runner_a.task_id
+    for point, error in (("runner.round_begin", None), ("runner.pre_checkpoint", "preempt")):
+        spec = {"point": point, "rounds": [1]}
+        if error is not None:
+            spec["error"] = error
+        before = global_log().count(ROLLBACK, task_id)
+        runner_f, _ = run_task("8f", "fedavg_mnist_mlp", dev, 3, shrink=shrink,
+                               edit=resilience({"failure_policy": "retry"}),
+                               chaos={"seed": 0, "specs": [spec]})
+        rollbacks = global_log().count(ROLLBACK, task_id) - before
+        rel = _rel_l2(runner_f.states["data_0"].params, clean)
+        log(f"8f retry after {point}: {rollbacks} rollback(s); final params vs the clean "
+            f"run rel L2 {rel:.3e} (tol {RETRY_REL:g})")
+        if rollbacks != 1 or not rel <= RETRY_REL:
+            raise AssertionError(f"8f: the run retried after {point} does not equal the "
+                                 "clean run")
+
+    def poison_edit(task):
+        params = _engine_params(task)
+        params["resilience"] = {"failure_policy": "retry", "quarantine_after": 1}
+        _set_engine_params(task, params)
+        task["operatorflow"]["operators"] = task["operatorflow"]["operators"][:1]
+        return "resilience quarantine_after 1; train operator only"
+
+    poisoned = [3, 7, 11]
+    runner_g, hist_g = run_task("8g", "fedavg_mnist_mlp", dev, 2, shrink=shrink,
+                                edit=poison_edit, chaos={"seed": 0, "specs": [{
+                                    "point": "runner.poison_clients", "rounds": [0],
+                                    "error": "nan", "payload": {"clients": poisoned}}]})
+    real = runner_g.populations[0].dataset.num_real_clients
+    trained = [h["train"]["data_0"]["clients_trained"] for h in hist_g]
+    result = json.loads(runner_g.task_repo.get_item_value(task_id, "logical_result"))
+    failed = result["logical_result"][0]["simulation_target"]["failed_num"]
+    quarantined = sorted(int(c) for c in hist_g[-1]["quarantine_state"]["data_0"]["total"])
+    finite = all(bool(torch.isfinite(v).all()) for v in runner_g.states["data_0"].params.values())
+    log(f"8g poison {poisoned}: clients_trained per round {trained}, failed_num {failed}, "
+        f"quarantined {quarantined}, params finite {finite}")
+    if (trained != [real - len(poisoned)] * 2 or failed != [len(poisoned)]
+            or quarantined != poisoned or not finite):
+        raise AssertionError("8g: poisoned clients were not excluded and reported failed")
+    log(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -747,6 +1048,7 @@ def main() -> int:
     k1["launches"] = main_path(dev)
     k2["launches"] = long_context_path(dev)
     headline_path(dev)
+    task_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -118,10 +118,30 @@ class FedCoreConfig:
         """Engine-params JSON shape (``{"fedcore": {...}}``); unknown keys
         are rejected so that a typo fails at submit time, not mid-round.
         Dtype knobs go through :func:`parse_float_dtype`; ``null`` keeps
-        the f32 default."""
+        the f32 default.
+
+        The JAX engine's other keys are accepted, checked as there, and
+        dropped: ``step_unroll``/``block_unroll`` are ``lax.scan`` unroll
+        hints (ints >= 1) with no counterpart in loops that eager PyTorch
+        runs in Python; ``aux_loss_weight`` (a float) is read only by the
+        MoE family, not ported yet (ROADMAP.md A10); ``shard_server_update``
+        is accepted when false and refused when true (ROADMAP.md A9)."""
         if not isinstance(obj, dict):
             raise TypeError(
                 f"fedcore config must be a JSON object, got {type(obj).__name__}"
+            )
+        obj = dict(obj)
+        for k in ("step_unroll", "block_unroll"):
+            v = obj.pop(k, None)
+            if v is not None and int(v) < 1:
+                raise ValueError(f"FedCoreConfig.{k} must be an int >= 1, got {v!r}")
+        if obj.get("aux_loss_weight") is not None:
+            float(obj["aux_loss_weight"])
+        obj.pop("aux_loss_weight", None)
+        if bool(obj.pop("shard_server_update", None)):
+            raise ValueError(
+                "fedcore.shard_server_update=true (the sharded server update "
+                "over dp) is not ported yet: ROADMAP.md A9"
             )
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(obj) - known)

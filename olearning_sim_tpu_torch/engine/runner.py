@@ -1,0 +1,896 @@
+"""SimulationRunner — the round loop of one task, synchronous path.
+
+The port of the JAX package's ``engine/runner.py`` (the reference RayRunner
+rebuilt around the round engine). Reference semantics
+(``ols_core/taskMgr/run_task.py:212-322``): for each round x operator:
+operator-flow start barrier -> optional deviceflow NotifyStart -> execute
+the operator over all virtual devices -> deviceflow NotifyComplete -> per-
+(data, device-class) success/failed accounting persisted to the task table
+-> operator-flow stop barrier (tolerant on the final round).
+
+- "execute the operator" is one :meth:`FedCore.round_step` advancing the
+  whole population on the device;
+- deviceflow behaviour enters the round as masks from the trace compiler
+  (participation / drops); with a deviceflow service attached (passed in,
+  duck-typed: ``notify_start`` / ``notify_complete``) the runner also walks
+  the flow lifecycle;
+- success/failed counts per device class come from per-client finite-loss
+  masks;
+- faults are absorbed by the resilience layer: with a
+  :class:`~olearning_sim_tpu_torch.resilience.ResilienceConfig` the loop
+  gains rollback-and-retry / skip-round failure policies from an in-memory
+  snapshot of the round's entry state, client quarantine, and the
+  injection points ``runner.round_begin``, ``runner.pre_checkpoint`` and
+  ``runner.poison_clients``.
+
+The fault injector, the resilience log and the default metrics registry
+and tracer are the port's own process globals: a chaos plan armed through
+the JAX package does not reach a port runner, and its resilience events
+land in the port's log. The digest reaches a control plane through the
+task row (``_persist_resilience`` writes the ``resilience`` column), which
+is the interface between the two. A ``registry`` passed in is used
+duck-typed, so a control plane's registry receives the round series.
+
+Not in this slice, each refused by the task bridge when a task asks for it
+(``ROADMAP.md``): checkpoint/resume and model I/O (A5), deadline rounds,
+attacks and defense (A6), scenario traces and streamed populations (A7),
+buffered async rounds (A8), convergence tracking and the multi-task
+dispatcher (A12, A13).
+"""
+
+from __future__ import annotations
+
+import contextlib
+import dataclasses
+import inspect
+import json
+import threading
+import time
+import zlib
+from typing import Any, Callable, Dict, List, Optional
+
+import numpy as np
+import torch
+
+from olearning_sim_tpu_torch.deviceflow.trace_compiler import compile_trace
+from olearning_sim_tpu_torch.engine.client_data import ClientDataset
+from olearning_sim_tpu_torch.engine.fedcore import FedCore
+from olearning_sim_tpu_torch.resilience import (
+    ROLLBACK,
+    SKIP_ROUND,
+    FailurePolicy,
+    HostPreemption,
+    QuarantineManager,
+    ResilienceConfig,
+    faults,
+)
+from olearning_sim_tpu_torch.resilience.events import global_log
+from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
+from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+from olearning_sim_tpu_torch.telemetry import default_tracer, instrument
+from olearning_sim_tpu_torch.utils.logging import Logger
+
+
+@dataclasses.dataclass
+class OperatorSpec:
+    """One operator in the flow (reference ``Operator`` proto,
+    ``taskService.proto:68-76``). ``kind``:
+
+    - ``train``: one FedCore round step;
+    - ``eval``: centralized evaluation of the global model;
+    - ``custom``: host callback ``fn(runner, round_idx, operator,
+      population) -> dict``, called once per population; a returned
+      ``ok_mask`` feeds per-class success accounting. Callbacks that take
+      only (runner, round_idx, operator) work too.
+    """
+
+    name: str
+    kind: str = "train"
+    use_deviceflow: bool = False
+    deviceflow_strategy: str = ""
+    # OperationBehaviorController.outboundService: JSON config for where
+    # dispatched batches go, handed to the deviceflow service.
+    outbound_service: str = ""
+    inputs: List[str] = dataclasses.field(default_factory=list)
+    custom_fn: Optional[Callable[..., Dict[str, Any]]] = None
+
+
+@dataclasses.dataclass
+class DataPopulation:
+    """One target-data entry: a client population plus its device-class
+    layout (reference ``TargetData`` + ``TotalSimulation``,
+    ``taskService.proto:18-32``)."""
+
+    name: str
+    dataset: ClientDataset  # on the device, padded to whole blocks
+    device_classes: List[str]  # class names, e.g. ["high", "low"]
+    class_of_client: np.ndarray  # [C] int index into device_classes (host)
+    nums: List[int]  # target simulated devices per class
+    dynamic_nums: List[int]  # failure allowance per class
+    eval_data: Optional[tuple] = None  # (x, y) central eval set (host)
+    # Heterogeneous compute profiles: per-client local-step counts [C]
+    # (padded). None = every client runs config.max_local_steps.
+    num_steps: Optional[np.ndarray] = None
+    # The population's label-class count.
+    num_classes: Optional[int] = None
+
+
+# Seed of the dispatch-trace draws (which clients a strategy releases and
+# drops): the JAX bridge leaves its runner's trace_seed at 0.
+TRACE_SEED = 0
+
+
+def _copy_tree(tree):
+    """A deep copy of a state tree: every tensor cloned, and a
+    ``torch.Generator`` replaced by a fresh one holding the same state.
+    References are not enough: ``round_step`` hands the same generator
+    object on to the next state and draws from it, so a snapshot that kept
+    it would restore a stream the failed attempt had already advanced."""
+    if isinstance(tree, torch.Tensor):
+        return tree.clone()
+    if isinstance(tree, torch.Generator):
+        copy = torch.Generator(device=tree.device)
+        copy.set_state(tree.get_state())
+        return copy
+    if isinstance(tree, dict):
+        return {k: _copy_tree(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(_copy_tree(v) for v in tree)
+    if dataclasses.is_dataclass(tree) and not isinstance(tree, type):
+        return dataclasses.replace(tree, **{
+            f.name: _copy_tree(getattr(tree, f.name)) for f in dataclasses.fields(tree)})
+    return tree
+
+
+class SimulationRunner:
+    def __init__(
+        self,
+        task_id: str,
+        core: FedCore,
+        populations: List[DataPopulation],
+        operators: List[OperatorSpec],
+        rounds: int,
+        task_repo: Optional[TaskTableRepo] = None,
+        deviceflow: Optional[Any] = None,
+        operator_flow: Optional[OperatorFlowController] = None,
+        stop_event: Optional[threading.Event] = None,
+        perf: Optional[Any] = None,
+        resilience: Optional[ResilienceConfig] = None,
+        registry: Optional[Any] = None,
+        quarantine_preseed: Optional[Dict[str, List[int]]] = None,
+        cost_oracle: Optional[Any] = None,
+        cost_family: Optional[str] = None,
+    ):
+        """``task_repo`` — the task table (duck-typed: ``has_task``,
+        ``add_task``, ``set_item_value``); a fresh in-memory one when None.
+        ``deviceflow`` — a deviceflow service (duck-typed). ``perf`` — a
+        performance manager with ``time_round`` (duck-typed).
+        ``resilience`` — opt-in resilient round execution (None fails the
+        task on the first failed round). ``registry`` — the metrics sink;
+        None resolves the port's process default at use time (spans go to
+        the port's default tracer). ``quarantine_preseed`` — population
+        name -> known-bad client ids blocklisted from round 0.
+        ``cost_oracle`` / ``cost_family`` — a scheduler cost oracle
+        (duck-typed: ``record_measurement``) fed this task's measured
+        per-round wall time at every round close."""
+        self.task_id = task_id
+        self.core = core
+        self.populations = populations
+        self.operators = operators
+        self.rounds = int(rounds)
+        self.task_repo = task_repo if task_repo is not None else TaskTableRepo()
+        self.deviceflow = deviceflow
+        self.operator_flow = operator_flow or OperatorFlowController(task_id, rounds)
+        self.logger = Logger()
+        self.stop_event = stop_event  # threading.Event; honored between rounds
+        self.perf = perf
+        self.registry = registry
+        # Operators whose round step has run once for this task: the first
+        # run's wall time lands in ols_engine_compile_duration_seconds.
+        self._compiled_once: set = set()
+        self.stopped = False
+        self.states: Dict[str, Any] = {}
+        self._custom_arity: Dict[int, bool] = {}
+        self._round_outputs: Dict[str, Any] = {}
+        # Per-client state per population: Ditto personal params, SCAFFOLD
+        # control variates.
+        self.personal_states: Dict[str, Any] = {}
+        self.control_states: Dict[str, Any] = {}
+        self.history: List[Dict[str, Any]] = []
+        self.resilience = resilience
+        self._rlog = (resilience.log if resilience is not None and
+                      resilience.log is not None else global_log())
+        self._quarantine: Optional[QuarantineManager] = None
+        if resilience is not None and resilience.quarantine_after is not None:
+            self._quarantine = QuarantineManager(
+                quarantine_after=resilience.quarantine_after,
+                readmit_after=resilience.readmit_after,
+                log=self._rlog, task_id=task_id,
+            )
+        if self._quarantine is None and quarantine_preseed:
+            # A preseed-only manager keeps pure blocklist semantics: an
+            # effectively infinite strike budget, so it never quarantines
+            # clients nobody asked it to watch.
+            self._quarantine = QuarantineManager(
+                quarantine_after=1 << 30, readmit_after=3,
+                log=self._rlog, task_id=task_id,
+            )
+        if quarantine_preseed:
+            by_name = {p.name: p.dataset for p in populations}
+            for pop, ids in quarantine_preseed.items():
+                ds = by_name.get(pop)
+                if ds is None:
+                    raise ValueError(
+                        f"quarantine.preseed names unknown population "
+                        f"{pop!r} (known: {sorted(by_name)})"
+                    )
+                bad = [c for c in ids if c >= ds.num_real_clients]
+                if bad:
+                    raise ValueError(
+                        f"quarantine.preseed[{pop!r}]: client ids {bad} out "
+                        f"of range (population has {ds.num_real_clients} "
+                        f"clients)"
+                    )
+                self._quarantine.preseed(pop, ids, ds.num_clients)
+        # Snapshot of the executing round's entry state (rollback source).
+        self._round_snapshot: Optional[Dict[str, Any]] = None
+        # Routing key of the deviceflow flow currently open (None between
+        # operators); closed best-effort when a round fails mid-operator.
+        self._live_routing_key: Optional[str] = None
+        self._cost_oracle = cost_oracle
+        self._cost_family = cost_family
+        self._cost_round0_wall: Optional[float] = None
+        self._cost_compile_fed = False
+        # begin()/step()/finish() loop state; None outside a run.
+        self._loop: Optional[Dict[str, Any]] = None
+
+        if not self.task_repo.has_task(task_id):
+            self.task_repo.add_task(task_id)
+        self._write_targets()
+
+    # ------------------------------------------------------------ accounting
+    def _write_targets(self) -> None:
+        """Persist logical_target in the reference shape
+        (``run_task.py:155-183``)."""
+        target = [
+            {
+                "name": p.name,
+                "simulation_target": {
+                    "devices": list(p.device_classes),
+                    "nums": list(p.nums),
+                },
+            }
+            for p in self.populations
+        ]
+        self.task_repo.set_item_value(
+            self.task_id, "logical_target", json.dumps({"logical_target": target})
+        )
+
+    def _analyze_results(self, operator: OperatorSpec, round_idx: int,
+                         ok_by_population: Dict[str, np.ndarray]) -> None:
+        """Reference ``analyze_results`` (``run_task.py:149-210``): rebuild
+        per-(data, class) success/failed counts fresh each (round, operator)
+        and persist round/operator/result."""
+        result = []
+        for p in self.populations:
+            ok = ok_by_population.get(p.name)
+            success = [0] * len(p.device_classes)
+            failed = [0] * len(p.device_classes)
+            if ok is not None:
+                real = p.dataset.num_real_clients
+                cls = p.class_of_client[:real]
+                for ci in range(len(p.device_classes)):
+                    mask = cls == ci
+                    success[ci] = int(np.logical_and(mask, ok[:real]).sum())
+                    failed[ci] = int(np.logical_and(mask, ~ok[:real]).sum())
+            result.append(
+                {
+                    "name": p.name,
+                    "simulation_target": {
+                        "devices": list(p.device_classes),
+                        "success_num": success,
+                        "failed_num": failed,
+                    },
+                }
+            )
+        repo = self.task_repo
+        repo.set_item_value(self.task_id, "logical_round", round_idx + 1)
+        repo.set_item_value(self.task_id, "logical_operator", operator.name)
+        repo.set_item_value(
+            self.task_id, "logical_result", json.dumps({"logical_result": result})
+        )
+
+    # ------------------------------------------------------------- deviceflow
+    def _notify(self, point: str, fn, *args, **kwargs):
+        """Deviceflow RPCs return (ok, msg); under ``resilience.rpc_retry``
+        a not-ok answer (or a raised transient) is retried with backoff
+        before the round-level failure policy ever sees it."""
+        policy = self.resilience.rpc_retry if self.resilience is not None else None
+        if policy is None:
+            return fn(*args, **kwargs)
+        return policy.call(
+            fn, *args, retry_if=lambda r: not r[0], point=point,
+            task_id=self.task_id, log=self._rlog, **kwargs,
+        )
+
+    def _flow_start(self, operator: OperatorSpec, round_idx: int,
+                    attempt: int = 0) -> Optional[str]:
+        if self.deviceflow is None or not operator.use_deviceflow:
+            return None
+        routing_key = f"{self.task_id}_{operator.name}_{round_idx}"
+        if attempt:
+            # A replayed round gets a fresh flow: the failed attempt's flow
+            # (same key) may still be awaiting the release loop.
+            routing_key = f"{routing_key}~r{attempt}"
+        outbound = None
+        if operator.outbound_service:
+            try:
+                outbound = json.loads(operator.outbound_service)
+            except json.JSONDecodeError as e:
+                raise ValueError(
+                    f"operator {operator.name}: outbound_service is not "
+                    f"valid JSON: {e}"
+                ) from e
+        ok, msg = self._notify(
+            "deviceflow.notify_start", self.deviceflow.notify_start,
+            self.task_id, routing_key, "logical_simulation",
+            operator.deviceflow_strategy or "{}",
+            outbound_service=outbound,
+        )
+        if not ok:
+            raise RuntimeError(f"deviceflow NotifyStart failed for {routing_key}: {msg}")
+        return routing_key
+
+    def _abandon_live_flow(self) -> None:
+        """Best-effort NotifyComplete for the flow open at a round failure:
+        left open, its dispatcher would block on release forever and wedge
+        task teardown."""
+        key, self._live_routing_key = self._live_routing_key, None
+        if self.deviceflow is None or key is None:
+            return
+        with contextlib.suppress(Exception):
+            self.deviceflow.notify_complete(
+                self.task_id, key, "logical_simulation"
+            )
+
+    def _flow_complete(self, routing_key: Optional[str]) -> None:
+        if self.deviceflow is None or routing_key is None:
+            return
+        ok, msg = self._notify(
+            "deviceflow.notify_complete", self.deviceflow.notify_complete,
+            self.task_id, routing_key, "logical_simulation"
+        )
+        if not ok:
+            raise RuntimeError(f"deviceflow NotifyComplete failed for {routing_key}: {msg}")
+
+    # -------------------------------------------------------------- telemetry
+    @contextlib.contextmanager
+    def _phase(self, operator_name: str, phase: str, round_idx: int):
+        """Span + per-phase latency histogram around one round phase."""
+        t0 = time.perf_counter()
+        with default_tracer().span(f"round.{operator_name}.{phase}",
+                         task_id=self.task_id, round_idx=round_idx):
+            yield
+        instrument(
+            "ols_engine_round_phase_duration_seconds", self.registry
+        ).labels(
+            task_id=self.task_id, operator=operator_name, phase=phase
+        ).observe(time.perf_counter() - t0)
+
+    # -------------------------------------------------------------- operators
+    def _run_train(self, p: DataPopulation, round_idx: int,
+                   operator: OperatorSpec) -> Dict[str, Any]:
+        real = p.dataset.num_real_clients
+        dev = p.dataset.x.device
+        with self._phase(operator.name, "select", round_idx):
+            # Compiled over real clients only: released slots must never be
+            # spent on zero-weight padding clients.
+            trace = compile_trace(
+                json.loads(operator.deviceflow_strategy) if (
+                    operator.use_deviceflow and operator.deviceflow_strategy
+                ) else None,
+                real,
+                round_idx,
+                task_id=self.task_id,
+                operator=operator.name,
+                seed=TRACE_SEED,
+            )
+            mask = np.zeros(p.dataset.num_clients, trace.participate.dtype)
+            mask[:real] = trace.participate
+            if self._quarantine is not None:
+                # Quarantined clients are masked out like churned-out
+                # devices: zero weight, zero contribution.
+                mask[:real] = mask[:real] * self._quarantine.active_mask(
+                    p.name, real
+                ).astype(mask.dtype)
+            participate = torch.from_numpy(mask).to(dev)
+            num_steps = (torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
+                         if p.num_steps is not None else None)
+        t_step0 = time.perf_counter()
+        with self._phase(operator.name, "train", round_idx):
+            # Launches the round's kernels; the device may still be running
+            # them when this phase closes.
+            state = self.states[p.name]
+            kwargs = dict(participate=participate, num_steps=num_steps)
+            if self.core.algorithm.personalized:
+                personal = self.personal_states.get(p.name)
+                if personal is None:
+                    personal = self.core.init_personal(state, p.dataset.num_clients)
+                state, metrics, personal = self.core.round_step(
+                    state, p.dataset, personal=personal, **kwargs)
+                self.personal_states[p.name] = personal
+            elif self.core.algorithm.control_variates:
+                control = self.control_states.get(p.name)
+                if control is None:
+                    control = self.core.init_control(state, p.dataset.num_clients)
+                state, metrics, control = self.core.round_step(
+                    state, p.dataset, control=control, **kwargs)
+                self.control_states[p.name] = control
+            else:
+                state, metrics = self.core.round_step(state, p.dataset, **kwargs)
+            self.states[p.name] = state
+        with self._phase(operator.name, "host_transfer", round_idx):
+            # The copy to the host is the sync point: this interval covers
+            # the device work "train" only queued.
+            client_loss = metrics.client_loss.float().cpu().numpy()
+        if operator.name not in self._compiled_once:
+            # First run of the round step for this operator (see the
+            # catalog entry: eager mode compiles nothing, so this is the
+            # warm-up round's wall time).
+            self._compiled_once.add(operator.name)
+            instrument(
+                "ols_engine_compile_duration_seconds", self.registry
+            ).labels(task_id=self.task_id, operator=operator.name).set(
+                time.perf_counter() - t_step0
+            )
+        ok = np.isfinite(client_loss)
+        if self._quarantine is not None:
+            # Strikes accrue only for clients that participated and came
+            # back non-finite; quarantined clients are then reported failed
+            # in the per-class accounting, as the reference reports dead
+            # phones.
+            self._quarantine.observe(
+                p.name, round_idx, mask[:real] > 0, ok[:real],
+            )
+            for ci in self._quarantine.quarantined(p.name):
+                if ci < len(ok):
+                    ok[ci] = False
+            instrument(
+                "ols_engine_quarantined_clients", self.registry
+            ).labels(task_id=self.task_id).set(
+                self._quarantine.num_quarantined()
+            )
+        rec = {
+            "mean_loss": float(metrics.mean_loss),
+            "clients_trained": int(metrics.clients_trained),
+            "released": trace.num_released,
+            "dropped": trace.num_dropped,
+            "sim_duration_s": trace.round_duration(),
+            "ok_mask": ok,
+        }
+        if self.core.algorithm.personalized:
+            rec["personal_loss"] = float(metrics.personal_loss)
+        return rec
+
+    def _feed_cost(self, round_wall_s: float) -> None:
+        """Feed this round's measured wall time into the cost oracle. Round
+        0's wall is held back until round 1 can classify it: only a round 0
+        much slower than round 1 refines the family's start-up (compile_s)
+        estimate."""
+        if self._cost_round0_wall is None:
+            self._cost_round0_wall = round_wall_s
+            return
+        self._cost_oracle.record_measurement(
+            self._cost_family, round_time_s=round_wall_s
+        )
+        if not self._cost_compile_fed:
+            self._cost_compile_fed = True
+            if self._cost_round0_wall > 1.5 * round_wall_s:
+                self._cost_oracle.record_measurement(
+                    self._cost_family, compile_s=self._cost_round0_wall
+                )
+
+    def _run_eval(self, p: DataPopulation) -> Dict[str, Any]:
+        rec: Dict[str, Any] = {"eval_loss": None, "eval_acc": None}
+        if p.eval_data is not None:
+            x, y = p.eval_data
+            loss, acc = self.core.evaluate(self.states[p.name].params, x, y)
+            rec.update(eval_loss=loss, eval_acc=acc)
+        personal = self.personal_states.get(p.name)
+        if personal is not None:
+            # Ditto metric of record: personalized models on own local data.
+            ploss, pacc = self.core.evaluate_personal(personal, p.dataset)
+            rec.update(personal_eval_loss=ploss, personal_eval_acc=pacc)
+        return rec
+
+    def operator_inputs(self, operator: OperatorSpec) -> Dict[str, Any]:
+        """Named upstream outputs for ``operator`` this round: each entry
+        maps an upstream operator's name (from ``operator.inputs``) to its
+        per-population record from the current round, so train -> eval ->
+        custom chains compose (reference ``utils.py:647-651``)."""
+        return {
+            name: self._round_outputs[name]
+            for name in operator.inputs
+            if name in self._round_outputs
+        }
+
+    def _call_custom(self, operator: OperatorSpec, round_idx: int,
+                     p: DataPopulation) -> Dict[str, Any]:
+        """Invoke a custom operator callback, passing the population when the
+        callback requires a 4th positional argument (inspected once per
+        callback: catching TypeError at call time would mask errors raised
+        inside it)."""
+        fn = operator.custom_fn
+        takes_population = self._custom_arity.get(id(fn))
+        if takes_population is None:
+            try:
+                params = inspect.signature(fn).parameters.values()
+                required = [
+                    prm for prm in params
+                    if prm.kind in (prm.POSITIONAL_ONLY, prm.POSITIONAL_OR_KEYWORD)
+                    and prm.default is prm.empty
+                ]
+                takes_population = (
+                    len(required) >= 4
+                    or any(prm.kind == prm.VAR_POSITIONAL for prm in params)
+                )
+            except (TypeError, ValueError):
+                takes_population = True
+            self._custom_arity[id(fn)] = takes_population
+        if takes_population:
+            return fn(self, round_idx, operator, p)
+        return fn(self, round_idx, operator)
+
+    # ------------------------------------------------------------ resilience
+    def _capture_snapshot(self, round_idx: int) -> Dict[str, Any]:
+        return {
+            "round_idx": round_idx,
+            "states": _copy_tree(self.states),
+            "personal": _copy_tree(self.personal_states),
+            "control": _copy_tree(self.control_states),
+            "history": list(self.history),
+            "quarantine": (self._quarantine.snapshot()
+                           if self._quarantine is not None else None),
+        }
+
+    def _restore_snapshot(self) -> None:
+        snap = self._round_snapshot
+        if snap is None:
+            return
+        # Copied out of the snapshot, not moved: a second failure of the
+        # same round must be able to restore again.
+        self.states = _copy_tree(snap["states"])
+        self.personal_states = _copy_tree(snap["personal"])
+        self.control_states = _copy_tree(snap["control"])
+        self.history = list(snap["history"])
+        if self._quarantine is not None and snap["quarantine"] is not None:
+            self._quarantine.restore(snap["quarantine"])
+
+    def _maybe_poison(self, round_idx: int) -> None:
+        """``runner.poison_clients`` injection point: permanently corrupt the
+        listed clients' features to NaN (a diverged device), so that their
+        local training produces non-finite updates that exercise the
+        aggregation gate and the quarantine path end to end.
+
+        Spec payload: ``{"clients": [...], "population": "name"?}`` —
+        population omitted poisons every population's listed rows. The rows
+        are written into a clone of the device features; integer (token)
+        features are left alone with a warning."""
+        spec = faults.fire("runner.poison_clients", round_idx=round_idx,
+                           task_id=self.task_id)
+        if spec is None:
+            return
+        payload = spec.payload or {}
+        clients = [int(c) for c in payload.get("clients", [])]
+        pop_name = payload.get("population")
+        for p in self.populations:
+            if pop_name and p.name != pop_name:
+                continue
+            ds = p.dataset
+            if not ds.x.is_floating_point():
+                self.logger.warning(
+                    task_id=self.task_id, system_name="engine",
+                    module_name="runner",
+                    message=f"poison_clients: population {p.name} has "
+                            f"integer features; NaN poisoning skipped",
+                )
+                continue
+            idx = [c for c in clients if c < ds.num_real_clients]
+            if not idx:
+                continue
+            x = ds.x.clone()
+            x[torch.tensor(idx, device=x.device)] = float("nan")
+            p.dataset = dataclasses.replace(ds, x=x)
+
+    def _rollback(self, round_idx: int, error: BaseException) -> int:
+        """Restore the round's entry state from the in-memory snapshot and
+        return the round to re-execute. Without a checkpointer a
+        :class:`HostPreemption` is absorbed the same way (the lenient
+        approximation of the JAX runner when no checkpoint has committed)."""
+        self._restore_snapshot()
+        self._rlog.record(
+            ROLLBACK, point="runner.rollback", task_id=self.task_id,
+            round_idx=round_idx, to_round=round_idx,
+            preempt=isinstance(error, HostPreemption),
+            error=f"{type(error).__name__}: {str(error)[:200]}",
+        )
+        return round_idx
+
+    def _handle_round_failure(self, round_idx: int, attempts: int,
+                              error: BaseException):
+        """Dispatch a failed round per the operator-level failure policy.
+        Returns (action, next_round, next_attempts); action "raise" tells the
+        caller to re-raise ``error``."""
+        cfg = self.resilience
+        policy = cfg.failure_policy if cfg is not None else FailurePolicy.FAIL_TASK
+        self.logger.error(
+            task_id=self.task_id, system_name="engine", module_name="runner",
+            message=f"round {round_idx} failed "
+                    f"({type(error).__name__}: {error}); policy={policy}",
+        )
+        if cfg is None or policy == FailurePolicy.FAIL_TASK:
+            return "raise", round_idx, attempts
+        if self._round_snapshot is None:
+            # No rollback source: skipping or retrying would keep the
+            # round's partial mutations. Degrade to fail_task.
+            self.logger.error(
+                task_id=self.task_id, system_name="engine",
+                module_name="runner",
+                message=f"{policy.value} needs snapshot_rounds; failing task",
+            )
+            return "raise", round_idx, attempts
+        if policy == FailurePolicy.SKIP_ROUND:
+            self._restore_snapshot()
+            self._rlog.record(
+                SKIP_ROUND, point="runner.round", task_id=self.task_id,
+                round_idx=round_idx,
+                error=f"{type(error).__name__}: {str(error)[:200]}",
+            )
+            instrument("ols_engine_rounds_total", self.registry).labels(
+                task_id=self.task_id, status="skipped"
+            ).inc()
+            self.history.append({
+                "round": round_idx, "skipped": True,
+                "error": f"{type(error).__name__}: {str(error)[:200]}",
+            })
+            return "continue", round_idx + 1, 0
+        # FailurePolicy.RETRY
+        if attempts >= cfg.max_round_retries:
+            return "raise", round_idx, attempts
+        next_round = self._rollback(round_idx, error)
+        if cfg.round_backoff_s > 0:
+            time.sleep(cfg.round_backoff_s * (attempts + 1))
+        return "continue", next_round, attempts + 1
+
+    def _persist_resilience(self) -> None:
+        """Per-task resilience digest into the task table (the task status
+        API's ``resilience`` column)."""
+        summary = self._rlog.summary(self.task_id)
+        if not summary["counters"]:
+            return
+        with contextlib.suppress(Exception):
+            self.task_repo.set_item_value(
+                self.task_id, "resilience", json.dumps(summary)
+            )
+
+    # -------------------------------------------------------------------- run
+    def _execute_round(self, round_idx: int, attempt: int = 0) -> str:
+        """One full round: barriers, operators, accounting. Returns "ok",
+        "stop" (cooperative stop observed), or "final" (final-round stop
+        barrier tolerated)."""
+        t_round0 = time.perf_counter()
+        if not self.operator_flow.start():
+            if self.stop_event is not None and self.stop_event.is_set():
+                return "stop"  # barrier abandoned due to stop request
+            raise RuntimeError(f"round {round_idx}: operator-flow start failed")
+
+        round_record: Dict[str, Any] = {"round": round_idx}
+        self._round_outputs = {}
+        for operator in self.operators:
+            routing_key = self._flow_start(operator, round_idx, attempt)
+            self._live_routing_key = routing_key
+            ok_by_population: Dict[str, np.ndarray] = {}
+            op_record: Dict[str, Any] = {}
+            # Only train operators advance clients; total client steps honor
+            # heterogeneous per-class profiles.
+            nc = total_steps = 0
+            if operator.kind == "train":
+                for p in self.populations:
+                    real = p.dataset.num_real_clients
+                    nc += real
+                    total_steps += (
+                        int(np.sum(p.num_steps[:real]))
+                        if p.num_steps is not None
+                        else real * self.core.config.max_local_steps
+                    )
+            timer = self.perf.time_round(
+                self.task_id, round_idx, operator.name, num_clients=nc,
+                local_steps=self.core.config.max_local_steps,
+                total_client_steps=total_steps,
+            ) if self.perf is not None else contextlib.nullcontext()
+            with timer, default_tracer().span(
+                f"round.{operator.name}", task_id=self.task_id,
+                round_idx=round_idx, kind=operator.kind,
+            ):
+                for p in self.populations:
+                    if operator.kind == "train":
+                        r = self._run_train(p, round_idx, operator)
+                        ok_by_population[p.name] = r.pop("ok_mask")
+                    elif operator.kind == "eval":
+                        with self._phase(operator.name, "eval", round_idx):
+                            r = self._run_eval(p)
+                        ok_by_population[p.name] = np.ones(
+                            p.dataset.num_clients, bool
+                        )
+                    elif operator.kind == "custom":
+                        with self._phase(operator.name, "custom", round_idx):
+                            r = self._call_custom(operator, round_idx, p) or {}
+                        ok_by_population[p.name] = r.pop(
+                            "ok_mask", np.ones(p.dataset.num_clients, bool)
+                        )
+                    else:
+                        raise ValueError(f"unknown operator kind {operator.kind!r}")
+                    op_record[p.name] = r
+                if operator.kind == "train" and hasattr(timer, "note"):
+                    # The same counts the JAX runner notes (the ones other
+                    # than drops stay 0 in this slice).
+                    timer.note(**{k: sum(rec.get(k, 0) for rec in op_record.values())
+                                  for k in ("stragglers", "dropped", "clipped",
+                                            "flagged", "attacked")})
+            if operator.kind == "train" and nc:
+                instrument(
+                    "ols_engine_device_rounds_total", self.registry
+                ).labels(task_id=self.task_id).inc(nc)
+            self._flow_complete(routing_key)
+            self._live_routing_key = None
+            with self._phase(operator.name, "accounting", round_idx):
+                self._analyze_results(operator, round_idx, ok_by_population)
+            round_record[operator.name] = op_record
+            self._round_outputs[operator.name] = op_record
+
+        round_wall_s = time.perf_counter() - t_round0
+        if self._cost_oracle is not None and self._cost_family:
+            self._feed_cost(round_wall_s)
+        if self._quarantine is not None:
+            # Quarantine state after this round's observations rides the
+            # history record, as in the JAX runner.
+            round_record["quarantine_state"] = self._quarantine.state_json()
+        self.history.append(round_record)
+        # A preemption here dies with the round's work done but not yet
+        # durable (the lost-round scenario rollback must absorb).
+        faults.inject("runner.pre_checkpoint", context=str(round_idx),
+                      round_idx=round_idx, task_id=self.task_id)
+
+        if not self.operator_flow.stop():
+            if self.stop_event is not None and self.stop_event.is_set():
+                return "stop"
+            if round_idx < self.rounds - 1:
+                raise RuntimeError(f"round {round_idx}: operator-flow stop failed")
+            # Final round: the work is done; don't block on the barrier
+            # (reference ``run_task.py:319-322``).
+            return "final"
+        return "ok"
+
+    def begin(self) -> None:
+        """Arm the round loop: materialize per-population state and set the
+        loop cursor. ``run()`` is exactly ``begin(); while step(): pass;
+        finish()``. A population already in :attr:`states` keeps its state
+        (a caller may install parameters before ``run()``)."""
+        for p in self.populations:
+            if p.name not in self.states:
+                # crc32, not hash(): str hashes are randomized per process.
+                self.states[p.name] = self.core.init_state(
+                    seed=zlib.crc32(self.task_id.encode()) & 0x7FFFFFFF,
+                    device=p.dataset.x.device,
+                )
+        cfg = self.resilience
+        snapshotting = cfg is not None and cfg.snapshot_rounds and (
+            cfg.failure_policy != FailurePolicy.FAIL_TASK
+        )
+        # Retry budget is per round; flow_epoch numbers the rollbacks, so a
+        # replayed round's deviceflow routing key is one its earlier
+        # execution never used.
+        self._loop = {
+            "round_idx": 0,
+            "retries": {},
+            "flow_epoch": 0,
+            "snapshotting": snapshotting,
+            "done": False,
+        }
+
+    def step(self) -> bool:
+        """Execute at most one round (including its failure-policy
+        dispatch); returns True while more rounds remain. An exception
+        escaping means the task failed under its failure policy."""
+        lp = self._loop
+        if lp is None:
+            raise RuntimeError("SimulationRunner.step() before begin()")
+        if lp["done"] or lp["round_idx"] >= self.rounds:
+            lp["done"] = True
+            return False
+        round_idx = lp["round_idx"]
+        if self.stop_event is not None and self.stop_event.is_set():
+            # Cooperative stop between rounds.
+            self.stopped = True
+            lp["done"] = True
+            return False
+        if lp["snapshotting"] and (
+            self._round_snapshot is None
+            or self._round_snapshot["round_idx"] != round_idx
+        ):
+            self._round_snapshot = self._capture_snapshot(round_idx)
+        replaying = lp["retries"].get(round_idx, 0) > 0
+        for p in self.populations:
+            # Refused outside the failure policy: a retried round would
+            # otherwise run on without the attack the plan asked for.
+            if faults.fire("runner.attack_clients", context=p.name,
+                           round_idx=round_idx, task_id=self.task_id) is not None:
+                raise ValueError("runner.attack_clients: client attacks are not "
+                                 "ported yet: ROADMAP.md A6")
+        try:
+            faults.inject("runner.round_begin", context=str(round_idx),
+                          round_idx=round_idx, task_id=self.task_id)
+            self._maybe_poison(round_idx)
+            status = self._execute_round(
+                round_idx, lp["flow_epoch"] if replaying else 0
+            )
+        except (KeyboardInterrupt, SystemExit):
+            raise
+        except Exception as e:  # noqa: BLE001 — policy dispatch
+            instrument("ols_engine_rounds_total", self.registry).labels(
+                task_id=self.task_id, status="failed"
+            ).inc()
+            self._abandon_live_flow()
+            action, next_round, new_attempts = self._handle_round_failure(
+                round_idx, lp["retries"].get(round_idx, 0), e
+            )
+            if action == "raise":
+                self._persist_resilience()
+                raise
+            lp["retries"][round_idx] = new_attempts
+            lp["round_idx"] = next_round
+            lp["flow_epoch"] += 1
+            return True
+        lp["retries"].pop(round_idx, None)
+        # A stop at the start barrier executed nothing and counts as no
+        # round; a stop at the stop barrier follows a completed round.
+        if status != "stop" or (
+            self.history and self.history[-1].get("round") == round_idx
+        ):
+            instrument("ols_engine_rounds_total", self.registry).labels(
+                task_id=self.task_id, status="ok"
+            ).inc()
+        if status == "stop":
+            self.stopped = True
+            lp["done"] = True
+            return False
+        if status == "final":
+            lp["done"] = True
+            return False
+        lp["round_idx"] = round_idx + 1
+        if lp["round_idx"] >= self.rounds:
+            lp["done"] = True
+            return False
+        return True
+
+    def finish(self) -> List[Dict[str, Any]]:
+        """Close out a run: persist the resilience digest and return the
+        history."""
+        self._persist_resilience()
+        self._loop = None
+        return self.history
+
+    def pending_device_rounds(self) -> int:
+        """Device-rounds this task still has to commit (remaining rounds x
+        total real population)."""
+        nxt = self._loop["round_idx"] if self._loop is not None else 0
+        remaining = max(0, self.rounds - nxt)
+        return remaining * sum(
+            p.dataset.num_real_clients for p in self.populations
+        )
+
+    def run(self) -> List[Dict[str, Any]]:
+        self.begin()
+        while self.step():
+            pass
+        return self.finish()

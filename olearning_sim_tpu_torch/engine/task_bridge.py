@@ -1,0 +1,324 @@
+"""Task JSON -> ready-to-run :class:`SimulationRunner` on the port's engine.
+
+The port of the JAX package's ``engine/task_bridge.py``: the task-JSON
+schema a user submits drives the round engine on the GPU. Builtin
+operators are addressed by name::
+
+    "logical_simulation": {
+        "operator_code_path": "builtin:train",   # or builtin:eval
+        "operator_params": "{ ...engine params json... }"
+    }
+
+Engine params (the first builtin operator's ``operator_params``), all
+optional::
+
+    {
+      "model":     {"name": "mlp2", "overrides": {...}, "input_shape": [784]},
+      "algorithm": {"name": "fedavg", "local_lr": 0.05, ...},
+      "fedcore":   {"batch_size": 32, "max_local_steps": 10, "block_clients": 64,
+                    "carry_dtype": "bf16", "shard_server_update": false},
+      "data":      {"synthetic": {"seed": 0, "n_local": 20, "num_classes": 10,
+                    "dirichlet_alpha": null, "class_sep": 2.0}, "eval_n": 1024,
+                    "compute_profiles": {"<device class>": local_steps}},
+      "resilience": {...},                    # ResilienceConfig.from_dict
+      "quarantine": {"preseed": {"data_0": [3, 7]}},
+      "operator_flow": {...},                 # barrier kwargs (flag_path, ...)
+      "scheduling": {"family": "..."}         # cost-oracle family key
+    }
+
+A task that asks for a part of the JAX bridge this slice leaves out raises
+a ``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
+dropped block would run a different simulation than the one asked for.
+The JAX bridge's persistent compile-cache switch has no counterpart in
+eager PyTorch and is dropped.
+"""
+
+from __future__ import annotations
+
+import json
+import threading
+from typing import Any, Dict, Optional
+
+import numpy as np
+
+from olearning_sim_tpu_torch.device import resolve_device
+from olearning_sim_tpu_torch.engine.algorithms import from_config as algorithm_from_config
+from olearning_sim_tpu_torch.engine.client_data import (
+    make_central_eval_set,
+    make_central_text_eval_set,
+    make_synthetic_dataset,
+    make_synthetic_text_dataset,
+)
+from olearning_sim_tpu_torch.engine.fedcore import FedCoreConfig, build_fedcore
+from olearning_sim_tpu_torch.engine.runner import (
+    DataPopulation,
+    OperatorSpec,
+    SimulationRunner,
+)
+from olearning_sim_tpu_torch.resilience import ResilienceConfig, parse_quarantine_params
+from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
+
+BUILTIN_PREFIX = "builtin:"
+
+# Engine-params blocks of the JAX bridge that this slice leaves out, with
+# the ROADMAP.md item that ports each.
+LEFT_OUT = {
+    "checkpoint": "A5 (checkpoint and resume)",
+    "deadline": "A6 (deadline rounds)",
+    "defense": "A6 (adversarial-client defense)",
+    "scenario": "A7 (scenario traces and streaming)",
+    "async": "A8 (buffered async rounds)",
+    "convergence": "A12 (convergence tracking)",
+}
+KNOWN = {"model", "algorithm", "fedcore", "data", "resilience", "quarantine",
+         "operator_flow", "scheduling", "storage", "parallel"} | set(LEFT_OUT)
+
+
+def _engine_params(tc) -> Dict[str, Any]:
+    """Engine params: the first builtin operator's operatorParams JSON."""
+    for op in tc.operatorFlow.operator:
+        info = op.logicalSimulationOperatorInfo
+        if info.operatorCodePath.startswith(BUILTIN_PREFIX) and info.operatorParams:
+            return json.loads(info.operatorParams)
+    return {}
+
+
+def cost_family(tc) -> str:
+    """The scheduler cost-oracle family key of a task, as the JAX package's
+    ``CostOracle.family_of`` computes it."""
+    params = _engine_params(tc)
+    sched = params.get("scheduling") or {}
+    if sched.get("family"):
+        return str(sched["family"])
+    algo = (params.get("algorithm") or {}).get("name", "unknown")
+    model = (params.get("model") or {}).get("name", "unknown")
+    return f"{algo}_{model}"
+
+
+def _refuse_left_out(task_id: str, params: Dict[str, Any], tc) -> None:
+    unknown = sorted(set(params) - KNOWN)
+    if unknown:
+        raise ValueError(f"task {task_id}: unknown engine params blocks {unknown} "
+                         f"(known: {sorted(KNOWN)})")
+    for block, item in LEFT_OUT.items():
+        if params.get(block):
+            raise ValueError(f"task {task_id}: engine params {block!r} are not "
+                             f"ported yet: ROADMAP.md {item}")
+    par = params.get("parallel")
+    if par:
+        item = ("A10 (model parallelism)" if any(int(par.get(k, 1)) > 1 for k in ("mp", "pp"))
+                else "A9 (multi-GPU dp)")
+        raise ValueError(f"task {task_id}: engine params 'parallel' {par} are not "
+                         f"ported yet: ROADMAP.md {item}")
+    if (params.get("operator_flow") or {}).get("selection_url"):
+        raise ValueError(f"task {task_id}: the websocket round provider "
+                         f"(operator_flow.selection_url) is not ported yet: ROADMAP.md A16")
+    for op in tc.operatorFlow.operator:
+        m = op.model
+        if m.useModel or m.modelUpdateStyle:
+            raise ValueError(f"task {task_id}: operator {op.name} model I/O "
+                             f"(useModel / modelUpdateStyle) is not ported yet: "
+                             f"ROADMAP.md A5 (checkpoint, model export and warm start)")
+    for td in tc.target.targetData:
+        if td.dataPath:
+            raise ValueError(f"task {task_id}: real dataset {td.dataPath!r} (dataPath) "
+                             f"is not ported yet: ROADMAP.md A14 (real-dataset ingest)")
+
+
+def _operator_specs(task_id: str, tc) -> list:
+    specs = []
+    for op in tc.operatorFlow.operator:
+        info = op.logicalSimulationOperatorInfo
+        if info.operatorCodePath == "":
+            # Device-only operator: belongs to the phone half.
+            continue
+        if not info.operatorCodePath.startswith(BUILTIN_PREFIX):
+            raise ValueError(f"task {task_id}: operator {op.name} runs external code "
+                             f"{info.operatorCodePath!r}, which is not ported yet: "
+                             f"ROADMAP.md A15 (external operator code)")
+        kind = info.operatorCodePath[len(BUILTIN_PREFIX):]
+        if kind not in ("train", "eval"):
+            raise ValueError(f"operator {op.name}: unknown builtin operator {kind!r}")
+        specs.append(OperatorSpec(
+            name=op.name,
+            kind=kind,
+            use_deviceflow=op.operationBehaviorController.useController,
+            deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
+            outbound_service=op.operationBehaviorController.outboundService,
+            inputs=list(op.input),
+        ))
+    return specs
+
+
+def build_runner_from_taskconfig(
+    tc,
+    task_repo=None,
+    deviceflow=None,
+    stop_event: Optional[threading.Event] = None,
+    perf=None,
+    cost_oracle=None,
+    registry=None,
+    device="cuda",
+) -> SimulationRunner:
+    """Build a ready-to-run runner from a task JSON (str or dict), the
+    port's :class:`~olearning_sim_tpu_torch.taskmgr.codecs.TaskConfig`, or a
+    protobuf ``TaskConfig`` handed in by the JAX control plane (read by
+    attribute). The model, its parameters and the populations are placed
+    on ``device``, which defaults to CUDA and raises without it.
+    ``task_repo`` / ``deviceflow`` / ``perf`` / ``cost_oracle`` /
+    ``registry`` are handed to the runner, duck-typed; with a
+    ``cost_oracle`` the runner feeds it under :func:`cost_family`'s key."""
+    if isinstance(tc, (str, dict)):
+        tc = json2taskconfig(tc)
+    dev = resolve_device(device)
+    task_id = tc.taskID.taskID
+    params = _engine_params(tc)
+    _refuse_left_out(task_id, params, tc)
+    operators = _operator_specs(task_id, tc)
+
+    model_cfg = params.get("model", {})
+    algo_cfg = dict(params.get("algorithm", {}))
+    data_cfg = params.get("data", {})
+    # One validated parser for every fedcore knob: a typo'd or wrong-typed
+    # knob fails here, before any data is made.
+    cfg = FedCoreConfig.from_dict(params.get("fedcore", {}))
+    algorithm = algorithm_from_config(algo_cfg.pop("name", "fedavg"), **algo_cfg)
+    input_shape = tuple(model_cfg.get("input_shape", [])) or None
+
+    from olearning_sim_tpu_torch.models import get_model
+
+    model_name = model_cfg.get("name", "mlp2")
+    try:
+        spec = get_model(model_name)
+    except KeyError:
+        raise ValueError(f"task {task_id}: model {model_name!r} is not ported yet: "
+                         f"ROADMAP.md A10 (the remaining large families)") from None
+    core = build_fedcore(model_name, algorithm, cfg,
+                         model_overrides=model_cfg.get("overrides"),
+                         input_shape=input_shape, device=dev)
+
+    syn = data_cfg.get("synthetic", {})
+    overrides = model_cfg.get("overrides") or {}
+    # The model's head size bounds the labels; its embedding table bounds
+    # the token ids.
+    model_classes = int(overrides.get("num_classes",
+                                      spec.defaults.get("num_classes", spec.num_classes)))
+    num_classes = int(syn.get("num_classes", model_classes))
+    if num_classes > model_classes:
+        raise ValueError(
+            f"data.synthetic.num_classes={num_classes} exceeds the model's "
+            f"head size {model_classes}; labels would fall outside the logits"
+        )
+    if input_shape is None:
+        input_shape = spec.example_input_shape
+    is_text = np.issubdtype(np.dtype(spec.input_dtype), np.integer)
+    model_vocab = int(overrides.get("vocab_size", spec.defaults.get("vocab_size", 30522)))
+    vocab_size = int(syn.get("vocab_size", model_vocab))
+    if is_text and vocab_size > model_vocab:
+        raise ValueError(
+            f"data.synthetic.vocab_size={vocab_size} exceeds the model's "
+            f"vocab_size={model_vocab}; token ids would fall outside the "
+            f"embedding table"
+        )
+
+    seed = int(syn.get("seed", 0))
+    populations = []
+    for td in tc.target.targetData:
+        devices = list(td.totalSimulation.deviceTotalSimulation)
+        # The logical half simulates only its allocated share of devices;
+        # the rest belongs to real phones (hybrid split).
+        alloc = [int(a) for a in td.allocation.allocationLogicalSimulation]
+        if alloc and any(a > 0 for a in alloc):
+            nums = alloc
+        else:
+            nums = [int(n) for n in td.totalSimulation.numTotalSimulation]
+        dynamic = [int(n) for n in td.totalSimulation.dynamicNumTotalSimulation]
+        if not dynamic:
+            dynamic = [0] * len(nums)
+        num_clients = sum(nums)
+        if is_text:
+            ds = make_synthetic_text_dataset(
+                seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
+                seq_len=int(input_shape[0]), num_classes=num_classes,
+                vocab_size=vocab_size, dirichlet_alpha=syn.get("dirichlet_alpha"),
+            )
+        else:
+            ds = make_synthetic_dataset(
+                seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
+                input_shape=input_shape, num_classes=num_classes,
+                dirichlet_alpha=syn.get("dirichlet_alpha"),
+                class_sep=float(syn.get("class_sep", 2.0)),
+            )
+        ds = ds.pad_for(cfg.block_clients).to(dev)
+        cls = np.zeros(ds.num_clients, int)
+        start = 0
+        for ci, n in enumerate(nums):
+            cls[start:start + n] = ci
+            start += n
+        eval_data = None
+        if data_cfg.get("eval_n"):
+            if is_text:
+                eval_data = make_central_text_eval_set(
+                    seed, int(data_cfg["eval_n"]), int(input_shape[0]), num_classes,
+                    vocab_size=vocab_size)
+            else:
+                eval_data = make_central_eval_set(
+                    seed, int(data_cfg["eval_n"]), input_shape, num_classes,
+                    class_sep=float(syn.get("class_sep", 2.0)))
+        # Heterogeneous compute profiles: {"<device class>": local_steps};
+        # unlisted classes run max_local_steps.
+        profiles = data_cfg.get("compute_profiles") or {}
+        num_steps = None
+        if profiles:
+            steps = np.full(ds.num_clients, cfg.max_local_steps, np.int32)
+            for ci, name in enumerate(devices):
+                if name in profiles:
+                    steps[cls == ci] = int(profiles[name])
+            num_steps = steps
+        populations.append(DataPopulation(
+            name=td.dataName, dataset=ds, device_classes=devices,
+            class_of_client=cls, nums=nums, dynamic_nums=dynamic,
+            eval_data=eval_data, num_steps=num_steps, num_classes=num_classes,
+        ))
+
+    fs = tc.operatorFlow.flowSetting
+    start_strat = fs.startCondition.logicalSimulationStrategy
+    stop_strat = fs.stopCondition.logicalSimulationStrategy
+    flow = OperatorFlowController(
+        task_id,
+        fs.round,
+        start_params={
+            "strategy": start_strat.strategyCondition,
+            "wait_interval": start_strat.waitInterval,
+            "total_timeout": start_strat.totalTimeout,
+        },
+        stop_params={
+            "strategy": stop_strat.strategyCondition,
+            "wait_interval": stop_strat.waitInterval,
+            "total_timeout": stop_strat.totalTimeout,
+        },
+        strategy_kwargs=params.get("operator_flow", {}),
+        stop_event=stop_event,
+    )
+    resilience = (ResilienceConfig.from_dict(params["resilience"])
+                  if params.get("resilience") else None)
+    quarantine_preseed = (parse_quarantine_params(params["quarantine"])["preseed"]
+                          if params.get("quarantine") else None)
+    return SimulationRunner(
+        task_id=task_id,
+        core=core,
+        populations=populations,
+        operators=operators,
+        rounds=fs.round,
+        task_repo=task_repo,
+        deviceflow=deviceflow,
+        operator_flow=flow,
+        stop_event=stop_event,
+        perf=perf,
+        resilience=resilience,
+        quarantine_preseed=quarantine_preseed,
+        cost_oracle=cost_oracle,
+        cost_family=cost_family(tc) if cost_oracle is not None else None,
+        registry=registry,
+    )

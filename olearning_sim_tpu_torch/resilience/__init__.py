@@ -1,0 +1,81 @@
+"""Resilience layer: fault injection, retry/backoff, quarantine, event log.
+
+Copies of the JAX package's ``resilience`` modules, with the same event
+kinds and injection-point names:
+
+- :mod:`faults` — deterministic seed-driven fault injection at named points;
+- :mod:`retry` — exponential-backoff retry policy for transient failures;
+- :mod:`quarantine` — exclusion + probationary re-admission of clients that
+  produce non-finite updates;
+- :mod:`policy` — operator-level failure policies (fail_task / skip_round /
+  retry) and the runner's resilience configuration;
+- :mod:`events` — counters + structured events.
+
+The process-global injector and log are the port's own: a chaos plan armed
+through the JAX package does not reach a port runner.
+"""
+
+from olearning_sim_tpu_torch.resilience.events import (
+    CLIENT_QUARANTINED,
+    CLIENT_READMITTED,
+    FAULT_INJECTED,
+    QUARANTINE,
+    READMIT,
+    RETRY,
+    RETRY_EXHAUSTED,
+    ROLLBACK,
+    SKIP_ROUND,
+    ResilienceEvent,
+    ResilienceLog,
+    global_log,
+)
+from olearning_sim_tpu_torch.resilience.faults import (
+    ChaosClock,
+    FaultError,
+    FaultInjector,
+    FaultPlan,
+    FaultSpec,
+    HostPreemption,
+    active_injector,
+    chaos,
+    fire,
+    inject,
+    install,
+)
+from olearning_sim_tpu_torch.resilience.policy import FailurePolicy, ResilienceConfig
+from olearning_sim_tpu_torch.resilience.quarantine import (
+    QuarantineManager,
+    parse_quarantine_params,
+)
+from olearning_sim_tpu_torch.resilience.retry import RetryPolicy
+
+__all__ = [
+    "CLIENT_QUARANTINED",
+    "CLIENT_READMITTED",
+    "FAULT_INJECTED",
+    "QUARANTINE",
+    "READMIT",
+    "RETRY",
+    "RETRY_EXHAUSTED",
+    "ROLLBACK",
+    "SKIP_ROUND",
+    "ChaosClock",
+    "FailurePolicy",
+    "FaultError",
+    "FaultInjector",
+    "FaultPlan",
+    "FaultSpec",
+    "HostPreemption",
+    "QuarantineManager",
+    "ResilienceConfig",
+    "ResilienceEvent",
+    "ResilienceLog",
+    "RetryPolicy",
+    "active_injector",
+    "chaos",
+    "fire",
+    "global_log",
+    "inject",
+    "install",
+    "parse_quarantine_params",
+]

@@ -1,0 +1,133 @@
+"""Telemetry: metrics registry and span tracing, standard library only.
+
+- :mod:`telemetry.metrics` — thread-safe ``Counter`` / ``Gauge`` /
+  ``Histogram`` behind a :class:`MetricsRegistry` (process default +
+  injectable instances);
+- :mod:`telemetry.tracing` — :class:`SpanTracer` producing parent-linked
+  wall-clock spans exportable as Chrome/Perfetto ``trace_event`` JSON.
+
+Copies of the JAX package's modules of the same names. :data:`CATALOG`
+holds the entries of the JAX package's catalog that the port's modules
+instrument, each identical there and here in kind, help, labels and
+buckets, so that both packages' runners write the same series. A registry
+passed in (``registry=``) is used duck-typed: the JAX package's
+``MetricsRegistry`` works here, and a control plane that owns one sees a
+port runner's series beside a JAX runner's. The process defaults, though,
+are the port's own.
+
+Set ``OLS_TELEMETRY=0`` in the environment to start the process with the
+default registry and tracer disabled.
+"""
+
+from __future__ import annotations
+
+import os
+from typing import Optional
+
+from olearning_sim_tpu_torch.telemetry.metrics import (
+    COUNTER,
+    DEFAULT_BUCKETS,
+    GAUGE,
+    HISTOGRAM,
+    Counter,
+    Gauge,
+    Histogram,
+    Metric,
+    MetricsRegistry,
+    default_registry,
+    set_default_registry,
+)
+from olearning_sim_tpu_torch.telemetry.tracing import (
+    Span,
+    SpanTracer,
+    default_tracer,
+    set_default_tracer,
+)
+
+# Round-phase latencies cluster well under a second but stretch to
+# minutes for first rounds; checkpoint I/O sits in between.
+_PHASE_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
+                  2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
+
+# name -> (kind, help, label names[, buckets]).
+CATALOG = {
+    "ols_engine_round_phase_duration_seconds": (
+        HISTOGRAM,
+        "Wall-clock per round phase (select/train/host_transfer/eval/"
+        "custom/accounting/checkpoint/model_export)",
+        ("task_id", "operator", "phase"), _PHASE_BUCKETS,
+    ),
+    # Eager PyTorch compiles nothing: in the port this gauge holds the
+    # first round's wall time per (task, operator), as the JAX runner
+    # records it, and that time is the CUDA context, cuBLAS/cuDNN handle
+    # and autotuning warm-up rather than a compile.
+    "ols_engine_compile_duration_seconds": (
+        GAUGE,
+        "First-execution wall-clock of the compiled round step per "
+        "(task, operator) — dominated by XLA compilation",
+        ("task_id", "operator"),
+    ),
+    "ols_engine_rounds_total": (
+        COUNTER,
+        "Round executions by outcome (ok/failed/skipped)",
+        ("task_id", "status"),
+    ),
+    "ols_engine_device_rounds_total": (
+        COUNTER,
+        "Virtual device-rounds advanced (clients x train rounds)",
+        ("task_id",),
+    ),
+    "ols_engine_quarantined_clients": (
+        GAUGE,
+        "Clients currently quarantined out of participation (strike "
+        "budget exceeded via non-finite updates, anomaly flags, or "
+        "operator preseed)",
+        ("task_id",),
+    ),
+    "ols_resilience_events_total": (
+        COUNTER,
+        "Resilience events (retry/rollback/quarantine/...) mirrored from "
+        "ResilienceLog",
+        ("kind", "task_id"),
+    ),
+}
+
+
+def instrument(name: str, registry: Optional[MetricsRegistry] = None):
+    """Materialize a cataloged metric in ``registry`` (default registry when
+    None). Idempotent; the only way the port's code creates metrics."""
+    spec = CATALOG[name]
+    kind, help_text, labels = spec[0], spec[1], spec[2]
+    registry = registry if registry is not None else default_registry()
+    if kind == HISTOGRAM:
+        buckets = spec[3] if len(spec) > 3 else DEFAULT_BUCKETS
+        return registry.histogram(name, help_text, labels=labels,
+                                  buckets=buckets)
+    if kind == GAUGE:
+        return registry.gauge(name, help_text, labels=labels)
+    return registry.counter(name, help_text, labels=labels)
+
+
+if os.environ.get("OLS_TELEMETRY") == "0":
+    default_registry().enabled = False
+    default_tracer().enabled = False
+
+__all__ = [
+    "CATALOG",
+    "COUNTER",
+    "GAUGE",
+    "HISTOGRAM",
+    "DEFAULT_BUCKETS",
+    "Counter",
+    "Gauge",
+    "Histogram",
+    "Metric",
+    "MetricsRegistry",
+    "Span",
+    "SpanTracer",
+    "default_registry",
+    "default_tracer",
+    "instrument",
+    "set_default_registry",
+    "set_default_tracer",
+]

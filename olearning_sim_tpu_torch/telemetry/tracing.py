@@ -1,0 +1,144 @@
+"""Span tracer: causal, parent-linked wall-clock spans.
+
+``torch.profiler`` answers "what did the card do" at kernel granularity;
+this module answers "what did the *runner* do" — which round, which
+operator, which phase — at host granularity. A copy of the JAX package's
+``telemetry/tracing.py`` without its Perfetto export.
+
+Usage::
+
+    tracer = SpanTracer()            # or default_tracer()
+    with tracer.span("round.train", round_idx=3, operator="train"):
+        ...                          # nested spans parent-link automatically
+
+Spans carry monotonic wall-clock durations, a per-tracer span id, the
+enclosing span's id (``parent_id``), and free-form attributes. Nesting is
+tracked per thread (a ``threading.local`` stack: spans never cross
+threads).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+import time
+from typing import Any, Dict, List, Optional
+
+
+@dataclasses.dataclass
+class Span:
+    name: str
+    span_id: int
+    parent_id: Optional[int]
+    start_s: float          # monotonic start (tracer epoch-relative)
+    duration_s: float = 0.0
+    thread_id: int = 0
+    attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+
+class _ActiveSpan:
+    def __init__(self, tracer: "SpanTracer", span: Span):
+        self._tracer = tracer
+        self.span = span
+        self._t0 = 0.0
+
+    def __enter__(self) -> Span:
+        self._t0 = time.perf_counter()
+        self._tracer._stack().append(self.span)
+        return self.span
+
+    def __exit__(self, exc_type, exc, tb):
+        self.span.duration_s = time.perf_counter() - self._t0
+        if exc_type is not None:
+            self.span.attrs["error"] = f"{exc_type.__name__}: {str(exc)[:200]}"
+        stack = self._tracer._stack()
+        if stack and stack[-1] is self.span:
+            stack.pop()
+        self._tracer._finish(self.span)
+        return False
+
+
+class _NullSpanCtx:
+    """Returned by a disabled tracer: zero bookkeeping, reusable."""
+
+    def __enter__(self):
+        return None
+
+    def __exit__(self, *exc):
+        return False
+
+
+_NULL_CTX = _NullSpanCtx()
+
+
+class SpanTracer:
+    """Thread-safe span recorder with a bounded finished-span window.
+
+    ``keep_last`` bounds memory for long runs (structured forensics keep the
+    tail; exported files should be flushed per run/trace window anyway).
+    """
+
+    def __init__(self, keep_last: int = 65536, enabled: bool = True):
+        self.keep_last = keep_last
+        self.enabled = enabled
+        self._lock = threading.Lock()
+        self._local = threading.local()
+        self._spans: List[Span] = []
+        self._next_id = 1
+        self._epoch = time.perf_counter()
+
+    def _stack(self) -> List[Span]:
+        stack = getattr(self._local, "stack", None)
+        if stack is None:
+            stack = self._local.stack = []
+        return stack
+
+    def span(self, name: str, **attrs: Any):
+        """``with tracer.span("round.train", round_idx=3): ...`` — opens a
+        span parented to the innermost open span on this thread."""
+        if not self.enabled:
+            return _NULL_CTX
+        stack = self._stack()
+        parent = stack[-1].span_id if stack else None
+        with self._lock:
+            span_id = self._next_id
+            self._next_id += 1
+        return _ActiveSpan(self, Span(
+            name=name, span_id=span_id, parent_id=parent,
+            start_s=time.perf_counter() - self._epoch,
+            thread_id=threading.get_ident() & 0x7FFFFFFF,
+            attrs=dict(attrs),
+        ))
+
+    def _finish(self, span: Span) -> None:
+        with self._lock:
+            self._spans.append(span)
+            if len(self._spans) > self.keep_last:
+                del self._spans[: len(self._spans) - self.keep_last]
+
+    # ---------------------------------------------------------------- reads
+    def spans(self, name: Optional[str] = None) -> List[Span]:
+        with self._lock:
+            out = list(self._spans)
+        if name is not None:
+            out = [s for s in out if s.name == name]
+        return out
+
+    def clear(self) -> None:
+        with self._lock:
+            self._spans.clear()
+
+
+_DEFAULT = SpanTracer()
+
+
+def default_tracer() -> SpanTracer:
+    """The process-wide tracer (what instrumented modules use when no tracer
+    is injected)."""
+    return _DEFAULT
+
+
+def set_default_tracer(tracer: SpanTracer) -> SpanTracer:
+    global _DEFAULT
+    old, _DEFAULT = _DEFAULT, tracer
+    return old

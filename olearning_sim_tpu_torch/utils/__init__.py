@@ -1,0 +1,9 @@
+"""Host utilities copied from the JAX package's ``utils/``: the monotonic
+deadline, the table-repository interface with its in-memory backend, and
+the structured logger."""
+
+from olearning_sim_tpu_torch.utils.clocks import Deadline, monotonic
+from olearning_sim_tpu_torch.utils.logging import Logger
+from olearning_sim_tpu_torch.utils.repo import MemoryTableRepo, TableRepo
+
+__all__ = ["Deadline", "Logger", "MemoryTableRepo", "TableRepo", "monotonic"]

@@ -1,0 +1,278 @@
+"""The port's task bridge: every input form builds the same runner, the
+supported configs/*.json build and run one tiny round on the CPU (cut by
+editing the loaded JSON only), every other config and every left-out
+engine-params block is refused with its ROADMAP.md item, the JAX control
+plane drives a port runner through its runner_factory, and the repaired
+FedCoreConfig.from_dict agrees with the JAX package's."""
+
+import json
+import pathlib
+import time
+
+import numpy as np
+import pytest
+import torch
+
+from olearning_sim_tpu_torch.engine import fedcore as tfc
+from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig, cost_family
+from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+
+REPO = pathlib.Path(__file__).resolve().parent.parent
+SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
+             "fedadam_sent140_distilbert"]
+REFUSED = {
+    "ditto_cifar100_vit": "A10",
+    "fedadam_sent140_distilbert_mp2": "A10",
+    "fedavg_mnist_mlp_async": "A8",
+    "fedavg_mnist_mlp_bf16": "A9",
+    "fedavg_mnist_mlp_convergence": "A12",
+    "fedavg_mnist_mlp_deadline": "A6",
+    "fedavg_mnist_mlp_defense": "A6",
+    "fedavg_mnist_mlp_trace": "A7",
+    "fedprox_femnist_resnet18": "A10",
+}
+# Narrow widths per family for the CPU (the configs' own shapes otherwise).
+SHRINK = {
+    "mlp2": ({"hidden": [16]}, None),
+    "cnn4": ({"features": [4, 8]}, [8, 8, 3]),
+    "distilbert": ({"depth": 1, "width": 16, "heads": 2, "mlp_dim": 32,
+                    "vocab_size": 97, "max_len": 8}, [8]),
+}
+
+
+def load(name):
+    return json.loads((REPO / "configs" / f"{name}.json").read_text())
+
+
+def engine_params(task):
+    return json.loads(task["operatorflow"]["operators"][0]["logical_simulation"]
+                      ["operator_params"])
+
+
+def set_engine_params(task, params):
+    task["operatorflow"]["operators"][0]["logical_simulation"]["operator_params"] = \
+        json.dumps(params)
+    return task
+
+
+def shrink(task, clients=8, rounds=1):
+    """The config cut to a CPU-sized task: clients, rounds, local work and
+    the model's widths, all by editing the loaded JSON."""
+    params = engine_params(task)
+    overrides, shape = SHRINK[params["model"]["name"]]
+    params["model"]["overrides"].update(overrides)
+    if shape:
+        params["model"]["input_shape"] = shape
+    params["fedcore"].update(batch_size=4, max_local_steps=2, block_clients=4)
+    params["data"]["synthetic"]["n_local"] = 6
+    params["data"]["eval_n"] = 32
+    for td in task["target"]["data"]:
+        per = [clients // len(td["total_simulation"]["nums"])] * len(td["total_simulation"]["nums"])
+        td["total_simulation"]["nums"] = per
+        td["allocation"]["logical_simulation"] = per
+    task["operatorflow"]["flow_setting"]["round"] = rounds
+    return set_engine_params(task, params)
+
+
+@pytest.mark.parametrize("name", SUPPORTED)
+def test_supported_config_runs_a_tiny_round(name):
+    task = shrink(load(name))
+    repo = TaskTableRepo()
+    runner = build_runner_from_taskconfig(task, task_repo=repo, device="cpu")
+    history = runner.run()
+    rec = history[0]["train"]["data_0"]
+    assert np.isfinite(rec["mean_loss"]) and rec["clients_trained"] > 0
+    assert np.isfinite(history[0]["evaluate"]["data_0"]["eval_loss"])
+    assert repo.get_item_value(task["task_id"], "logical_round") == 1
+    if name == "fedadam_sent140_distilbert":
+        assert runner.operators[0].use_deviceflow  # its flow_dispatch strategy is live
+        assert rec["released"] + rec["dropped"] <= 8
+    if name == "scaffold_mnist_mlp":
+        assert "data_0" in runner.control_states
+
+
+@pytest.mark.parametrize("name", sorted(REFUSED))
+def test_unsupported_config_names_its_roadmap_item(name):
+    with pytest.raises(ValueError, match=f"ROADMAP.md {REFUSED[name]}"):
+        build_runner_from_taskconfig(load(name), device="cpu")
+
+
+def _with_params(**blocks):
+    task = shrink(load("fedavg_mnist_mlp"))
+    return set_engine_params(task, dict(engine_params(task), **blocks))
+
+
+@pytest.mark.parametrize("blocks,item", [
+    ({"checkpoint": {"every": 1}}, "ROADMAP.md A5"),
+    ({"parallel": {"dp": 2}}, "ROADMAP.md A9"),
+    ({"operator_flow": {"selection_url": "ws://localhost:9"}}, "ROADMAP.md A16"),
+    ({"streaming": {"x": 1}}, "unknown engine params"),
+])
+def test_left_out_blocks_are_refused(blocks, item):
+    with pytest.raises(ValueError, match=item):
+        build_runner_from_taskconfig(_with_params(**blocks), device="cpu")
+
+
+@pytest.mark.parametrize("field,value,item", [
+    ("model", {"use_model": True, "model_path": "m.msgpack"}, "A5"),
+    ("model", {"model_update_style": "{task_id}_{round}"}, "A5"),
+    ("data_path", "s3://bucket/mnist", "A14"),
+    ("operator_code_path", "ops/train.zip", "A15"),
+])
+def test_left_out_task_fields_are_refused(field, value, item):
+    task = shrink(load("fedavg_mnist_mlp"))
+    op = task["operatorflow"]["operators"][1]
+    if field == "model":
+        op["model"].update(value)
+    elif field == "data_path":
+        task["target"]["data"][0]["data_path"] = value
+    else:
+        op["logical_simulation"]["operator_code_path"] = value
+    with pytest.raises(ValueError, match=f"ROADMAP.md {item}"):
+        build_runner_from_taskconfig(task, device="cpu")
+
+
+def _runner_view(runner):
+    pop = runner.populations[0]
+    state = runner.core.init_state(seed=1, device="cpu")
+    return (runner.task_id, runner.rounds, repr(runner.core.config), runner.core.algorithm,
+            [(o.name, o.kind, o.use_deviceflow, o.deviceflow_strategy, o.inputs)
+             for o in runner.operators],
+            pop.name, pop.device_classes, pop.nums, pop.dynamic_nums,
+            pop.class_of_client.tolist(), None if pop.num_steps is None else pop.num_steps.tolist(),
+            pop.dataset.x.tolist(), pop.dataset.weight.tolist(), pop.eval_data[1].tolist(),
+            {k: v.tolist() for k, v in state.params.items()},
+            runner.operator_flow.start_params, runner.operator_flow.stop_params)
+
+
+def test_every_input_form_builds_the_same_runner():
+    from olearning_sim_tpu.taskmgr.codecs import json2taskconfig as jax_json2taskconfig
+
+    task = shrink(load("fedadam_sent140_distilbert"))
+    text = json.dumps(task)
+    views = [_runner_view(build_runner_from_taskconfig(form, device="cpu"))
+             for form in (task, text, json2taskconfig(text), jax_json2taskconfig(text))]
+    for view in views[1:]:
+        assert view == views[0]
+
+
+def test_compute_profiles_and_device_classes():
+    task = shrink(load("fedavg_mnist_mlp"))
+    td = task["target"]["data"][0]
+    td["total_simulation"].update(devices=["high", "low"], nums=[5, 3], dynamic_nums=[1, 0])
+    td["allocation"]["logical_simulation"] = [5, 3]
+    params = engine_params(task)
+    params["data"]["compute_profiles"] = {"low": 1}
+    runner = build_runner_from_taskconfig(set_engine_params(task, params), device="cpu")
+    pop = runner.populations[0]
+    assert pop.class_of_client.tolist() == [0] * 5 + [1] * 3
+    assert pop.num_steps.tolist() == [2] * 5 + [1] * 3
+    assert pop.nums == [5, 3] and pop.dynamic_nums == [1, 0]
+    assert cost_family(json2taskconfig(task)) == "fedavg_mlp2"
+
+
+def test_bridge_defaults_to_cuda_and_refuses_without_it(monkeypatch):
+    monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
+    with pytest.raises(RuntimeError, match="cuda"):
+        build_runner_from_taskconfig(shrink(load("fedavg_mnist_mlp")))
+
+
+# ------------------------------------------------ the JAX control plane
+def _wait_for(cond, timeout=60.0):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        if cond():
+            return True
+        time.sleep(0.02)
+    return False
+
+
+def _manager(repo):
+    from olearning_sim_tpu.taskmgr.task_manager import TaskManager
+
+    return TaskManager(
+        task_repo=repo, schedule_interval=3600,
+        runner_factory=lambda tc, ev: build_runner_from_taskconfig(
+            tc, task_repo=repo, stop_event=ev, device="cpu"))
+
+
+def test_task_manager_runs_a_port_runner_to_succeeded():
+    from olearning_sim_tpu.taskmgr.codecs import json2taskconfig as jax_json2taskconfig
+    from olearning_sim_tpu.taskmgr.status import TaskStatus
+    from olearning_sim_tpu.taskmgr.task_repo import TaskTableRepo as JaxRepo
+
+    repo = JaxRepo()
+    mgr = _manager(repo)
+    task = shrink(load("fedavg_mnist_mlp"), rounds=2)
+    task["task_id"] = "port_succeeds"
+    try:
+        assert mgr.submit_task(jax_json2taskconfig(task))
+        assert mgr.schedule_once() == "port_succeeds"
+        assert _wait_for(lambda: mgr._launcher.get_job_status("job-port_succeeds")
+                         == TaskStatus.SUCCEEDED)
+        mgr.release_once()
+        assert mgr.get_task_status("port_succeeds") == TaskStatus.SUCCEEDED
+        assert repo.get_item_value("port_succeeds", "logical_round") == 2
+    finally:
+        mgr.stop()
+
+
+def test_task_manager_stops_a_port_runner():
+    from olearning_sim_tpu.taskmgr.codecs import json2taskconfig as jax_json2taskconfig
+    from olearning_sim_tpu.taskmgr.status import TaskStatus
+    from olearning_sim_tpu.taskmgr.task_repo import TaskTableRepo as JaxRepo
+
+    repo = JaxRepo()
+    mgr = _manager(repo)
+    task = shrink(load("fedavg_mnist_mlp"), rounds=10000)
+    task["task_id"] = "port_stops"
+    try:
+        assert mgr.submit_task(jax_json2taskconfig(task))
+        assert mgr.schedule_once() == "port_stops"
+        assert _wait_for(lambda: (repo.get_item_value("port_stops", "logical_round") or 0) >= 1)
+        assert mgr.stop_task("port_stops")
+        assert _wait_for(lambda: mgr.get_task_status("port_stops") == TaskStatus.STOPPED)
+        assert repo.get_item_value("port_stops", "logical_round") < 10000
+    finally:
+        mgr.stop()
+
+
+# ------------------------------------------- FedCoreConfig.from_dict repair
+@pytest.mark.parametrize("obj", [
+    {"step_unroll": 4, "block_unroll": 2},
+    {"aux_loss_weight": 0.5},
+    {"aux_loss_weight": None, "step_unroll": None},
+    {"shard_server_update": False, "batch_size": 8},
+])
+def test_fedcore_config_accepts_jax_keys(obj):
+    # Both accept the input; the port drops the JAX-only keys (it has no
+    # field for them) and keeps every field the two share equal.
+    from olearning_sim_tpu.engine import fedcore as jfc
+
+    a, b = jfc.FedCoreConfig.from_dict(obj), tfc.FedCoreConfig.from_dict(obj)
+    for k in ("step_unroll", "block_unroll", "aux_loss_weight", "shard_server_update"):
+        assert not hasattr(b, k), k
+    for k in ("batch_size", "max_local_steps", "block_clients", "eval_batch_size",
+              "sample_mode"):
+        assert getattr(a, k) == getattr(b, k), k
+
+
+@pytest.mark.parametrize("obj", [{"step_unroll": 0}, {"block_unroll": -1},
+                                 {"step_unroll": "x"}, {"block_unroll": 0.5},
+                                 {"aux_loss_weight": "heavy"},
+                                 {"step_unroll": 2, "unroll": 2}])
+def test_fedcore_config_rejects_as_jax(obj):
+    from olearning_sim_tpu.engine import fedcore as jfc
+
+    for cls in (jfc.FedCoreConfig, tfc.FedCoreConfig):
+        with pytest.raises(ValueError):
+            cls.from_dict(obj)
+
+
+def test_fedcore_config_refuses_sharded_server_update():
+    from olearning_sim_tpu.engine import fedcore as jfc
+
+    assert jfc.FedCoreConfig.from_dict({"shard_server_update": True}).shard_server_update
+    with pytest.raises(ValueError, match="ROADMAP.md A9"):
+        tfc.FedCoreConfig.from_dict({"shard_server_update": True})
