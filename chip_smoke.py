@@ -74,15 +74,43 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    8f 8a's task with ``{"resilience": {"failure_policy": "retry"}}``, run
       twice: with ``runner.round_begin`` armed once at round 1 (the attempt
       fails before it trains) and with ``runner.pre_checkpoint`` (a host
-      preemption after the attempt has trained and drawn its minibatch
-      indices from the shared generator). Each run completes with exactly
-      one rollback and final params within RETRY_REL of 8a's; the second
-      holds only if the snapshot restored the index generator's state;
+      preemption after the attempt has trained and advanced the round
+      counter its minibatch draws are seeded from). Each run completes
+      with exactly one rollback and final params within RETRY_REL of 8a's;
+      the second holds only if the snapshot restored the round counter;
    8g 8a's task, train operator only, with ``quarantine_after: 1`` and
       ``runner.poison_clients`` armed for clients [3, 7, 11] at round 0:
       those three are failed in ``logical_result``, excluded from
       ``clients_trained`` and are the clients the quarantine holds, and the
       params stay finite.
+   Then checkpoints, model files and convergence, every file under a
+   ``tempfile.TemporaryDirectory`` removed at the end (and a line saying
+   whether ``msgpack`` imports here, which the port does not use):
+   8h 8a's task with ``{"checkpoint": {"every": 1}}``, stopped (the
+      runner's stop event) after round 0 and resumed by a fresh runner from
+      the same JSON and directory: final params within RETRY_REL of 8a's;
+      then with ``{"failure_policy": "retry"}`` and a preemption at
+      ``runner.pre_checkpoint`` in round 2 (one rollback, recovered through
+      one restore), and the same with ``checkpoint.corrupt`` tearing round
+      1's step (one ``checkpoint_fallback``, rounds 1-2 replayed): each
+      within RETRY_REL of 8a's;
+   8i 8d's task (full-width DistilBERT FedAdam, 64 clients, block
+      DISTILBERT_BLOCK) with a checkpoint every round, stopped after round
+      0 and resumed: params and both Adam moments within RETRY_REL of 8d's;
+      the save and restore seconds and bytes per step from the runner's
+      ``ols_checkpoint_*`` series, the steps' sizes on disk and the peak
+      device memory printed;
+   8j 8d's task with ``model_update_style``: each round's model file size
+      and the ``model_export`` phase time printed; a fresh runner with
+      ``use_model`` and ``model_path`` = the round-1 file holds exactly
+      those params (max abs difference 0);
+   8k 8a's task exporting each round; the round-2 file deleted, a fresh
+      runner resumes from the round-1 file and runs round 2: final params
+      within RETRY_REL of 8a's;
+   8l ``fedavg_mnist_mlp_convergence`` cut to 10 of 50 rounds: its
+      convergence record (eval points at rounds 4 and 9); then stopped
+      after round 5 and resumed by a fresh runner: the identical record
+      under ``strip_wall``.
 
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
@@ -126,10 +154,12 @@ LC_GRAD_REL = 5e-2
 # rule moves it by O(1). Compared: what the (last) round moved (global
 # params, and SCAFFOLD's c_i and c, Ditto's v_k), as ||card - cpu|| / ||cpu||.
 CARD_CPU_REL = 5e-2
-# Phase 8e/8f: the runner against a direct loop, and a retried run against
-# a clean one: the same card, kernels, seed and minibatch draws, so the
-# two must agree to float rounding of identical work (relative L2 over all
-# parameters).
+# Phase 8e/8f/8h/8i/8k: the runner against a direct loop, and a retried or
+# resumed run against a clean one: the same card, kernels, seed and
+# minibatch draws (seeded from the round counter), so the two must agree to
+# float rounding of identical work (relative L2 over all parameters, and
+# over each Adam moment in 8i). 8j's warm start must hold the exported
+# params exactly, and 8l's resumed convergence record must be identical.
 RUNNER_DIRECT_REL = 1e-6
 RETRY_REL = 1e-6
 # Phase 8d's block of full-width DistilBERT clients (phase 4 uses 8). The
@@ -803,20 +833,9 @@ def _rel_l2(a, b):
     return math.sqrt(num / den)
 
 
-def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shrink=None):
-    """One task JSON from ``configs/`` through the port's bridge and runner.
-    ``rounds`` / ``clients`` cut the loaded JSON; ``edit(task)`` changes it
-    further and returns a description of the change; ``chaos`` is a fault
-    plan armed in the port's injector for the run; ``shrink(task)`` is for
-    rehearsals on the CPU only. Prints the sub-phase's numbers and returns
-    (runner, history)."""
-    import statistics
-    from contextlib import nullcontext
-
-    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
-    from olearning_sim_tpu_torch.resilience import faults
-    from olearning_sim_tpu_torch.telemetry import MetricsRegistry, default_tracer
-
+def load_task(name, rounds, clients=None, edit=None, shrink=None):
+    """A task JSON from ``configs/`` cut as :func:`run_task` describes, and
+    the list of its cuts."""
     task = json.loads((ROOT / "configs" / f"{name}.json").read_text())
     fs = task["operatorflow"]["flow_setting"]
     cuts = [f"rounds {fs['round']} -> {rounds}"]
@@ -828,10 +847,33 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
             td["allocation"]["logical_simulation"] = [clients]
     if edit is not None:
         cuts.append(edit(task))
-    if chaos is not None:
-        cuts.append(f"fault plan {json.dumps(chaos['specs'])}")
     if shrink is not None:
         shrink(task)
+    return task, cuts
+
+
+def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shrink=None,
+             stop_after=None):
+    """One task JSON from ``configs/`` through the port's bridge and runner.
+    ``rounds`` / ``clients`` cut the loaded JSON; ``edit(task)`` changes it
+    further and returns a description of the change; ``chaos`` is a fault
+    plan armed in the port's injector for the run; ``stop_after`` sets the
+    runner's stop event after that many rounds of this run (a cooperative
+    stop, which fences a checkpoint); ``shrink(task)`` is for rehearsals on
+    the CPU only. A runner that resumes (a checkpoint or model files) runs
+    the rounds left. Prints the sub-phase's numbers and returns (runner,
+    history)."""
+    import statistics
+    import threading
+    from contextlib import nullcontext
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.resilience import faults
+    from olearning_sim_tpu_torch.telemetry import MetricsRegistry, default_tracer
+
+    task, cuts = load_task(name, rounds, clients, edit, shrink)
+    if chaos is not None:
+        cuts.append(f"fault plan {json.dumps(chaos['specs'])}")
     log(f"{label} {name}: " + "; ".join(cuts))
     registry = MetricsRegistry()
     tracer = default_tracer()
@@ -841,7 +883,8 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
 
         torch.cuda.reset_peak_memory_stats(dev)
     t0 = time.perf_counter()
-    runner = build_runner_from_taskconfig(task, registry=registry, device=dev)
+    stop = threading.Event() if stop_after is not None else None
+    runner = build_runner_from_taskconfig(task, registry=registry, stop_event=stop, device=dev)
     pop = runner.populations[0]
     log(f"{label}: built in {time.perf_counter() - t0:.1f} s: {runner.core.algorithm.name}, "
         f"{pop.dataset.num_real_clients} clients (padded to {pop.dataset.num_clients}), "
@@ -849,22 +892,40 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
         f"{len(runner.operators)} operator(s)")
     times = []
     with faults.chaos(faults.FaultPlan.from_dict(chaos)) if chaos else nullcontext():
+        t0 = time.perf_counter()
         runner.begin()
+        start, restored = runner._loop["round_idx"], len(runner.history)
+        if start:
+            log(f"{label}: resumed at round {start} in {time.perf_counter() - t0:.4f} s "
+                f"({restored} rounds of history restored)")
         more = True
         while more:
+            if stop_after is not None and len(times) == stop_after:
+                stop.set()
             _sync(dev)
             t0 = time.perf_counter()
             more = runner.step()
             _sync(dev)
             times.append(time.perf_counter() - t0)
+        if stop_after is not None:
+            times.pop()  # the step that saw the stop ran no round
+        t0 = time.perf_counter()
         history = runner.finish()
-    if len(history) != rounds:
-        raise AssertionError(f"{label}: {len(history)} rounds in the history, expected {rounds}")
+        if runner.checkpointer is not None:
+            log(f"{label}: finish() waited {time.perf_counter() - t0:.4f} s for the last "
+                f"checkpoint commit")
+    expected = rounds - start if stop_after is None else stop_after
+    if len(history) - restored != expected:
+        raise AssertionError(f"{label}: {len(history) - restored} rounds run, expected "
+                             f"{expected}")
     n_params = sum(v.numel() for v in runner.states["data_0"].params.values())
     peak = (f", peak device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB"
             if dev.type == "cuda" else "")
     log(f"{label}: {n_params} params{peak}")
-    for h, sec in zip(history, times if len(times) == len(history) else [None] * rounds):
+    # Seconds per round of this run (none where a retry replayed a round).
+    secs = ([None] * restored + times if len(times) == len(history) - restored
+            else [None] * len(history))
+    for h, sec in zip(history, secs):
         tr = h["train"]["data_0"]
         ev = h.get("evaluate", {}).get("data_0", {})
         if not math.isfinite(tr["mean_loss"]) or tr["clients_trained"] <= 0:
@@ -877,6 +938,7 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
             line += f" eval_loss={ev['eval_loss']:.6f} eval_acc={ev['eval_acc']:.4f}"
         log(line + ("" if sec is None else f" seconds={sec:.4f}"))
     if len(times) == rounds and rounds > 1:
+        # A full run from round 0 (the first round is the warm-up).
         rps = 1.0 / statistics.median(times[1:])
         log(f"{label}: rounds/sec after the first {rps:.4f} (device-rounds/sec "
             f"{pop.dataset.num_real_clients * rps:.1f}), first round {times[0]:.4f} s "
@@ -894,9 +956,32 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
         parts.append(f"{op}.{phase} n={child.count} mean={child.sum / child.count * 1e3:.3f} "
                      f"median(steady)={med * 1e3:.3f}")
     log(f"{label} phase ms: " + "; ".join(parts))
+    if runner.checkpointer is not None:
+        checkpoint_line(label, registry, runner)
     log(f"{label} logical_result: "
         f"{runner.task_repo.get_item_value(runner.task_id, 'logical_result')}")
     return runner, history
+
+
+def checkpoint_line(label, registry, runner):
+    """A run's checkpoint numbers: per-step save (dispatch) and restore
+    seconds and bytes from the runner's ``ols_checkpoint_*`` series, and the
+    committed steps' sizes on disk."""
+    import os
+
+    parts = []
+    for op in ("save", "restore"):
+        dur = registry.get(f"ols_checkpoint_{op}_duration_seconds")
+        nbytes = registry.get(f"ols_checkpoint_{op}_bytes_total")
+        for key, child in (dur.children() if dur is not None else []):
+            total = nbytes.labels(task_id=key[0]).value if nbytes is not None else 0
+            parts.append(f"{op} n={child.count} seconds/step={child.sum / child.count:.4f} "
+                         f"bytes={int(total)}")
+    d = runner.checkpointer.directory
+    sizes = {s: sum(os.path.getsize(os.path.join(r, f)) for r, _, fs in os.walk(os.path.join(d, s))
+                    for f in fs)
+             for s in sorted(os.listdir(d), key=lambda n: (len(n), n)) if s.isdigit()}
+    log(f"{label} checkpoint: " + "; ".join(parts) + f"; steps on disk {sizes} bytes")
 
 
 def direct_loop(dev, name, rounds, shrink=None):
@@ -948,8 +1033,181 @@ def direct_loop(dev, name, rounds, shrink=None):
     return state.params
 
 
+def _edits(*edits):
+    """One ``edit`` for :func:`run_task` made of several."""
+    def edit(task):
+        return "; ".join(e(task) for e in edits if e is not None)
+    return edit
+
+
+def params_edit(**blocks):
+    """An ``edit`` that sets engine-params blocks."""
+    def edit(task):
+        params = _engine_params(task)
+        params.update(blocks)
+        _set_engine_params(task, params)
+        return "; ".join(f"{k} {json.dumps(v)}" for k, v in blocks.items())
+    return edit
+
+
+def model_edit(root, **model):
+    """An ``edit`` that sets the train operator's model block (FILE transfer,
+    under ``root``)."""
+    def edit(task):
+        task["operatorflow"]["operators"][0]["model"].update(model_transfer_type="FILE", **model)
+        params = _engine_params(task)
+        params["storage"] = {"root": root}
+        _set_engine_params(task, params)
+        return f"model {json.dumps(model)} under {root}"
+    return edit
+
+
+def _restores(runner):
+    """Checkpoint steps this run restored (the runner's restore series)."""
+    series = runner.registry.get("ols_checkpoint_restore_duration_seconds")
+    return 0 if series is None else series.labels(task_id=runner.task_id).count
+
+
+def _moments_rel(a, b):
+    """Relative L2 of each FedAdam moment (mu, nu) of two server states."""
+    return {m: _rel_l2(a.opt_state[m], b.opt_state[m]) for m in ("mu", "nu")}
+
+
+def resume_path(dev, tmp, runner_a, runner_d, shrink=None):
+    """Phases 8h-8l: checkpoint, resume and model files, and convergence
+    tracking, through the bridge and runner; files under ``tmp``."""
+    import importlib.util
+    import os
+
+    from olearning_sim_tpu_torch.engine.convergence import strip_wall
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.resilience import CHECKPOINT_FALLBACK, ROLLBACK, global_log
+
+    log(f"msgpack importable here: {importlib.util.find_spec('msgpack') is not None} "
+        f"(for the record: the port writes flax's wire format itself)")
+    clean = runner_a.states["data_0"].params
+    task_id = runner_a.task_id
+
+    def ckpt(sub, **extra):
+        return params_edit(checkpoint={"directory": os.path.join(tmp, sub, "{task_id}"),
+                                       "every": 1}, **extra)
+
+    def held(label, what, rel, tol):
+        log(f"{label}: {what} rel L2 {rel:.3e} (tol {tol:g})")
+        if not rel <= tol:
+            raise AssertionError(f"{label}: {what} disagree")
+
+    # 8h: 8a stopped after round 0 and resumed by a fresh runner; then a
+    # preemption after round 2 trained, recovered from round 1's step; then
+    # round 1's step torn and a preemption at round 2: one fallback to
+    # round 0's step, and rounds 1-2 replayed.
+    run_task("8h stop", "fedavg_mnist_mlp", dev, 3, edit=ckpt("8h"), shrink=shrink,
+             stop_after=1)
+    runner_h, _ = run_task("8h resume", "fedavg_mnist_mlp", dev, 3, edit=ckpt("8h"),
+                           shrink=shrink)
+    if _restores(runner_h) != 1:
+        raise AssertionError("8h: the fresh runner did not resume from the checkpoint")
+    held("8h resume", "final params vs 8a",
+         _rel_l2(runner_h.states["data_0"].params, clean), RETRY_REL)
+    retry = {"failure_policy": "retry"}
+    for sub, specs in (
+            ("8h_preempt", [{"point": "runner.pre_checkpoint", "rounds": [2],
+                             "error": "preempt"}]),
+            ("8h_corrupt", [{"point": "checkpoint.corrupt", "rounds": [1], "error": "corrupt"},
+                            {"point": "runner.pre_checkpoint", "rounds": [2],
+                             "error": "preempt"}])):
+        rb, fb = global_log().count(ROLLBACK, task_id), global_log().count(
+            CHECKPOINT_FALLBACK, task_id)
+        runner, _ = run_task(f"8h {sub[3:]}", "fedavg_mnist_mlp", dev, 3, shrink=shrink,
+                             edit=ckpt(sub, resilience=retry),
+                             chaos={"seed": 0, "specs": specs})
+        rb = global_log().count(ROLLBACK, task_id) - rb
+        fb = global_log().count(CHECKPOINT_FALLBACK, task_id) - fb
+        log(f"8h {sub[3:]}: {rb} rollback(s), {fb} checkpoint fallback(s), "
+            f"{_restores(runner)} restore(s)")
+        if rb != 1 or fb != len(specs) - 1 or _restores(runner) != 1:
+            raise AssertionError(f"8h {sub[3:]}: not recovered through the checkpoint")
+        held(f"8h {sub[3:]}", "final params vs 8a",
+             _rel_l2(runner.states["data_0"].params, clean), RETRY_REL)
+
+    # 8i: 8d at full width, stopped after round 0 and resumed: params and
+    # both Adam moments against 8d's uninterrupted run.
+    block = block_edit(DISTILBERT_BLOCK) if shrink is None else None
+    dist = dict(clients=64 if shrink is None else None, shrink=shrink,
+                edit=_edits(block, ckpt("8i")))
+    stopped, _ = run_task("8i stop", "fedadam_sent140_distilbert", dev, 2, stop_after=1, **dist)
+    del stopped
+    runner_i, _ = run_task("8i resume", "fedadam_sent140_distilbert", dev, 2, **dist)
+    got, want = runner_i.states["data_0"], runner_d.states["data_0"]
+    if _restores(runner_i) != 1 or got.opt_state["count"] != want.opt_state["count"]:
+        raise AssertionError("8i: the fresh runner did not resume from the checkpoint")
+    held("8i resume", "final params vs 8d", _rel_l2(got.params, want.params),
+         RETRY_REL)
+    for m, rel in _moments_rel(got, want).items():
+        held("8i resume", f"Adam {m} vs 8d", rel, RETRY_REL)
+    del runner_i, got
+
+    # 8j: 8d with modelUpdateStyle: a model file per round; a fresh runner
+    # warm-started from the round-1 file holds exactly those params.
+    jdir = os.path.join(tmp, "8j")
+    style = "{task_id}_{round}_result_model.msgpack"
+    runner_j, _ = run_task("8j export", "fedadam_sent140_distilbert", dev, 2,
+                           clients=dist["clients"], shrink=shrink,
+                           edit=_edits(block, model_edit(jdir, model_update_style=style)))
+    for r in range(2):
+        path = os.path.join(jdir, style.format(task_id=runner_j.task_id, round=r))
+        log(f"8j round {r} model file: {os.path.getsize(path)} bytes")
+    task, _ = load_task("fedadam_sent140_distilbert", 2, dist["clients"], _edits(
+        block, model_edit(jdir, use_model=True,
+                          model_path=style.format(task_id=runner_j.task_id, round=1))), shrink)
+    task["task_id"] += "_warm"
+    warm = build_runner_from_taskconfig(task, device=dev)
+    t0 = time.perf_counter()
+    warm.begin()
+    log(f"8j warm start from the round-1 file: {time.perf_counter() - t0:.4f} s")
+    want = runner_j.states["data_0"].params
+    diff = max(float((warm.states["data_0"].params[k] - v).abs().max()) for k, v in want.items())
+    log(f"8j warm-started params vs the exporting run's: max abs diff {diff:g} (tol 0)")
+    if diff != 0:
+        raise AssertionError("8j: the warm-started params are not the exported ones")
+    del warm, runner_j
+
+    # 8k: 8a exporting each round; the round-2 file deleted, a fresh runner
+    # resumes from the round-1 file and runs round 2.
+    kdir = os.path.join(tmp, "8k")
+    run_task("8k export", "fedavg_mnist_mlp", dev, 3, shrink=shrink,
+             edit=model_edit(kdir, model_update_style=style))
+    os.remove(os.path.join(kdir, style.format(task_id=task_id, round=2)))
+    runner_k, hist_k = run_task("8k resume", "fedavg_mnist_mlp", dev, 3, shrink=shrink,
+                                edit=model_edit(kdir, model_update_style=style))
+    if [h["round"] for h in hist_k] != [2]:
+        raise AssertionError("8k: the fresh runner did not resume from the round-1 file")
+    held("8k resume", "final params vs 8a",
+         _rel_l2(runner_k.states["data_0"].params, clean), RETRY_REL)
+
+    # 8l: fedavg_mnist_mlp_convergence cut to 10 rounds; then stopped after
+    # round 5 and resumed by a fresh runner: the same record under
+    # strip_wall.
+    runner_l, _ = run_task("8l", "fedavg_mnist_mlp_convergence", dev, 10, shrink=shrink)
+    record = runner_l.convergence_record()
+    log(f"8l convergence record: {json.dumps(record)}")
+    if [e["round"] for e in record["evals"]] != [4, 9]:
+        raise AssertionError("8l: eval points are not at rounds 4 and 9")
+    run_task("8l stop", "fedavg_mnist_mlp_convergence", dev, 10, edit=ckpt("8l"),
+             shrink=shrink, stop_after=6)
+    resumed, _ = run_task("8l resume", "fedavg_mnist_mlp_convergence", dev, 10,
+                          edit=ckpt("8l"), shrink=shrink)
+    same = strip_wall(resumed.convergence_record()) == strip_wall(record)
+    log(f"8l resumed record equals the uninterrupted one under strip_wall: {same} "
+        f"(tol: identical)")
+    if _restores(resumed) != 1 or not same:
+        raise AssertionError("8l: the resumed run's convergence record differs")
+
+
 def task_path(dev, shrink=None):
     """Phase 8: task JSONs through the port's task bridge and runner."""
+    import tempfile
+
     import torch
 
     from olearning_sim_tpu_torch.resilience import ROLLBACK, global_log
@@ -958,10 +1216,10 @@ def task_path(dev, shrink=None):
     runner_a, hist_a = run_task("8a", "fedavg_mnist_mlp", dev, 3, shrink=shrink)
     run_task("8b", "fedavg_cifar10_cnn", dev, 2, shrink=shrink)
     run_task("8c", "scaffold_mnist_mlp", dev, 2, shrink=shrink)
-    _, hist_d = run_task("8d", "fedadam_sent140_distilbert", dev, 2,
-                         clients=64 if shrink is None else None,
-                         edit=block_edit(DISTILBERT_BLOCK) if shrink is None else None,
-                         shrink=shrink)
+    runner_d, hist_d = run_task("8d", "fedadam_sent140_distilbert", dev, 2,
+                                clients=64 if shrink is None else None,
+                                edit=block_edit(DISTILBERT_BLOCK) if shrink is None else None,
+                                shrink=shrink)
     if not any(h["train"]["data_0"]["dropped"] > 0 for h in hist_d):
         raise AssertionError("8d: the flow_dispatch strategy dropped no client")
     clean = runner_a.states["data_0"].params
@@ -982,8 +1240,8 @@ def task_path(dev, shrink=None):
 
     # A fault at round_begin fails round 1 before it trains; one at
     # pre_checkpoint after it has trained, so the failed attempt has moved
-    # the params and drawn from the shared index generator, and only a
-    # snapshot that cloned the tensors and copied the generator replays it.
+    # the params and the round counter, and only a snapshot that restored
+    # both replays it.
     task_id = runner_a.task_id
     for point, error in (("runner.round_begin", None), ("runner.pre_checkpoint", "preempt")):
         spec = {"point": point, "rounds": [1]}
@@ -1024,6 +1282,8 @@ def task_path(dev, shrink=None):
     if (trained != [real - len(poisoned)] * 2 or failed != [len(poisoned)]
             or quarantined != poisoned or not finite):
         raise AssertionError("8g: poisoned clients were not excluded and reported failed")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
+        resume_path(dev, tmp, runner_a, runner_d, shrink=shrink)
     log(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}")
 
 

@@ -31,12 +31,15 @@ The algorithm's options live in the same round, as in the JAX engine:
   f32 after casting back.
 
 Randomness is explicit: the minibatch indices ``[C, max_local_steps,
-batch_size]`` come from the ``torch.Generator`` in :class:`ServerState`,
-or from the caller (``round_step(..., indices=...)``); Ditto's personal
-branch draws its own indices from the same generator after the global
-ones (JAX salts that stream away from the global one), or takes
-``personal_indices=``. The port does not reproduce JAX's threefry stream;
-the parity tests hand both engines the same indices instead.
+batch_size]`` come from :meth:`FedCore.round_generator`, a generator
+seeded from the state's ``seed`` and ``round_idx`` alone, as JAX folds the
+round counter into its key; or from the caller (``round_step(...,
+indices=...)``). Ditto's personal branch draws from a second stream of the
+same round (JAX salts that stream away from the global one), or takes
+``personal_indices=``. So the state is tensors and integers only, and a
+round resumed from a checkpoint or a model file draws what it drew before.
+The port does not reproduce JAX's threefry stream; the parity tests hand
+both engines the same indices instead.
 """
 
 from __future__ import annotations
@@ -168,7 +171,7 @@ class ServerState:
     params: Params
     opt_state: dict
     round_idx: int
-    generator: torch.Generator  # CPU stream of minibatch indices
+    seed: int  # of the minibatch-index streams (FedCore.round_generator)
 
 
 @dataclasses.dataclass
@@ -200,8 +203,8 @@ class RoundMetrics:
     personal_loss: torch.Tensor
 
 
-def _seed_of(seed: int, stream: int) -> int:
-    return int(np.random.SeedSequence([seed, stream]).generate_state(1, np.uint64)[0])
+def _seed_of(seed: int, *stream: int) -> int:
+    return int(np.random.SeedSequence([seed, *stream]).generate_state(1, np.uint64)[0])
 
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -245,7 +248,7 @@ class FedCore:
                    params: Optional[Params] = None) -> ServerState:
         """Fresh server state on ``device``: parameters drawn from ``seed``
         (or the given ``params``, copied), a zero server-optimizer state,
-        and the minibatch-index generator seeded from ``seed``."""
+        and ``seed`` for the minibatch-index streams."""
         dev = resolve_device(device)
         if params is None:
             gen = torch.Generator().manual_seed(_seed_of(seed, 0))
@@ -255,7 +258,7 @@ class FedCore:
             params=params,
             opt_state=self.algorithm.server_optimizer.init(params),
             round_idx=0,
-            generator=torch.Generator().manual_seed(_seed_of(seed, 1)),
+            seed=int(seed),
         )
 
     def init_personal(self, state: ServerState, num_clients: int) -> PersonalState:
@@ -275,6 +278,13 @@ class FedCore:
             server_control={k: torch.zeros_like(p, dtype=torch.float32)
                             for k, p in state.params.items()},
         )
+
+    def round_generator(self, state: ServerState, stream: int = 0) -> torch.Generator:
+        """The CPU generator of a round's minibatch indices: a function of
+        (``state.seed``, ``state.round_idx``, ``stream``) only. Stream 0 is
+        the global branch, 1 Ditto's personal branch."""
+        return torch.Generator().manual_seed(
+            _seed_of(state.seed, 1, int(state.round_idx), stream))
 
     def draw_indices(self, generator: torch.Generator,
                      num_samples: torch.Tensor) -> torch.Tensor:
@@ -364,9 +374,10 @@ class FedCore:
                     f"leading client axis of {C} on {dev} (init it for ds.num_clients)"
                 )
 
-    def _indices(self, indices, generator, ds: ClientDataset, dev) -> torch.Tensor:
+    def _indices(self, indices, state: ServerState, stream: int, ds: ClientDataset,
+                 dev) -> torch.Tensor:
         if indices is None:
-            indices = self.draw_indices(generator, ds.num_samples)
+            indices = self.draw_indices(self.round_generator(state, stream), ds.num_samples)
         want = (ds.num_clients, self.config.max_local_steps, self.config.batch_size)
         if tuple(indices.shape) != want:
             raise ValueError(f"indices must be {want}, got {tuple(indices.shape)}")
@@ -392,7 +403,7 @@ class FedCore:
         metrics, control)``; otherwise ``(state, metrics)``. ``indices`` /
         ``personal_indices`` — optional minibatch indices ``[C,
         max_local_steps, batch_size]`` of the global / Ditto branch; by
-        default they are drawn from ``state.generator``, global first."""
+        default they are drawn from :meth:`round_generator`'s streams."""
         cfg = self.config
         alg = self.algorithm
         dev = next(iter(state.params.values())).device
@@ -436,9 +447,9 @@ class FedCore:
         if num_steps is None:
             num_steps = torch.full((C,), cfg.max_local_steps, dtype=torch.int64)
         steps_eff = torch.clamp(num_steps.to(dev), max=cfg.max_local_steps)
-        indices = self._indices(indices, state.generator, ds, dev)
+        indices = self._indices(indices, state, 0, ds, dev)
         if alg.personalized:
-            personal_indices = self._indices(personal_indices, state.generator, ds, dev)
+            personal_indices = self._indices(personal_indices, state, 1, ds, dev)
 
         params = state.params
         sum_delta = {k: torch.zeros_like(p) for k, p in params.items()}
@@ -509,8 +520,7 @@ class FedCore:
             personal_loss=sum_ploss / denom,
         )
         new_state = ServerState(params=new_params, opt_state=opt_state,
-                                round_idx=state.round_idx + 1,
-                                generator=state.generator)
+                                round_idx=state.round_idx + 1, seed=state.seed)
         if alg.control_variates or alg.personalized:
             per_client = {k: torch.cat(v) for k, v in new_client_state.items()}
         if alg.control_variates:

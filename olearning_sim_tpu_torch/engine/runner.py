@@ -19,9 +19,22 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
 - faults are absorbed by the resilience layer: with a
   :class:`~olearning_sim_tpu_torch.resilience.ResilienceConfig` the loop
   gains rollback-and-retry / skip-round failure policies from an in-memory
-  snapshot of the round's entry state, client quarantine, and the
-  injection points ``runner.round_begin``, ``runner.pre_checkpoint`` and
-  ``runner.poison_clients``.
+  snapshot of the round's entry state or the last readable checkpoint,
+  client quarantine, and the injection points ``runner.round_begin``,
+  ``runner.pre_checkpoint`` and ``runner.poison_clients``;
+- with a :class:`~olearning_sim_tpu_torch.checkpoint.RoundCheckpointer`
+  each round (every ``checkpoint_every``-th) is checkpointed and ``begin``
+  resumes from the newest readable step, a cooperative stop fences the last
+  completed round; with a
+  :class:`~olearning_sim_tpu_torch.checkpoint.ModelUpdateExporter` each
+  round's global model is exported as a model file, and a fresh runner
+  resumes from the newest one or warm-starts from ``warm_start_path``;
+- with a :class:`~olearning_sim_tpu_torch.engine.convergence.ConvergenceConfig`
+  the loop tracks time-to-accuracy (:meth:`convergence_record`).
+
+Host state that later rounds depend on (quarantine, convergence clocks)
+rides the per-round history records, so a rollback or a resume restores it
+with the history (``_requarantine``, ``_reconverge``).
 
 The fault injector, the resilience log and the default metrics registry
 and tracer are the port's own process globals: a chaos plan armed through
@@ -32,10 +45,10 @@ is the interface between the two. A ``registry`` passed in is used
 duck-typed, so a control plane's registry receives the round series.
 
 Not in this slice, each refused by the task bridge when a task asks for it
-(``ROADMAP.md``): checkpoint/resume and model I/O (A5), deadline rounds,
-attacks and defense (A6), scenario traces and streamed populations (A7),
-buffered async rounds (A8), convergence tracking and the multi-task
-dispatcher (A12, A13).
+(``ROADMAP.md``): deadline rounds, attacks and defense (A6), scenario traces
+and streamed populations (A7), buffered async rounds (A8) and the
+multi-task dispatcher (A13). The convergence eval's timing row in a
+performance manager waits for the port of ``performancemgr/`` (A17).
 """
 
 from __future__ import annotations
@@ -54,6 +67,7 @@ import torch
 
 from olearning_sim_tpu_torch.deviceflow.trace_compiler import compile_trace
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset
+from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig, ConvergenceTracker
 from olearning_sim_tpu_torch.engine.fedcore import FedCore
 from olearning_sim_tpu_torch.resilience import (
     ROLLBACK,
@@ -69,6 +83,7 @@ from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
 from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
 from olearning_sim_tpu_torch.telemetry import default_tracer, instrument
 from olearning_sim_tpu_torch.utils.logging import Logger
+from olearning_sim_tpu_torch.weights import params_from_jax, params_to_jax
 
 
 @dataclasses.dataclass
@@ -121,17 +136,11 @@ TRACE_SEED = 0
 
 
 def _copy_tree(tree):
-    """A deep copy of a state tree: every tensor cloned, and a
-    ``torch.Generator`` replaced by a fresh one holding the same state.
-    References are not enough: ``round_step`` hands the same generator
-    object on to the next state and draws from it, so a snapshot that kept
-    it would restore a stream the failed attempt had already advanced."""
+    """A deep copy of a state tree (dataclasses, dicts, lists of tensors and
+    scalars): every tensor cloned, so that nothing a failed attempt does to
+    the live state reaches the snapshot it rolls back to."""
     if isinstance(tree, torch.Tensor):
         return tree.clone()
-    if isinstance(tree, torch.Generator):
-        copy = torch.Generator(device=tree.device)
-        copy.set_state(tree.get_state())
-        return copy
     if isinstance(tree, dict):
         return {k: _copy_tree(v) for k, v in tree.items()}
     if isinstance(tree, (list, tuple)):
@@ -160,6 +169,11 @@ class SimulationRunner:
         quarantine_preseed: Optional[Dict[str, List[int]]] = None,
         cost_oracle: Optional[Any] = None,
         cost_family: Optional[str] = None,
+        checkpointer: Optional[Any] = None,
+        checkpoint_every: int = 1,
+        model_io: Optional[Any] = None,
+        warm_start_path: Optional[str] = None,
+        convergence: Optional[ConvergenceConfig] = None,
     ):
         """``task_repo`` — the task table (duck-typed: ``has_task``,
         ``add_task``, ``set_item_value``); a fresh in-memory one when None.
@@ -172,7 +186,17 @@ class SimulationRunner:
         name -> known-bad client ids blocklisted from round 0.
         ``cost_oracle`` / ``cost_family`` — a scheduler cost oracle
         (duck-typed: ``record_measurement``) fed this task's measured
-        per-round wall time at every round close."""
+        per-round wall time at every round close. ``checkpointer`` — a
+        :class:`~olearning_sim_tpu_torch.checkpoint.RoundCheckpointer`
+        saving every ``checkpoint_every``-th round and the last.
+        ``model_io`` — a
+        :class:`~olearning_sim_tpu_torch.checkpoint.ModelUpdateExporter`
+        realizing the reference's model-update-style convention (round r's
+        global model exported as ``{task_id}_{r}_result_model.*``;
+        ``utils_run_task.py:327-397``). ``warm_start_path`` — the round-0
+        model fetched through ``model_io``'s repo (``Model.modelPath`` with
+        ``useModel``). ``convergence`` — opt-in time-to-accuracy tracking,
+        its state riding the history records."""
         self.task_id = task_id
         self.core = core
         self.populations = populations
@@ -185,6 +209,13 @@ class SimulationRunner:
         self.stop_event = stop_event  # threading.Event; honored between rounds
         self.perf = perf
         self.registry = registry
+        self.checkpointer = checkpointer
+        self.checkpoint_every = max(1, int(checkpoint_every))
+        self.model_io = model_io
+        self.warm_start_path = warm_start_path
+        if warm_start_path and model_io is None:
+            raise ValueError("warm_start_path needs model_io (a repo to fetch it from)")
+        self._model_io_export_dead = False
         # Operators whose round step has run once for this task: the first
         # run's wall time lands in ols_engine_compile_duration_seconds.
         self._compiled_once: set = set()
@@ -232,11 +263,24 @@ class SimulationRunner:
                         f"clients)"
                     )
                 self._quarantine.preseed(pop, ids, ds.num_clients)
-        # Snapshot of the executing round's entry state (rollback source).
+        # Snapshot of the executing round's entry state (rollback source),
+        # plus per-completed-round quarantine snapshots (rollback must
+        # restore the quarantine decisions the replayed rounds first saw).
         self._round_snapshot: Optional[Dict[str, Any]] = None
+        self._qsnapshots: Dict[int, Any] = {}
+        # Rounds <= this index are rollback replays: their checkpoint saves
+        # overwrite, in case a stale step survived the discard.
+        self._force_checkpoint_until = -1
         # Routing key of the deviceflow flow currently open (None between
         # operators); closed best-effort when a round fails mid-operator.
         self._live_routing_key: Optional[str] = None
+        # Convergence tracking: its state rides the history records, so a
+        # rollback or a resume replays the record (_reconverge).
+        self._convergence: Optional[ConvergenceTracker] = (
+            ConvergenceTracker(convergence)
+            if convergence is not None and convergence.enabled else None
+        )
+        self._convergence_warned = False
         self._cost_oracle = cost_oracle
         self._cost_family = cost_family
         self._cost_round0_wall: Optional[float] = None
@@ -490,6 +534,89 @@ class SimulationRunner:
                     self._cost_family, compile_s=self._cost_round0_wall
                 )
 
+    # ------------------------------------------------------------ convergence
+    def _observe_convergence(self, round_idx: int,
+                             round_record: Dict[str, Any],
+                             wall_s: float) -> None:
+        """Advance the convergence clocks for this completed round and, at
+        the configured cadence, record an eval point. The quality value
+        comes from an eval operator's ``eval_loss``/``eval_acc`` record when
+        this round produced one; otherwise the global model is evaluated
+        directly on the first population with held-out eval data."""
+        tracker = self._convergence
+        # Simulated round duration: the longest population's dispatch-trace
+        # duration this round (the JAX runner's deadline rounds, A6, close
+        # rounds earlier).
+        sim_s = 0.0
+        for op in self.operators:
+            if op.kind != "train":
+                continue
+            for rec in (round_record.get(op.name) or {}).values():
+                sim_s = max(sim_s, float(rec.get("sim_duration_s") or 0.0))
+        tracker.observe_round(round_idx, sim_s, wall_s)
+        if not tracker.should_eval(round_idx, self.rounds):
+            return
+        eval_loss = eval_acc = None
+        for op in self.operators:
+            for rec in (round_record.get(op.name) or {}).values():
+                if isinstance(rec, dict) and rec.get("eval_acc") is not None:
+                    eval_loss, eval_acc = rec.get("eval_loss"), rec["eval_acc"]
+                    break
+            if eval_acc is not None:
+                break
+        if eval_acc is None:
+            for p in self.populations:
+                if p.eval_data is not None:
+                    x, y = p.eval_data
+                    with self._phase("convergence", "eval", round_idx):
+                        eval_loss, eval_acc = self.core.evaluate(
+                            self.states[p.name].params, x, y
+                        )
+                    break
+        if eval_acc is None:
+            if not self._convergence_warned:
+                self._convergence_warned = True
+                self.logger.warning(
+                    task_id=self.task_id, system_name="engine",
+                    module_name="runner",
+                    message="convergence tracking enabled but no "
+                            "population has eval_data and no eval "
+                            "operator ran; the quality series stays "
+                            "empty",
+                )
+            return
+        tracker.observe_eval(round_idx, eval_loss, eval_acc)
+        instrument("ols_engine_eval_accuracy", self.registry).labels(
+            task_id=self.task_id
+        ).set(float(eval_acc))
+        # Published on every reached eval, not only the reach transition: a
+        # resumed process rehydrates reached=True from checkpoint meta and
+        # must expose the to-target gauges in its registry too.
+        if tracker.reached:
+            if tracker.sim_seconds_to_target is not None:
+                # None = the config has no simulated clock; 0.0 would read
+                # as "reached instantaneously".
+                instrument(
+                    "ols_engine_time_to_target_seconds", self.registry
+                ).labels(task_id=self.task_id, clock="sim").set(
+                    tracker.sim_seconds_to_target
+                )
+            instrument(
+                "ols_engine_time_to_target_seconds", self.registry
+            ).labels(task_id=self.task_id, clock="wall").set(
+                tracker.wall_seconds_to_target
+            )
+            instrument(
+                "ols_engine_rounds_to_target", self.registry
+            ).labels(task_id=self.task_id).set(tracker.rounds_to_target)
+
+    def convergence_record(self) -> Optional[Dict[str, Any]]:
+        """The task's convergence record (engine/convergence.py), or None
+        when tracking is off."""
+        if self._convergence is None:
+            return None
+        return self._convergence.record()
+
     def _run_eval(self, p: DataPopulation) -> Dict[str, Any]:
         rec: Dict[str, Any] = {"eval_loss": None, "eval_acc": None}
         if p.eval_data is not None:
@@ -502,6 +629,164 @@ class SimulationRunner:
             ploss, pacc = self.core.evaluate_personal(personal, p.dataset)
             rec.update(personal_eval_loss=ploss, personal_eval_acc=pacc)
         return rec
+
+    # --------------------------------------------------- model file interop
+    def _host_params(self, params):
+        """The global model as a model file holds it: the flax-layout tree of
+        host f32 arrays (``weights.params_to_jax``)."""
+        return params_to_jax(params, heads=getattr(self.core.model, "heads", None))
+
+    def _set_params(self, host_params, next_round: Optional[int] = None) -> None:
+        """Install ingested params into every population's state. When the
+        ingested model represents completed training through round
+        ``next_round - 1``, the round counter moves too: it seeds every
+        round's minibatch draws, so leaving it at 0 would make a resumed
+        run replay round 0's minibatches."""
+        params = params_from_jax(host_params)
+        for name, state in list(self.states.items()):
+            dev = next(iter(state.params.values())).device
+            state = dataclasses.replace(
+                state, params={k: v.to(dev) for k, v in params.items()})
+            if next_round is not None:
+                state = dataclasses.replace(state, round_idx=int(next_round))
+            self.states[name] = state
+
+    def _warm_start(self) -> None:
+        """Round-0 model ingestion: ``Model.modelPath`` via the model repo
+        (reference ``download_model_files`` round-0 branch,
+        ``utils_run_task.py:327-397``)."""
+        template = self._host_params(
+            self.states[self.populations[0].name].params
+        )
+        self._set_params(self.model_io.load_path(self.warm_start_path, template))
+        self.logger.info(
+            task_id=self.task_id, system_name="engine", module_name="runner",
+            message=f"warm-started from {self.warm_start_path}",
+        )
+
+    def _resume_from_exports(self) -> int:
+        """Resume from the newest exported round model (the reference's
+        ``{task_id}_{round}_result_model`` update style) when no checkpoint
+        claimed the task first. The model file carries params only, so a
+        stateful server optimizer (FedAdam moments) restarts cold, as an
+        external aggregator would see it. Probes upward from round 0."""
+        last = None
+        try:
+            for r in range(self.rounds):
+                if not self.model_io.repo.exists(self.model_io._name(r)):
+                    break
+                last = r
+        except NotImplementedError:
+            # Download-only repos cannot probe; warm start still works,
+            # export-resume does not.
+            return 0
+        if last is None:
+            return 0
+        template = self._host_params(
+            self.states[self.populations[0].name].params
+        )
+        self._set_params(self.model_io.load(last, template), next_round=last + 1)
+        self.logger.info(
+            task_id=self.task_id, system_name="engine", module_name="runner",
+            message=f"resumed from exported round model {last}",
+        )
+        return last + 1
+
+    # ------------------------------------------------------------- checkpoint
+    def _client_state_slot(self):
+        """The active per-client state dict and its initializer — Ditto
+        personal params or SCAFFOLD control variates (mutually exclusive).
+        Both ride the checkpoint's per-population tree slot so a resumed run
+        keeps its drift/personalization state instead of re-initializing."""
+        if self.core.algorithm.personalized:
+            return self.personal_states, self.core.init_personal
+        if self.core.algorithm.control_variates:
+            return self.control_states, self.core.init_control
+        return None, None
+
+    def _materialized_client_states(self):
+        slot, init = self._client_state_slot()
+        if slot is None:
+            return {}
+        for p in self.populations:
+            if p.name not in slot:
+                slot[p.name] = init(self.states[p.name], p.dataset.num_clients)
+        return slot
+
+    def _try_resume(self) -> int:
+        """Restore the latest round checkpoint if one exists; returns the
+        round index to resume from (0 when starting fresh)."""
+        if self.checkpointer is None:
+            return 0
+        template_client = dict(self._materialized_client_states())
+        restored = self.checkpointer.restore(self.states, template_client)
+        if restored is None:
+            return 0
+        last_round, states, client_states, history = restored
+        # The restore may have fallen back past an unreadable newer step; it
+        # must not stay newest, or every restart would fall back, and lose
+        # the replay, again.
+        with contextlib.suppress(Exception):
+            self.checkpointer.discard_steps_after(last_round)
+        self.states = states
+        if self.core.algorithm.personalized:
+            self.personal_states = client_states
+        elif self.core.algorithm.control_variates:
+            self.control_states = client_states
+        self.history = history
+        self._requarantine()
+        self._reconverge()
+        self.logger.info(
+            task_id=self.task_id, system_name="engine", module_name="runner",
+            message=f"resumed from checkpoint: round {last_round} complete",
+        )
+        return last_round + 1
+
+    def _checkpoint(self, round_idx: int) -> None:
+        if self.checkpointer is None:
+            return
+        if (round_idx + 1) % self.checkpoint_every and round_idx != self.rounds - 1:
+            return
+        # Per-client state is materialized for every population before
+        # saving, so the step's tree matches the restore template even when
+        # no train operator has run yet.
+        kwargs = {}
+        if round_idx <= self._force_checkpoint_until:
+            kwargs["force"] = True
+        self.checkpointer.save(
+            round_idx, self.states, self._materialized_client_states(),
+            self.history, **kwargs
+        )
+
+    def _checkpoint_on_stop(self, last_round: int) -> None:
+        """Planned-preemption fence: a cooperative stop force-commits the
+        last completed round, so a migrated task resumes from the fence
+        round instead of replaying back to the last cadence checkpoint.
+        No-op without a checkpointer or when the round is already durable;
+        a save failure must not block the stop (the resume replays the gap
+        bitwise anyway)."""
+        if self.checkpointer is None or last_round < 0:
+            return
+        try:
+            # Settle the in-flight commit first so the latest-step read is
+            # authoritative (saving an already-committed step raises).
+            self.checkpointer.wait()
+            latest = self.checkpointer.latest_round()
+            if latest is not None and latest >= last_round:
+                return
+            self.checkpointer.save(
+                last_round, self.states,
+                self._materialized_client_states(), self.history,
+            )
+            self.checkpointer.wait()
+        except Exception as e:  # noqa: BLE001 — fence best-effort
+            self.logger.warning(
+                task_id=self.task_id, system_name="engine",
+                module_name="runner",
+                message=f"fence checkpoint at round {last_round} failed "
+                        f"({e}); resume will replay from the last "
+                        f"committed step",
+            )
 
     def operator_inputs(self, operator: OperatorSpec) -> Dict[str, Any]:
         """Named upstream outputs for ``operator`` this round: each entry
@@ -563,8 +848,37 @@ class SimulationRunner:
         self.personal_states = _copy_tree(snap["personal"])
         self.control_states = _copy_tree(snap["control"])
         self.history = list(snap["history"])
+        self._reconverge()
         if self._quarantine is not None and snap["quarantine"] is not None:
             self._quarantine.restore(snap["quarantine"])
+
+    def _reconverge(self) -> None:
+        """Rehydrate the convergence tracker from the history just restored
+        (rollback or checkpoint resume): the ordered ``convergence_state``
+        records carry the eval series as increments and the newest one the
+        cumulative clocks and to-target facts. No carrying record (rollback
+        to round 0) resets the tracker."""
+        if self._convergence is None:
+            return
+        self._convergence.load_history([
+            rec["convergence_state"] for rec in self.history
+            if rec.get("convergence_state") is not None
+        ])
+
+    def _requarantine(self) -> None:
+        """Rehydrate quarantine state from the history just restored from a
+        checkpoint: the newest record carrying a ``quarantine_state`` holds
+        the manager as of that round's completion, so a relaunched process
+        replays the masks, and so the aggregation, bitwise. Without a
+        carrying record (fresh start) the current state, e.g. an operator
+        preseed, is kept."""
+        if self._quarantine is None:
+            return
+        for rec in reversed(self.history):
+            st = rec.get("quarantine_state")
+            if st is not None:
+                self._quarantine.load_json(st)
+                return
 
     def _maybe_poison(self, round_idx: int) -> None:
         """``runner.poison_clients`` injection point: permanently corrupt the
@@ -602,19 +916,63 @@ class SimulationRunner:
             x[torch.tensor(idx, device=x.device)] = float("nan")
             p.dataset = dataclasses.replace(ds, x=x)
 
-    def _rollback(self, round_idx: int, error: BaseException) -> int:
-        """Restore the round's entry state from the in-memory snapshot and
-        return the round to re-execute. Without a checkpointer a
-        :class:`HostPreemption` is absorbed the same way (the lenient
-        approximation of the JAX runner when no checkpoint has committed)."""
+    def _rollback(self, round_idx: int,
+                  error: BaseException) -> Optional[int]:
+        """Restore the last good state; returns the round to (re-)execute,
+        or None when nothing restorable exists.
+
+        A generic failure rolls back to the in-memory snapshot of this
+        round's entry state (falling back to the checkpointer when
+        ``snapshot_rounds`` is off). A :class:`HostPreemption` models process
+        death: recovery prefers the checkpointer (falling back across corrupt
+        steps), replaying any rounds after the last readable checkpoint, or
+        resuming *past* the failed round when its checkpoint already
+        committed before death. When no checkpoint has committed yet the
+        in-memory snapshot is used as a lenient approximation (a really
+        preempted host would replay from round 0)."""
+        preempt = isinstance(error, HostPreemption)
+        # Quarantine state as of the failure: the right state to keep when
+        # the checkpoint shows the failed round durably completed (its
+        # observe() already ran before the save).
+        qcur = (self._quarantine.snapshot()
+                if self._quarantine is not None else None)
+        had_snapshot = self._round_snapshot is not None
         self._restore_snapshot()
+        resume_round = round_idx
+        if self.checkpointer is not None:
+            with contextlib.suppress(Exception):
+                # A save may be in flight (or have failed) at "death".
+                self.checkpointer.wait()
+            if preempt or not had_snapshot:
+                resumed = self._try_resume()
+                if resumed == 0 and not had_snapshot:
+                    # No checkpoint yet and no snapshot: nothing was
+                    # restored, so a retry would replay on partially
+                    # mutated state.
+                    return None
+                if resumed > 0:
+                    resume_round = resumed
+                    if self._quarantine is not None:
+                        qsnap = (qcur if resume_round > round_idx
+                                 else self._qsnapshots.get(resume_round - 1))
+                        if qsnap is not None:
+                            self._quarantine.restore(qsnap)
+                    if resume_round != round_idx:
+                        self._round_snapshot = None  # belongs to another round
+            # Replayed rounds re-save their steps; a partially-saved step
+            # from the failed attempt (or stale/corrupt future steps after a
+            # checkpoint fallback) must not shadow them.
+            with contextlib.suppress(Exception):
+                self.checkpointer.discard_steps_after(resume_round - 1)
+            self._force_checkpoint_until = max(
+                self._force_checkpoint_until, round_idx
+            )
         self._rlog.record(
             ROLLBACK, point="runner.rollback", task_id=self.task_id,
-            round_idx=round_idx, to_round=round_idx,
-            preempt=isinstance(error, HostPreemption),
+            round_idx=round_idx, to_round=resume_round, preempt=preempt,
             error=f"{type(error).__name__}: {str(error)[:200]}",
         )
-        return round_idx
+        return resume_round
 
     def _handle_round_failure(self, round_idx: int, attempts: int,
                               error: BaseException):
@@ -630,17 +988,26 @@ class SimulationRunner:
         )
         if cfg is None or policy == FailurePolicy.FAIL_TASK:
             return "raise", round_idx, attempts
-        if self._round_snapshot is None:
-            # No rollback source: skipping or retrying would keep the
-            # round's partial mutations. Degrade to fail_task.
-            self.logger.error(
-                task_id=self.task_id, system_name="engine",
-                module_name="runner",
-                message=f"{policy.value} needs snapshot_rounds; failing task",
-            )
-            return "raise", round_idx, attempts
         if policy == FailurePolicy.SKIP_ROUND:
+            if self._round_snapshot is None:
+                # No rollback source: skipping would keep the round's
+                # partial mutations. Degrade to fail_task.
+                self.logger.error(
+                    task_id=self.task_id, system_name="engine",
+                    module_name="runner",
+                    message="skip_round needs snapshot_rounds; failing task",
+                )
+                return "raise", round_idx, attempts
             self._restore_snapshot()
+            if self.checkpointer is not None:
+                # The round may have checkpointed before failing (the stop
+                # barrier or the model export failed after the save); that
+                # step holds the state this skip just discarded and must not
+                # resurrect it on a restart.
+                with contextlib.suppress(Exception):
+                    self.checkpointer.wait()
+                with contextlib.suppress(Exception):
+                    self.checkpointer.discard_steps_after(round_idx - 1)
             self._rlog.record(
                 SKIP_ROUND, point="runner.round", task_id=self.task_id,
                 round_idx=round_idx,
@@ -657,7 +1024,24 @@ class SimulationRunner:
         # FailurePolicy.RETRY
         if attempts >= cfg.max_round_retries:
             return "raise", round_idx, attempts
+        if self._round_snapshot is None and self.checkpointer is None:
+            # Nothing to roll back to: re-running on partially mutated state
+            # would double-apply trained populations.
+            self.logger.error(
+                task_id=self.task_id, system_name="engine",
+                module_name="runner",
+                message="retry needs snapshot_rounds or a checkpointer; "
+                        "failing task",
+            )
+            return "raise", round_idx, attempts
         next_round = self._rollback(round_idx, error)
+        if next_round is None:
+            self.logger.error(
+                task_id=self.task_id, system_name="engine",
+                module_name="runner",
+                message="retry found no recoverable state; failing task",
+            )
+            return "raise", round_idx, attempts
         if cfg.round_backoff_s > 0:
             time.sleep(cfg.round_backoff_s * (attempts + 1))
         return "continue", next_round, attempts + 1
@@ -749,17 +1133,44 @@ class SimulationRunner:
             self._round_outputs[operator.name] = op_record
 
         round_wall_s = time.perf_counter() - t_round0
+        if self._convergence is not None:
+            self._observe_convergence(round_idx, round_record, round_wall_s)
         if self._cost_oracle is not None and self._cost_family:
             self._feed_cost(round_wall_s)
         if self._quarantine is not None:
             # Quarantine state after this round's observations rides the
-            # history record, as in the JAX runner.
+            # history record, and so checkpoint meta (_requarantine).
             round_record["quarantine_state"] = self._quarantine.state_json()
+        if self._convergence is not None:
+            # The tracker's clocks, eval series and to-target facts ride
+            # checkpoint meta the same way (_reconverge).
+            round_record["convergence_state"] = self._convergence.state_json()
         self.history.append(round_record)
         # A preemption here dies with the round's work done but not yet
         # durable (the lost-round scenario rollback must absorb).
         faults.inject("runner.pre_checkpoint", context=str(round_idx),
                       round_idx=round_idx, task_id=self.task_id)
+        with self._phase("round", "checkpoint", round_idx):
+            self._checkpoint(round_idx)
+        if self.model_io is not None and not self._model_io_export_dead:
+            # One global model per task (reference convention); multi-
+            # population tasks export the first population's.
+            try:
+                with self._phase("round", "model_export", round_idx):
+                    self.model_io.export(
+                        round_idx,
+                        self._host_params(
+                            self.states[self.populations[0].name].params
+                        ),
+                    )
+            except NotImplementedError as e:
+                # Download-only repo: ingestion works, export cannot.
+                self._model_io_export_dead = True
+                self.logger.warning(
+                    task_id=self.task_id, system_name="engine",
+                    module_name="runner",
+                    message=f"model export disabled: {e}",
+                )
 
         if not self.operator_flow.stop():
             if self.stop_event is not None and self.stop_event.is_set():
@@ -772,10 +1183,11 @@ class SimulationRunner:
         return "ok"
 
     def begin(self) -> None:
-        """Arm the round loop: materialize per-population state and set the
-        loop cursor. ``run()`` is exactly ``begin(); while step(): pass;
-        finish()``. A population already in :attr:`states` keeps its state
-        (a caller may install parameters before ``run()``)."""
+        """Arm the round loop: materialize per-population state, resume
+        (checkpoint / exported model / warm start) and set the loop cursor.
+        ``run()`` is exactly ``begin(); while step(): pass; finish()``. A
+        population already in :attr:`states` keeps its state (a caller may
+        install parameters before ``run()``)."""
         for p in self.populations:
             if p.name not in self.states:
                 # crc32, not hash(): str hashes are randomized per process.
@@ -783,15 +1195,25 @@ class SimulationRunner:
                     seed=zlib.crc32(self.task_id.encode()) & 0x7FFFFFFF,
                     device=p.dataset.x.device,
                 )
+        start_round = self._try_resume()
+        if start_round == 0 and self.model_io is not None:
+            start_round = self._resume_from_exports()
+        if start_round == 0 and self.warm_start_path:
+            # Only a fresh start ingests the round-0 model; any resume
+            # supersedes it.
+            self._warm_start()
         cfg = self.resilience
         snapshotting = cfg is not None and cfg.snapshot_rounds and (
             cfg.failure_policy != FailurePolicy.FAIL_TASK
         )
-        # Retry budget is per round; flow_epoch numbers the rollbacks, so a
-        # replayed round's deviceflow routing key is one its earlier
-        # execution never used.
+        if self._quarantine is not None:
+            self._qsnapshots[start_round - 1] = self._quarantine.snapshot()
+        # Retry budget is per round (a rollback that resumes earlier than the
+        # failed round must not refill it); flow_epoch numbers the
+        # rollbacks, so a replayed round's deviceflow routing key is one its
+        # earlier execution never used.
         self._loop = {
-            "round_idx": 0,
+            "round_idx": start_round,
             "retries": {},
             "flow_epoch": 0,
             "snapshotting": snapshotting,
@@ -810,16 +1232,19 @@ class SimulationRunner:
             return False
         round_idx = lp["round_idx"]
         if self.stop_event is not None and self.stop_event.is_set():
-            # Cooperative stop between rounds.
+            # Cooperative stop between rounds; the last completed round is
+            # fenced into a checkpoint.
             self.stopped = True
             lp["done"] = True
+            self._checkpoint_on_stop(round_idx - 1)
             return False
         if lp["snapshotting"] and (
             self._round_snapshot is None
             or self._round_snapshot["round_idx"] != round_idx
         ):
             self._round_snapshot = self._capture_snapshot(round_idx)
-        replaying = lp["retries"].get(round_idx, 0) > 0
+        replaying = (round_idx <= self._force_checkpoint_until
+                     or lp["retries"].get(round_idx, 0) > 0)
         for p in self.populations:
             # Refused outside the failure policy: a retried round would
             # otherwise run on without the attack the plan asked for.
@@ -860,9 +1285,26 @@ class SimulationRunner:
             instrument("ols_engine_rounds_total", self.registry).labels(
                 task_id=self.task_id, status="ok"
             ).inc()
+        if self._quarantine is not None:
+            self._qsnapshots[round_idx] = self._quarantine.snapshot()
+            # Retention covers the deepest rollback: a preemption can fall
+            # back across every retained checkpoint step (max_to_keep steps
+            # spaced checkpoint_every rounds apart), and _rollback then needs
+            # the quarantine state as of the resume round's entry.
+            keep = max(
+                8,
+                getattr(self.checkpointer, "max_to_keep", 0)
+                * max(1, self.checkpoint_every) + 2,
+            ) if self.checkpointer is not None else 8
+            for k in [k for k in self._qsnapshots if k < round_idx - keep]:
+                del self._qsnapshots[k]
         if status == "stop":
             self.stopped = True
             lp["done"] = True
+            done_round = round_idx if (
+                self.history and self.history[-1].get("round") == round_idx
+            ) else round_idx - 1
+            self._checkpoint_on_stop(done_round)
             return False
         if status == "final":
             lp["done"] = True
@@ -874,8 +1316,12 @@ class SimulationRunner:
         return True
 
     def finish(self) -> List[Dict[str, Any]]:
-        """Close out a run: persist the resilience digest and return the
-        history."""
+        """Close out a run: block on the checkpoint commit in flight, persist
+        the resilience digest, and return the history."""
+        if self.checkpointer is not None:
+            # The last step's write runs on the commit thread; a process exit
+            # right after run() must not lose it.
+            self.checkpointer.wait()
         self._persist_resilience()
         self._loop = None
         return self.history

@@ -23,8 +23,19 @@ optional::
       "resilience": {...},                    # ResilienceConfig.from_dict
       "quarantine": {"preseed": {"data_0": [3, 7]}},
       "operator_flow": {...},                 # barrier kwargs (flag_path, ...)
-      "scheduling": {"family": "..."}         # cost-oracle family key
+      "scheduling": {"family": "..."},        # cost-oracle family key
+      "checkpoint": {"directory": "ckpt/{task_id}", "every": 1, "max_to_keep": 3},
+      "convergence": {"target_accuracy": 0.9, "eval_every": 5, "round_budget": 40},
+      "storage":   {"root": "/models"}        # the model files' FILE repo
     }
+
+An operator's ``model`` (the first that sets ``use_model`` or
+``model_update_style``) exports each round's global model through a file
+repo of its ``model_transfer_type`` as ``model_update_style`` names it, and
+with ``use_model`` warm-starts from ``model_path``. A checkpoint directory
+has ``{task_id}`` replaced, and a relative one is placed under
+``tempfile.gettempdir()``, so a relaunch from another working directory
+resumes from the same steps.
 
 A task that asks for a part of the JAX bridge this slice leaves out raises
 a ``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
@@ -36,11 +47,14 @@ eager PyTorch and is dropped.
 from __future__ import annotations
 
 import json
+import os
+import tempfile
 import threading
 from typing import Any, Dict, Optional
 
 import numpy as np
 
+from olearning_sim_tpu_torch.checkpoint import ModelUpdateExporter, RoundCheckpointer
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine.algorithms import from_config as algorithm_from_config
 from olearning_sim_tpu_torch.engine.client_data import (
@@ -49,6 +63,7 @@ from olearning_sim_tpu_torch.engine.client_data import (
     make_synthetic_dataset,
     make_synthetic_text_dataset,
 )
+from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig
 from olearning_sim_tpu_torch.engine.fedcore import FedCoreConfig, build_fedcore
 from olearning_sim_tpu_torch.engine.runner import (
     DataPopulation,
@@ -56,6 +71,7 @@ from olearning_sim_tpu_torch.engine.runner import (
     SimulationRunner,
 )
 from olearning_sim_tpu_torch.resilience import ResilienceConfig, parse_quarantine_params
+from olearning_sim_tpu_torch.storage import make_file_repo
 from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
 from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
 
@@ -64,15 +80,14 @@ BUILTIN_PREFIX = "builtin:"
 # Engine-params blocks of the JAX bridge that this slice leaves out, with
 # the ROADMAP.md item that ports each.
 LEFT_OUT = {
-    "checkpoint": "A5 (checkpoint and resume)",
     "deadline": "A6 (deadline rounds)",
     "defense": "A6 (adversarial-client defense)",
     "scenario": "A7 (scenario traces and streaming)",
     "async": "A8 (buffered async rounds)",
-    "convergence": "A12 (convergence tracking)",
 }
 KNOWN = {"model", "algorithm", "fedcore", "data", "resilience", "quarantine",
-         "operator_flow", "scheduling", "storage", "parallel"} | set(LEFT_OUT)
+         "operator_flow", "scheduling", "storage", "parallel", "checkpoint",
+         "convergence"} | set(LEFT_OUT)
 
 
 def _engine_params(tc) -> Dict[str, Any]:
@@ -114,12 +129,6 @@ def _refuse_left_out(task_id: str, params: Dict[str, Any], tc) -> None:
     if (params.get("operator_flow") or {}).get("selection_url"):
         raise ValueError(f"task {task_id}: the websocket round provider "
                          f"(operator_flow.selection_url) is not ported yet: ROADMAP.md A16")
-    for op in tc.operatorFlow.operator:
-        m = op.model
-        if m.useModel or m.modelUpdateStyle:
-            raise ValueError(f"task {task_id}: operator {op.name} model I/O "
-                             f"(useModel / modelUpdateStyle) is not ported yet: "
-                             f"ROADMAP.md A5 (checkpoint, model export and warm start)")
     for td in tc.target.targetData:
         if td.dataPath:
             raise ValueError(f"task {task_id}: real dataset {td.dataPath!r} (dataPath) "
@@ -151,6 +160,44 @@ def _operator_specs(task_id: str, tc) -> list:
     return specs
 
 
+def _model_io(task_id: str, tc, params: Dict[str, Any]):
+    """The operators' ``Model`` (taskservice.proto Model): per-round export
+    named by modelUpdateStyle and a warm start from modelPath (reference
+    ``download_model_files``, ``utils_run_task.py:327-397``). Returns
+    (model_io, warm_start_path)."""
+    for op in tc.operatorFlow.operator:
+        m = op.model
+        if not (m.useModel or m.modelUpdateStyle):
+            continue
+        try:
+            repo = make_file_repo(m.modelTransferType,
+                                  root=(params.get("storage") or {}).get("root", "/"))
+        except ValueError as e:
+            raise ValueError(f"task {task_id}: operator {op.name} model: {e}") from None
+        model_io = ModelUpdateExporter(
+            repo, task_id,
+            **({"update_style": m.modelUpdateStyle} if m.modelUpdateStyle else {}),
+        )
+        return model_io, (m.modelPath if m.useModel and m.modelPath else None)
+    return None, None
+
+
+def _checkpointer(task_id: str, ckpt_cfg: Dict[str, Any], registry) -> RoundCheckpointer:
+    """The checkpoint block's RoundCheckpointer, in a per-task directory,
+    writing its series into the runner's registry."""
+    # str.replace, not .format: a path with any other brace must pass
+    # through, not raise.
+    directory = str(ckpt_cfg.get("directory") or "").replace("{task_id}", task_id)
+    if not directory:
+        directory = os.path.join(tempfile.gettempdir(), "ols_checkpoints", task_id)
+    elif not os.path.isabs(directory):
+        # Anchor relative paths: a relaunch from another working directory
+        # must open the same directory, or it would resume from round 0.
+        directory = os.path.join(tempfile.gettempdir(), directory)
+    return RoundCheckpointer(directory, max_to_keep=int(ckpt_cfg.get("max_to_keep", 3)),
+                             task_id=task_id, registry=registry)
+
+
 def build_runner_from_taskconfig(
     tc,
     task_repo=None,
@@ -176,6 +223,10 @@ def build_runner_from_taskconfig(
     params = _engine_params(tc)
     _refuse_left_out(task_id, params, tc)
     operators = _operator_specs(task_id, tc)
+    # Parsed before any data is made, so a bad block fails fast.
+    model_io, warm_start_path = _model_io(task_id, tc, params)
+    convergence = (ConvergenceConfig.from_dict(params["convergence"])
+                   if params.get("convergence") else None)
 
     model_cfg = params.get("model", {})
     algo_cfg = dict(params.get("algorithm", {}))
@@ -305,6 +356,9 @@ def build_runner_from_taskconfig(
                   if params.get("resilience") else None)
     quarantine_preseed = (parse_quarantine_params(params["quarantine"])["preseed"]
                           if params.get("quarantine") else None)
+    ckpt_cfg = params.get("checkpoint")
+    checkpoint_every = int(ckpt_cfg.get("every", 1)) if ckpt_cfg else 1
+    checkpointer = _checkpointer(task_id, ckpt_cfg, registry) if ckpt_cfg else None
     return SimulationRunner(
         task_id=task_id,
         core=core,
@@ -321,4 +375,9 @@ def build_runner_from_taskconfig(
         cost_oracle=cost_oracle,
         cost_family=cost_family(tc) if cost_oracle is not None else None,
         registry=registry,
+        checkpointer=checkpointer,
+        checkpoint_every=checkpoint_every,
+        model_io=model_io,
+        warm_start_path=warm_start_path,
+        convergence=convergence,
     )

@@ -133,7 +133,7 @@ class TextTransformer(nn.Module):
                  dtype: torch.dtype = torch.bfloat16,
                  attention_impl: str = "dense", ring_use_flash: bool = False):
         super().__init__()
-        self.pad_id, self.dtype = pad_id, dtype
+        self.pad_id, self.dtype, self.heads = pad_id, dtype, heads
         self.max_len, self.attention_impl = max_len, attention_impl
         self.embed = nn.Embedding(vocab_size, width)
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))

@@ -16,6 +16,7 @@ through the JAX package does not reach a port runner.
 """
 
 from olearning_sim_tpu_torch.resilience.events import (
+    CHECKPOINT_FALLBACK,
     CLIENT_QUARANTINED,
     CLIENT_READMITTED,
     FAULT_INJECTED,
@@ -47,9 +48,10 @@ from olearning_sim_tpu_torch.resilience.quarantine import (
     QuarantineManager,
     parse_quarantine_params,
 )
-from olearning_sim_tpu_torch.resilience.retry import RetryPolicy
+from olearning_sim_tpu_torch.resilience.retry import NON_RETRYABLE, RetryPolicy
 
 __all__ = [
+    "CHECKPOINT_FALLBACK",
     "CLIENT_QUARANTINED",
     "CLIENT_READMITTED",
     "FAULT_INJECTED",
@@ -66,6 +68,7 @@ __all__ = [
     "FaultPlan",
     "FaultSpec",
     "HostPreemption",
+    "NON_RETRYABLE",
     "QuarantineManager",
     "ResilienceConfig",
     "ResilienceEvent",

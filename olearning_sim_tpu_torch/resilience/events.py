@@ -30,6 +30,7 @@ ROLLBACK = "rollback"
 QUARANTINE = "quarantine"
 READMIT = "readmit"
 SKIP_ROUND = "skip_round"
+CHECKPOINT_FALLBACK = "checkpoint_fallback"
 # A client crossed its strike budget (non-finite updates) — or was
 # blocklisted up-front via quarantine.preseed — and was quarantined out of
 # participation...

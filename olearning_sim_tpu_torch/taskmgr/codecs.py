@@ -10,8 +10,8 @@ messages' field names (``taskID.taskID``,
 handed in by the JAX control plane as well. The port imports no protobuf.
 The JSON key names and defaults are the reference's wire format, read as
 the JAX codec reads them; the parts of the JSON the bridge does not read
-(transfer types, resource requests, the device-simulation half) are not
-decoded.
+(data and operator transfer types, resource requests, the device-simulation
+half) are not decoded.
 """
 
 from __future__ import annotations
@@ -20,9 +20,17 @@ import dataclasses
 import json
 from typing import Any, Dict, List
 
+from olearning_sim_tpu_torch.storage.file_repo import TRANSFER_TYPES
+
 
 def _field(factory):
     return dataclasses.field(default_factory=factory)
+
+
+def _transfer_type(name) -> int:
+    """FileTransferType's wire number of a JSON name; an absent or empty
+    name is the reference's default, S3."""
+    return TRANSFER_TYPES.index(name or "S3")
 
 
 @dataclasses.dataclass
@@ -79,6 +87,8 @@ class OperationBehaviorController:
 @dataclasses.dataclass
 class Model:
     useModel: bool = False
+    modelTransferType: int = 0  # FileTransferType's wire number
+    modelPath: str = ""
     modelUpdateStyle: str = ""
 
 
@@ -167,6 +177,8 @@ def json2taskconfig(jsonstring: str | Dict[str, Any]) -> TaskConfig:
             ),
             input=list(inputs),
             model=Model(useModel=bool(model.get("use_model", False)),
+                        modelTransferType=_transfer_type(model.get("model_transfer_type")),
+                        modelPath=model.get("model_path", ""),
                         modelUpdateStyle=model.get("model_update_style", "")),
             logicalSimulationOperatorInfo=OperatorSimulationInfo(
                 operatorCodePath=logical.get("operator_code_path", ""),

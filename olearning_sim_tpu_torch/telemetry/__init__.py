@@ -48,6 +48,8 @@ from olearning_sim_tpu_torch.telemetry.tracing import (
 # minutes for first rounds; checkpoint I/O sits in between.
 _PHASE_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                   2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
+_IO_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
+               10.0, 30.0, 60.0)
 
 # name -> (kind, help, label names[, buckets]).
 CATALOG = {
@@ -82,6 +84,48 @@ CATALOG = {
         "Clients currently quarantined out of participation (strike "
         "budget exceeded via non-finite updates, anomaly flags, or "
         "operator preseed)",
+        ("task_id",),
+    ),
+    "ols_engine_eval_accuracy": (
+        GAUGE,
+        "Held-out eval accuracy of the global model at the last "
+        "convergence-tracker eval point (fraction correct in [0, 1]; "
+        "engine/convergence.py — the quality denominator behind every "
+        "throughput number)",
+        ("task_id",),
+    ),
+    "ols_engine_time_to_target_seconds": (
+        GAUGE,
+        "Seconds until eval accuracy first reached the configured "
+        "convergence target, per clock (clock=sim: simulated fleet "
+        "time; clock=wall: measured host time). Unset until the target "
+        "is reached",
+        ("task_id", "clock"),
+    ),
+    "ols_engine_rounds_to_target": (
+        GAUGE,
+        "Train rounds until eval accuracy first reached the configured "
+        "convergence target (the rounds-denominated time-to-accuracy "
+        "figure BENCH_convergence.json banks). Unset until reached",
+        ("task_id",),
+    ),
+    # The port's checkpointer saves off the round's critical path too: the
+    # save series times the dispatch (the device-to-host copy is queued on
+    # a side stream, the write runs on the commit thread).
+    "ols_checkpoint_save_duration_seconds": (
+        HISTOGRAM, "RoundCheckpointer.save wall-clock (dispatch side)",
+        ("task_id",), _IO_BUCKETS,
+    ),
+    "ols_checkpoint_restore_duration_seconds": (
+        HISTOGRAM, "RoundCheckpointer.restore wall-clock per attempted step",
+        ("task_id",), _IO_BUCKETS,
+    ),
+    "ols_checkpoint_save_bytes_total": (
+        COUNTER, "Payload bytes handed to checkpoint saves (leaf sizes)",
+        ("task_id",),
+    ),
+    "ols_checkpoint_restore_bytes_total": (
+        COUNTER, "Payload bytes restored from checkpoints (leaf sizes)",
         ("task_id",),
     ),
     "ols_resilience_events_total": (

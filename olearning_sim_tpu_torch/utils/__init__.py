@@ -1,6 +1,6 @@
 """Host utilities copied from the JAX package's ``utils/``: the monotonic
-deadline, the table-repository interface with its in-memory backend, and
-the structured logger."""
+deadline, the table-repository interface with its in-memory backend, the
+structured logger, and the crash-consistent file commits (``durable``)."""
 
 from olearning_sim_tpu_torch.utils.clocks import Deadline, monotonic
 from olearning_sim_tpu_torch.utils.logging import Logger

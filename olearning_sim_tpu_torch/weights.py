@@ -36,7 +36,9 @@ def _t(a) -> torch.Tensor:
 
 
 def _n(t: torch.Tensor) -> np.ndarray:
-    return t.detach().to("cpu", torch.float32).numpy().copy()
+    """A host f32 copy in C order. Layout changes are made before, in torch,
+    so that a tensor on the card is transposed there."""
+    return t.detach().contiguous().to("cpu", torch.float32).numpy().copy()
 
 
 def _linear_from(kernel, bias, n_in_axes: int = 1) -> Dict[str, torch.Tensor]:
@@ -67,9 +69,9 @@ def _layers_to(params) -> dict:
     for name in params:
         kind, i, leaf = name.split(".")
         if leaf == "weight":
-            w = _n(params[name])
+            w = params[name]
             tree[f"{kind.capitalize()}_{i}"] = {
-                "kernel": np.ascontiguousarray(w.transpose(2, 3, 1, 0) if kind == "conv" else w.T),
+                "kernel": _n(w.permute(2, 3, 1, 0) if kind == "conv" else w.t()),
                 "bias": _n(params[f"{kind}.{i}.bias"]),
             }
     return tree
@@ -112,8 +114,8 @@ def params_from_jax(tree) -> Dict[str, torch.Tensor]:
 
 
 def _linear_to(params, prefix, in_shape, out_shape):
-    w = _n(params[f"{prefix}.weight"])
-    return {"kernel": w.T.reshape(tuple(in_shape) + tuple(out_shape)),
+    w = _n(params[f"{prefix}.weight"].t())
+    return {"kernel": w.reshape(tuple(in_shape) + tuple(out_shape)),
             "bias": _n(params[f"{prefix}.bias"]).reshape(out_shape)}
 
 

@@ -1,6 +1,7 @@
-"""Package rules of the PyTorch port: it imports no JAX (nor anything of the
-JAX package), builds no kernel and imports no triton when imported, and its
-GPU smoke script refuses to run without a card."""
+"""Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax
+or msgpack (nor anything of the JAX package), builds no kernel and imports
+no triton when imported, and its GPU smoke script refuses to run without a
+card."""
 
 import os
 import pathlib
@@ -11,7 +12,8 @@ import sys
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "olearning_sim_tpu_torch"
-FORBIDDEN = re.compile(r"import (jax|flax|optax)|from (jax|flax|optax)|olearning_sim_tpu[^_]")
+FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack)\b|"
+                       r"from (jax|flax|optax|orbax|msgpack)\b|olearning_sim_tpu[^_]")
 
 
 def _run(code, cwd=REPO):
@@ -49,8 +51,13 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.utils import clocks, repo, logging\n"
         "from olearning_sim_tpu_torch.telemetry import metrics, tracing\n"
         "from olearning_sim_tpu_torch.deviceflow import strategy, trace_compiler\n"
+        "from olearning_sim_tpu_torch.checkpoint import checkpointer, msgpack_wire\n"
+        "from olearning_sim_tpu_torch.storage import file_repo\n"
+        "from olearning_sim_tpu_torch.engine import convergence\n"
+        "from olearning_sim_tpu_torch.utils import durable\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in\n"
-        "             ('jax', 'flax', 'optax', 'google', 'olearning_sim_tpu', 'triton'))\n"
+        "             ('jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"
+        "              'olearning_sim_tpu', 'triton'))\n"
         "print(bad)\n"
     )
     assert proc.returncode == 0, proc.stderr

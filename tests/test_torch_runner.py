@@ -13,6 +13,7 @@ restores in both. Host-side outputs must then agree exactly; numbers
 within the mlp2 bounds of tests/test_torch_fedcore_families.py."""
 
 import copy
+import dataclasses
 import json
 import time
 import zlib
@@ -382,9 +383,7 @@ def test_task_matches_jax(case):
     assert ([e["kind"] for e in tres.get("recent_events", [])]
             == [e["kind"] for e in jres.get("recent_events", [])])
     assert _series(registry, tid) == _series(registry, jid)
-    # The JAX runner also times a checkpoint phase, which this slice leaves out.
-    jphases = {k: v for k, v in _phase_counts(registry, jid).items() if k[1] != "checkpoint"}
-    assert _phase_counts(registry, tid) == jphases
+    assert _phase_counts(registry, tid) == _phase_counts(registry, jid)
     for jr, tr in zip(jhist, thist):
         assert tr.get("quarantine_state") == jr.get("quarantine_state")
         if jr.get("skipped"):
@@ -431,8 +430,9 @@ def _rel_l2(a, b):
 
 
 def test_retried_round_equals_clean_run():
-    """The snapshot clones the state's tensors and restores the index
-    generator: a retried round replays the clean run's minibatches."""
+    """The snapshot clones the state's tensors and restores the round
+    counter the minibatch draws are seeded from: a retried round replays the
+    clean run's minibatches."""
     runs = []
     for chaos in (None, ROUND_BEGIN_ONCE, {"seed": 0, "specs": [
             {"point": "runner.pre_checkpoint", "rounds": [1], "error": "preempt"}]}):
@@ -444,28 +444,54 @@ def test_retried_round_equals_clean_run():
         assert len(history) == 3
         assert _rel_l2(params, clean) <= RETRY_REL
     # The check has teeth: a run whose round 1 draws other minibatches
-    # (what a lost generator state gives) lands far from the clean run.
+    # (what a round counter left one ahead gives) lands far from the clean
+    # run.
     task = task_json("retry_generator", resilience={"failure_policy": "retry"})
     runner = build_runner_from_taskconfig(task, device="cpu")
     runner.begin()
     runner.step()
-    torch.rand(7, generator=runner.states["data_0"].generator)
+    state = runner.states["data_0"]
+    runner.states["data_0"] = dataclasses.replace(state, round_idx=state.round_idx + 1)
     while runner.step():
         pass
     assert _rel_l2(runner.states["data_0"].params, clean) > 100 * RETRY_REL
 
 
 def test_copy_tree_is_deep():
+    from olearning_sim_tpu_torch.engine.fedcore import ServerState
     from olearning_sim_tpu_torch.engine.runner import _copy_tree
 
-    gen = torch.Generator().manual_seed(3)
-    tree = {"a": torch.ones(3), "b": [torch.zeros(2), 4], "g": gen}
+    state = ServerState(params={"w": torch.ones(3)}, opt_state={"mu": {"w": torch.zeros(3)}},
+                        round_idx=2, seed=7)
+    tree = {"s": state, "b": [torch.zeros(2), 4]}
     snap = _copy_tree(tree)
-    tree["a"].add_(1)
-    first = torch.rand(2, generator=gen)
-    assert torch.equal(snap["a"], torch.ones(3))
-    assert snap["g"] is not gen and snap["b"][1] == 4
-    assert torch.equal(torch.rand(2, generator=snap["g"]), first)
+    state.params["w"].add_(1)
+    state.opt_state["mu"]["w"].add_(1)
+    tree["b"][0].add_(1)
+    assert torch.equal(snap["s"].params["w"], torch.ones(3))
+    assert torch.equal(snap["s"].opt_state["mu"]["w"], torch.zeros(3))
+    assert torch.equal(snap["b"][0], torch.zeros(2)) and snap["b"][1] == 4
+    assert (snap["s"].round_idx, snap["s"].seed) == (2, 7)
+
+
+def test_draws_are_a_function_of_seed_and_round():
+    """The state hands no generator on: a round's minibatch indices come
+    from (seed, round_idx, stream) alone, so a state rebuilt from a
+    checkpoint or a model file draws what the original drew."""
+    task = task_json("draws")
+    core = build_runner_from_taskconfig(task, device="cpu").core
+    ns = torch.tensor([5, 8, 1, 3])
+    state = core.init_state(seed=11, device="cpu")
+
+    def draw(st, stream=0):
+        return core.draw_indices(core.round_generator(st, stream), ns)
+
+    again = dataclasses.replace(state, params={})
+    assert torch.equal(draw(state), draw(again))
+    later = dataclasses.replace(state, round_idx=1)
+    assert not torch.equal(draw(state), draw(later))
+    assert not torch.equal(draw(state), draw(state, stream=1))
+    assert not torch.equal(draw(state), draw(dataclasses.replace(state, seed=12)))
 
 
 def test_attack_injection_is_refused():

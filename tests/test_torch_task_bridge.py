@@ -1,9 +1,10 @@
 """The port's task bridge: every input form builds the same runner, the
 supported configs/*.json build and run one tiny round on the CPU (cut by
 editing the loaded JSON only), every other config and every left-out
-engine-params block is refused with its ROADMAP.md item, the JAX control
-plane drives a port runner through its runner_factory, and the repaired
-FedCoreConfig.from_dict agrees with the JAX package's."""
+engine-params block is refused with its ROADMAP.md item, the checkpoint
+and model blocks build and run, the JAX control plane drives a port runner
+through its runner_factory, and the repaired FedCoreConfig.from_dict
+agrees with the JAX package's."""
 
 import json
 import pathlib
@@ -20,13 +21,12 @@ from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
-             "fedadam_sent140_distilbert"]
+             "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence"]
 REFUSED = {
     "ditto_cifar100_vit": "A10",
     "fedadam_sent140_distilbert_mp2": "A10",
     "fedavg_mnist_mlp_async": "A8",
     "fedavg_mnist_mlp_bf16": "A9",
-    "fedavg_mnist_mlp_convergence": "A12",
     "fedavg_mnist_mlp_deadline": "A6",
     "fedavg_mnist_mlp_defense": "A6",
     "fedavg_mnist_mlp_trace": "A7",
@@ -90,6 +90,10 @@ def test_supported_config_runs_a_tiny_round(name):
         assert rec["released"] + rec["dropped"] <= 8
     if name == "scaffold_mnist_mlp":
         assert "data_0" in runner.control_states
+    if name == "fedavg_mnist_mlp_convergence":
+        record = runner.convergence_record()
+        assert record["target_accuracy"] == 0.9 and record["rounds_observed"] == 1
+        assert [e["round"] for e in record["evals"]] == [0]  # the final round
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -104,7 +108,6 @@ def _with_params(**blocks):
 
 
 @pytest.mark.parametrize("blocks,item", [
-    ({"checkpoint": {"every": 1}}, "ROADMAP.md A5"),
     ({"parallel": {"dp": 2}}, "ROADMAP.md A9"),
     ({"operator_flow": {"selection_url": "ws://localhost:9"}}, "ROADMAP.md A16"),
     ({"streaming": {"x": 1}}, "unknown engine params"),
@@ -115,8 +118,14 @@ def test_left_out_blocks_are_refused(blocks, item):
 
 
 @pytest.mark.parametrize("field,value,item", [
-    ("model", {"use_model": True, "model_path": "m.msgpack"}, "A5"),
-    ("model", {"model_update_style": "{task_id}_{round}"}, "A5"),
+    ("model", {"model_update_style": "{task_id}_{round}", "model_transfer_type": "S3"},
+     "A19"),
+    ("model", {"use_model": True, "model_path": "m.msgpack",
+               "model_transfer_type": "MINIO"}, "A19"),
+    ("model", {"use_model": True, "model_path": "http://host/m.msgpack",
+               "model_transfer_type": "HTTP"}, "A19"),
+    ("model", {"model_update_style": "{task_id}_{round}", "model_transfer_type": ""},
+     "A19"),
     ("data_path", "s3://bucket/mnist", "A14"),
     ("operator_code_path", "ops/train.zip", "A15"),
 ])
@@ -131,6 +140,70 @@ def test_left_out_task_fields_are_refused(field, value, item):
         op["logical_simulation"]["operator_code_path"] = value
     with pytest.raises(ValueError, match=f"ROADMAP.md {item}"):
         build_runner_from_taskconfig(task, device="cpu")
+
+
+def _model_blocks(tmp_path):
+    """The blocks this slice landed: each builds a runner and runs."""
+    from olearning_sim_tpu_torch.checkpoint import export_model_bytes
+    from olearning_sim_tpu_torch.weights import params_to_jax
+
+    # The donor's model after one trained round: not the init a fresh
+    # runner of the same task draws.
+    donor = build_runner_from_taskconfig(shrink(load("fedavg_mnist_mlp")), device="cpu")
+    donor.run()
+    (tmp_path / "warm.msgpack").write_bytes(export_model_bytes(
+        params_to_jax(donor.states["data_0"].params)))
+    storage = {"storage": {"root": str(tmp_path)}}
+    return {
+        "checkpoint": ({"checkpoint": {"directory": str(tmp_path / "ck" / "{task_id}"),
+                                       "every": 1}}, None),
+        "use_model": (storage, {"use_model": True, "model_path": "warm.msgpack",
+                                "model_transfer_type": "FILE"}),
+        "model_update_style": (storage, {"model_update_style": "{task_id}_{round}.msgpack",
+                                         "model_transfer_type": "FILE"}),
+    }, donor
+
+
+@pytest.mark.parametrize("case", ["checkpoint", "use_model", "model_update_style"])
+def test_landed_blocks_build_and_run(case, tmp_path):
+    cases, donor = _model_blocks(tmp_path)
+    blocks, model = cases[case]
+    task = _with_params(**blocks)
+    if model is not None:
+        task["operatorflow"]["operators"][1]["model"].update(model)
+    runner = build_runner_from_taskconfig(task, device="cpu")
+    runner.begin()
+    entry = dict(runner.states["data_0"].params)
+    while runner.step():
+        pass
+    assert len(runner.finish()) == 1
+    if case == "checkpoint":
+        assert runner.checkpointer.latest_round() == 0
+        assert runner.checkpointer.directory == str(tmp_path / "ck" / task["task_id"])
+    elif case == "use_model":
+        # Round 0 starts from the file's params, not from a fresh init.
+        assert runner.warm_start_path == "warm.msgpack"
+        fresh = build_runner_from_taskconfig(shrink(load("fedavg_mnist_mlp")), device="cpu")
+        fresh.begin()
+        init = fresh.states["data_0"].params
+        for k, v in donor.states["data_0"].params.items():
+            assert torch.equal(entry[k], v)
+            assert not torch.equal(entry[k], init[k])
+    else:
+        assert (tmp_path / f"{task['task_id']}_0.msgpack").is_file()
+
+
+def test_relative_checkpoint_directory_is_anchored(monkeypatch, tmp_path):
+    import tempfile
+
+    monkeypatch.setattr(tempfile, "gettempdir", lambda: str(tmp_path))
+    task = _with_params(checkpoint={"directory": "ck/{task_id}", "max_to_keep": 2})
+    runner = build_runner_from_taskconfig(task, device="cpu")
+    assert runner.checkpointer.directory == str(tmp_path / "ck" / task["task_id"])
+    assert runner.checkpointer.max_to_keep == 2
+    default = build_runner_from_taskconfig(_with_params(checkpoint={"every": 2}), device="cpu")
+    assert default.checkpointer.directory == str(tmp_path / "ols_checkpoints" / task["task_id"])
+    assert default.checkpoint_every == 2
 
 
 def _runner_view(runner):
