@@ -112,6 +112,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
       after round 5 and resumed by a fresh runner: the identical record
       under ``strip_wall``.
 
+9. Deadline rounds, client attacks and the defense (no kernel of the repo
+   is on this path either: the robust statistics are ``torch.sort`` and
+   elementwise ops, as the JAX package leaves them to XLA), through the
+   bridge and runner at the configs' published width, cut only in rounds
+   (6 of 50):
+   9a ``fedavg_mnist_mlp_deadline``: every round's selected, on_time,
+      stragglers, deadline_s, round_close_s and idle_s, the rounds/sec and
+      the phase times; held: round 0 equals a direct ``round_step`` with
+      the on-time mask that the pacing module plans (bitwise), a
+      ``runner.straggler_spike`` round records ``deadline_miss`` and is
+      skipped, and a run stopped after round 2 and resumed by a fresh
+      runner equals the uninterrupted run bitwise, pacing states included;
+   9b ``fedavg_mnist_mlp_defense`` (preseed [1, 3]) under
+      ``runner.attack_clients`` ``scale`` -8 on ATTACKERS every round,
+      beside a clean and an attacked undefended run (final eval losses
+      printed): every round's clipped, flagged and quarantined clients and
+      the robust statistics' milliseconds (CUDA events around each call),
+      the [C, P] delta buffer's bytes and the peak memory; held: round 0's
+      aggregate, median centre and scores against a float64 numpy oracle
+      over the same buffer (ORACLE_RTOL), every attacker quarantined by
+      the round ``quarantine_after`` allows, and a run preempted after
+      round 2 trained, recovered from its checkpoint under a retry policy,
+      equal to the uninterrupted run bitwise, quarantine state included.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -166,6 +190,25 @@ RETRY_REL = 1e-6
 # config's block of 64 runs an 80 GB card out of memory even alone
 # (scripts/task_path_memory.py measures each block size).
 DISTILBERT_BLOCK = 16
+# Phase 9's per-round record fields (deadline rounds, attacks, defense).
+ROBUST_KEYS = ("selected", "on_time", "stragglers", "deadline_s", "round_close_s", "idle_s",
+               "attacked", "attack_mode", "clipped", "flagged")
+# Phase 9b: the card's robust aggregate and scores against a float64 numpy
+# oracle over the same [C, ...] delta buffer: |card - oracle| <= ORACLE_RTOL
+# * |oracle| + ORACLE_ATOL_REL * max |leaf|. The card sorts exactly and
+# sums the window in f32; a trimmed mean near zero has no relative accuracy
+# to hold, so its absolute term scales with the buffer's largest value. The
+# card's aggregates miss by under 1e-9 absolute (PERF.md, phase 9b, gives
+# the reading and its headroom); the distance sums run over 159,010 f32
+# squares and are held relatively.
+ORACLE_RTOL = 1e-5
+ORACLE_ATOL_REL = 1e-7
+# Phase 9b's attackers (tests/test_defense.py's acceptance test) and their
+# attack: each ships -8 times its delta every round.
+ATTACKERS = [2, 6, 11, 13]
+ATTACK_PLAN = {"seed": 0, "specs": [{"point": "runner.attack_clients", "times": -1,
+                                     "payload": {"mode": "scale", "factor": -8.0,
+                                                 "clients": ATTACKERS}}]}
 ROOT = pathlib.Path(__file__).resolve().parent
 # The Pallas kernels that csrc/flash_attention.cu replaces: _attn_kernel and
 # _attn_stats_kernel in the JAX package's ops/flash_attention.py (the port's
@@ -926,6 +969,9 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
     secs = ([None] * restored + times if len(times) == len(history) - restored
             else [None] * len(history))
     for h, sec in zip(history, secs):
+        if h.get("skipped"):
+            log(f"{label} round {h['round']}: skipped ({h['error']})")
+            continue
         tr = h["train"]["data_0"]
         ev = h.get("evaluate", {}).get("data_0", {})
         if not math.isfinite(tr["mean_loss"]) or tr["clients_trained"] <= 0:
@@ -934,6 +980,8 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
             raise AssertionError(f"{label} round {h['round']}: eval loss {ev['eval_loss']}")
         line = (f"{label} round {h['round']}: released={tr['released']} dropped={tr['dropped']} "
                 f"clients_trained={tr['clients_trained']} mean_loss={tr['mean_loss']:.6f}")
+        # Deadline rounds, attacks and the defense (phase 9).
+        line += "".join(f" {k}={tr[k]}" for k in ROBUST_KEYS if k in tr)
         if ev:
             line += f" eval_loss={ev['eval_loss']:.6f} eval_acc={ev['eval_acc']:.4f}"
         log(line + ("" if sec is None else f" seconds={sec:.4f}"))
@@ -1287,6 +1335,298 @@ def task_path(dev, shrink=None):
     log(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+def drop_edit(*blocks):
+    """An ``edit`` that removes engine-params blocks."""
+    def edit(task):
+        params = _engine_params(task)
+        for b in blocks:
+            params.pop(b, None)
+        _set_engine_params(task, params)
+        return "without " + ", ".join(blocks)
+    return edit
+
+
+class _RobustTimer:
+    """Wraps the round's robust statistics (``fedcore.robust_aggregate`` and
+    ``fedcore.distance_scores``) while armed: each call is timed with CUDA
+    events (on the CPU, the host clock), and the first round's inputs and
+    outputs are copied to the host for the float64 oracle."""
+
+    def __init__(self, dev):
+        from olearning_sim_tpu_torch.engine import fedcore
+
+        self.fedcore, self.dev = fedcore, dev
+        self.orig = {n: getattr(fedcore, n) for n in ("robust_aggregate", "distance_scores")}
+        self.calls, self.captured = [], []
+        # The first round's calls under the defense config: the trimmed
+        # mean, the median centre and the scores.
+        self.to_capture = 3
+
+    def _wrap(self, name):
+        import torch
+
+        fn = self.orig[name]
+
+        def timed(*args, **kw):
+            cuda = self.dev.type == "cuda"
+            if cuda:
+                start, end = (torch.cuda.Event(enable_timing=True) for _ in range(2))
+                start.record()
+            t0 = time.perf_counter()
+            out = fn(*args, **kw)
+            if cuda:
+                end.record()
+                self.calls.append((name, start, end))
+            else:
+                self.calls.append((name, t0, time.perf_counter()))
+            if len(self.captured) < self.to_capture:
+                host = {k: v.cpu() for k, v in args[0].items()}
+                mask = args[2 if name == "distance_scores" else 1].cpu()
+                res = {k: v.cpu() for k, v in out.items()} if isinstance(out, dict) else out.cpu()
+                self.captured.append((name, host, mask, args[2:], res))
+            return out
+        return timed
+
+    def __enter__(self):
+        for n in self.orig:
+            setattr(self.fedcore, n, self._wrap(n))
+        return self
+
+    def __exit__(self, *exc):
+        for n, fn in self.orig.items():
+            setattr(self.fedcore, n, fn)
+
+    def ms(self):
+        """Milliseconds of each recorded call, in order."""
+        _sync(self.dev)
+        return [(n, s.elapsed_time(e) if self.dev.type == "cuda" else (e - s) * 1e3)
+                for n, s, e in self.calls]
+
+
+def _oracle_check(captured, trim_fraction):
+    """Phase 9b's hold 1: the first round's robust aggregate, its median
+    centre and the anomaly scores against float64 numpy over the same
+    buffer. Returns the largest error over the tolerance."""
+    import numpy as np
+
+    worst = 0.0
+
+    def held(what, got, ref, scale):
+        nonlocal worst
+        err = np.abs(got.astype(np.float64) - ref)
+        tol = ORACLE_RTOL * np.abs(ref) + ORACLE_ATOL_REL * scale
+        # Where the tolerance is 0 (a non-participant's score), only 0 holds.
+        ratio = np.where(tol > 0, err / np.where(tol > 0, tol, 1.0),
+                         np.where(err > 0, np.inf, 0.0))
+        worst = max(worst, float(ratio.max()))
+        log(f"9b oracle {what}: max abs err {float(err.max()):.3e}, "
+            f"max |leaf| {scale:.3e}, max err/tol {float(ratio.max()):.4f}")
+
+    def aggregate(vals, aggregator):
+        n = vals.shape[0]
+        s = np.sort(vals, axis=0)
+        if aggregator == "median":
+            return 0.5 * (s[(n - 1) // 2] + s[n // 2])
+        k = int(np.floor(np.float32(trim_fraction) * np.float32(n)))
+        k = min(k, max(n - 1, 0) // 2)
+        return s[k:n - k].mean(axis=0)
+
+    scored = False
+    for name, host, mask, extra, res in captured:
+        m = mask.numpy()
+        if name == "robust_aggregate":
+            aggregator = extra[0]
+            for k, leaf in host.items():
+                flat = leaf.reshape(leaf.shape[0], -1).numpy().astype(np.float64)
+                ref = aggregate(flat[m], aggregator)
+                held(f"{aggregator} {k}", res[k].reshape(-1).numpy(), ref,
+                     np.abs(flat[m]).max())
+        else:
+            total = np.zeros(len(m))
+            for k, leaf in host.items():
+                flat = leaf.reshape(leaf.shape[0], -1).numpy().astype(np.float64)
+                ref_c = aggregate(flat[m], "median")
+                total += np.square(flat - ref_c[None, :]).sum(axis=1)
+            ref = np.where(m, np.sqrt(total), 0.0)
+            held("anomaly scores", res.numpy(), ref, 0.0)
+            scored = True
+    if not scored:
+        raise AssertionError("9b: no anomaly scores were captured")
+    return worst
+
+
+def robust_path(dev, shrink=None):
+    """Phase 9: deadline rounds (9a) and client attacks against the defense
+    (9b) through the port's task bridge and runner."""
+    import os
+    import tempfile
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.deviceflow import compile_trace
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        from_config,
+        make_synthetic_dataset,
+        pacing,
+    )
+    from olearning_sim_tpu_torch.resilience import DEADLINE_MISS, ROLLBACK, global_log
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_9_")
+    name = "fedavg_mnist_mlp_deadline"
+
+    def same(label, a, b):
+        diff = max(float((a[k] - b[k]).abs().max()) for k in b)
+        rel = _rel_l2(a, b)
+        log(f"{label}: params max abs diff {diff:g}, rel L2 {rel:g} (tol 0)")
+        if diff != 0:
+            raise AssertionError(f"{label}: not bitwise equal")
+
+    def ckpt(sub, **extra):
+        return params_edit(checkpoint={"directory": os.path.join(tmp.name, sub, "{task_id}"),
+                                       "every": 1}, **extra)
+
+    # 9a: the deadline config, 6 of 50 rounds.
+    runner_a, hist_a = run_task("9a", name, dev, 6, shrink=shrink)
+    task_id = runner_a.task_id
+    for h in hist_a:
+        tr = h["train"]["data_0"]
+        if tr["clients_trained"] != tr["on_time"] or tr["stragglers"] != tr["selected"] - tr["on_time"]:
+            raise AssertionError(f"9a round {h['round']}: the round's mask disagrees with "
+                                 f"the plan: {tr}")
+    log(f"9a pacing states: {[h.get('pacing') for h in hist_a]}")
+
+    # Hold 1: round 0 against a direct round_step with the explicit on-time
+    # mask, from the pacing module's plan.
+    runner_0, _ = run_task("9a round 0", name, dev, 1, shrink=shrink)
+    task, _ = load_task(name, 1, shrink=shrink)
+    params = _engine_params(task)
+    model, alg, syn = params["model"], dict(params["algorithm"]), params["data"]["synthetic"]
+    cfg = FedCoreConfig.from_dict(params["fedcore"])
+    shape = tuple(model["input_shape"])
+    core = build_fedcore(model["name"], from_config(alg.pop("name"), **alg), cfg,
+                         model_overrides=model["overrides"], input_shape=shape, device=dev)
+    td = task["target"]["data"][0]
+    nums = td["allocation"]["logical_simulation"]
+    devices = td["total_simulation"]["devices"]
+    n = sum(nums)
+    ds = make_synthetic_dataset(syn["seed"], n, syn["n_local"], shape, syn["num_classes"],
+                                class_sep=syn["class_sep"]).pad_for(cfg.block_clients).to(dev)
+    cls = np.zeros(ds.num_clients, int)
+    cls[nums[0]:n] = 1
+    steps = np.full(ds.num_clients, cfg.max_local_steps, np.int64)
+    for ci, dname in enumerate(devices):
+        steps[cls == ci] = params["data"]["compute_profiles"][dname]
+    dl = pacing.DeadlineConfig.from_dict(params["deadline"])
+    trace = compile_trace(None, n, 0, task_id=task_id, operator="train", seed=0)
+    stream = zlib.crc32(b"train\x00data_0")
+    selected = pacing.select_cohort(trace.participate > 0, dl, 0, 0, stream=stream)
+    comp = pacing.completion_times(trace.arrival_time[:n],
+                                   np.minimum(steps[:n], cfg.max_local_steps), cls[:n],
+                                   devices, dl, 0, 0, stream=stream)
+    comp = np.where(selected, comp, np.inf).astype(np.float32)
+    close = pacing.effective_deadline(comp, selected, dl, dl.deadline_s)
+    on_time = np.zeros(ds.num_clients, np.float32)
+    on_time[:n] = selected & (comp <= close)
+    rec0 = hist_a[0]["train"]["data_0"]
+    log(f"9a round 0 plan from the pacing module: selected {int(selected.sum())}, on time "
+        f"{int(on_time.sum())}, close {close} s (runner: {rec0['selected']}, "
+        f"{rec0['on_time']}, {rec0['deadline_s']} s)")
+    if (int(selected.sum()), int(on_time.sum())) != (rec0["selected"], rec0["on_time"]):
+        raise AssertionError("9a: the runner's plan is not the pacing module's")
+    state = core.init_state(seed=zlib.crc32(task_id.encode()) & 0x7FFFFFFF, device=dev)
+    state, _ = core.round_step(state, ds, participate=torch.from_numpy(on_time).to(dev),
+                               num_steps=torch.from_numpy(steps).to(dev))
+    same("9a round 0 vs direct round_step with the on-time mask",
+         runner_0.states["data_0"].params, state.params)
+    del runner_0, core, ds, state
+
+    # Hold 2: a straggler spike in round 1 misses the quorum; skip_round.
+    before = global_log().count(DEADLINE_MISS, task_id)
+    _, hist_s = run_task("9a spike", name, dev, 3, shrink=shrink, chaos={"seed": 0, "specs": [
+        {"point": "runner.straggler_spike", "rounds": [1], "payload": {"factor": 100.0}}]})
+    misses = global_log().count(DEADLINE_MISS, task_id) - before
+    skipped = [bool(h.get("skipped")) for h in hist_s]
+    log(f"9a spike: deadline_miss events {misses}, skipped per round {skipped}")
+    if misses != 1 or skipped != [False, True, False]:
+        raise AssertionError("9a: the spiked round was not recorded and skipped")
+
+    # Hold 3: stopped after round 2, resumed by a fresh runner.
+    run_task("9a stop", name, dev, 6, edit=ckpt("9a"), shrink=shrink, stop_after=2)
+    resumed, hist_r = run_task("9a resume", name, dev, 6, edit=ckpt("9a"), shrink=shrink)
+    if _restores(resumed) != 1:
+        raise AssertionError("9a: the fresh runner did not resume from the checkpoint")
+    same("9a resume vs 9a", resumed.states["data_0"].params, runner_a.states["data_0"].params)
+    if [h.get("pacing") for h in hist_r] != [h.get("pacing") for h in hist_a]:
+        raise AssertionError("9a: the resumed run's pacing states differ")
+    del resumed, runner_a
+
+    # 9b: the defense config under the scale attack, beside a clean and an
+    # attacked undefended run.
+    name = "fedavg_mnist_mlp_defense"
+    losses = {}
+    for label, edit, chaos in (("9b clean", drop_edit("defense"), None),
+                               ("9b attacked undefended", drop_edit("defense"), ATTACK_PLAN)):
+        _, hist = run_task(label, name, dev, 6, edit=edit, chaos=chaos, shrink=shrink)
+        losses[label] = hist[-1]["evaluate"]["data_0"]["eval_loss"]
+    with _RobustTimer(dev) as timer:
+        runner_b, hist_b = run_task("9b attacked defended", name, dev, 6, chaos=ATTACK_PLAN,
+                                    shrink=shrink)
+    losses["9b attacked defended"] = hist_b[-1]["evaluate"]["data_0"]["eval_loss"]
+    log("9b final eval loss: " + "; ".join(f"{k[3:]} {v:.6f}" for k, v in losses.items()))
+    pop = runner_b.populations[0]
+    n_params = sum(p.numel() for p in runner_b.states["data_0"].params.values())
+    log(f"9b [C, P] delta buffer: {pop.dataset.num_clients} x {n_params} f32 = "
+        f"{pop.dataset.num_clients * n_params * 4} bytes")
+    calls = timer.ms()
+    per_round = len(calls) // len(hist_b)
+    for h, i in zip(hist_b, range(0, len(calls), per_round)):
+        tr = h["train"]["data_0"]
+        part = calls[i:i + per_round]
+        quarantined = sorted(int(c) for c, v in
+                             h["quarantine_state"]["data_0"]["remaining"].items() if v > 0)
+        log(f"9b round {h['round']}: clipped={tr['clipped']} flagged={tr['flagged']} "
+            f"quarantined={quarantined} robust-aggregate ms "
+            f"{sum(ms for _, ms in part):.4f} ("
+            + ", ".join(f"{nm} {ms:.4f}" for nm, ms in part) + ")")
+    trim = _engine_params(load_task(name, 1)[0])["defense"]["trim_fraction"]
+    worst = _oracle_check(timer.captured, trim)
+    log(f"9b oracle: worst error / tolerance {worst:.4f} (rtol {ORACLE_RTOL:g}, atol "
+        f"{ORACLE_ATOL_REL:g} x max|leaf|)")
+    if not worst <= 1.0:
+        raise AssertionError("9b: the card's robust statistics disagree with the oracle")
+    qa = _engine_params(load_task(name, 1)[0])["resilience"]["quarantine_after"]
+    total = set(int(c) for c in hist_b[qa - 1]["quarantine_state"]["data_0"]["total"])
+    log(f"9b: quarantined by round {qa - 1} (quarantine_after {qa}): {sorted(total)}; "
+        f"attackers {ATTACKERS}")
+    if not set(ATTACKERS) <= total:
+        raise AssertionError("9b: an attacker was not quarantined in time")
+
+    # Hold 3: a preemption after round 2 trained, recovered from round 1's
+    # checkpoint under a retry policy, against the uninterrupted run.
+    retry = {"failure_policy": "retry", "quarantine_after": qa, "readmit_after": 5}
+    before = global_log().count(ROLLBACK, runner_b.task_id)
+    runner_p, hist_p = run_task("9b preempt", name, dev, 6, shrink=shrink,
+                                edit=ckpt("9b", resilience=retry), chaos={
+                                    "seed": 0, "specs": ATTACK_PLAN["specs"] + [
+                                        {"point": "runner.pre_checkpoint", "rounds": [2],
+                                         "error": "preempt"}]})
+    rollbacks = global_log().count(ROLLBACK, runner_b.task_id) - before
+    log(f"9b preempt: {rollbacks} rollback(s), {_restores(runner_p)} restore(s)")
+    if rollbacks != 1 or _restores(runner_p) != 1:
+        raise AssertionError("9b: the preemption was not recovered through the checkpoint")
+    same("9b preempt vs 9b", runner_p.states["data_0"].params,
+         runner_b.states["data_0"].params)
+    if runner_p._quarantine.state_json() != runner_b._quarantine.state_json():
+        raise AssertionError("9b: the recovered run's quarantine state differs")
+    tmp.cleanup()
+    log(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1309,6 +1649,7 @@ def main() -> int:
     k2["launches"] = long_context_path(dev)
     headline_path(dev)
     task_path(dev)
+    robust_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -30,6 +30,20 @@ The algorithm's options live in the same round, as in the JAX engine:
   halves the bytes a step moves), stepped in it, and the delta is taken in
   f32 after casting back.
 
+The round's robustness options, as in the JAX engine (all device tensors,
+no host sync; each off path is the plain round, bitwise):
+
+- deadline rounds (``completion_time``, ``deadline``): a client whose
+  simulated completion time is past the deadline gets zero weight and is
+  counted in ``RoundMetrics.stragglers``;
+- client attacks (``attack_scale``): each client's delta is multiplied by
+  its scale before the finiteness gate (:func:`_attack_deltas`);
+- the defense (``defense``, :mod:`~olearning_sim_tpu_torch.engine.defense`):
+  per-client L2 clipping (:func:`_clip_client_deltas`), a trimmed-mean or
+  median aggregate in place of the weighted mean, and Krum-style anomaly
+  scores. A gathering defense keeps every client's gated, clipped f32 delta
+  in a ``[C, ...]`` buffer per parameter for the round.
+
 Randomness is explicit: the minibatch indices ``[C, max_local_steps,
 batch_size]`` come from :meth:`FedCore.round_generator`, a generator
 seeded from the state's ``seed`` and ``round_idx`` alone, as JAX folds the
@@ -55,6 +69,7 @@ from torch.func import functional_call, grad_and_value, vmap
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine.algorithms import Algorithm
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset
+from olearning_sim_tpu_torch.engine.defense import DefenseConfig, distance_scores, robust_aggregate
 
 Params = Dict[str, torch.Tensor]
 
@@ -201,6 +216,13 @@ class RoundMetrics:
     # Ditto: weight-averaged personal-branch loss over participants whose
     # branch stayed finite (divided by the global weight sum); 0 otherwise.
     personal_loss: torch.Tensor
+    # Participants whose simulated completion time missed the deadline (0
+    # without one): their update existed but arrived too late.
+    stragglers: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(()))
+    # Defense: per-client [C] distance-to-median scores when scoring is on,
+    # a scalar 0 otherwise; participants whose delta was clipped.
+    anomaly_score: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(()))
+    clipped: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(()))
 
 
 def _seed_of(seed: int, *stream: int) -> int:
@@ -209,6 +231,36 @@ def _seed_of(seed: int, *stream: int) -> int:
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
     return mask.reshape((-1,) + (1,) * (like.dim() - 1))
+
+
+# A disabled clip as the JAX engine passes it: a finite f32 whose square
+# overflows to inf, so ``norm2 > clip * clip`` is never true.
+CLIP_DISABLED = 3.0e38
+
+
+def _attack_deltas(deltas: Params, batk: torch.Tensor) -> Params:
+    """Byzantine update attack: the client trains honestly but ships a
+    transformed delta (sign_flip = -1, scale = factor). A benign scale of
+    exactly 1.0 is a bitwise no-op, so an all-ones attack vector gives the
+    attack-free round."""
+    return {k: d * _bcast(batk.to(d.dtype), d) for k, d in deltas.items()}
+
+
+def _clip_client_deltas(d32: Params, clip_norm: torch.Tensor):
+    """Per-client L2 norm clip over a block of f32 deltas: a delta beyond
+    the clip sphere is rescaled onto it. A where-select (not a multiply by
+    1), so an unclipped delta, and the whole round under
+    :data:`CLIP_DISABLED`, stays bitwise untouched. Returns
+    ``(clipped_d32, too_big)``."""
+    norm2 = None
+    for v in d32.values():
+        sq = v.reshape(v.shape[0], -1).square().sum(dim=1)
+        norm2 = sq if norm2 is None else norm2 + sq
+    too_big = norm2 > clip_norm * clip_norm
+    scale = torch.where(too_big, clip_norm / torch.sqrt(norm2), 1.0)
+    clipped = {k: torch.where(_bcast(too_big, d), d * _bcast(scale, d), d)
+               for k, d in d32.items()}
+    return clipped, too_big
 
 
 def _finite_client_mask(losses: torch.Tensor, deltas: Params) -> torch.Tensor:
@@ -391,6 +443,10 @@ class FedCore:
                    control: Optional[ControlState] = None,
                    indices: Optional[torch.Tensor] = None,
                    personal_indices: Optional[torch.Tensor] = None,
+                   completion_time: Optional[torch.Tensor] = None,
+                   deadline: Optional[float] = None,
+                   attack_scale: Optional[torch.Tensor] = None,
+                   defense: Optional[DefenseConfig] = None,
                    ):
         """Advance one FL round over the placed, padded population.
 
@@ -403,7 +459,18 @@ class FedCore:
         metrics, control)``; otherwise ``(state, metrics)``. ``indices`` /
         ``personal_indices`` — optional minibatch indices ``[C,
         max_local_steps, batch_size]`` of the global / Ditto branch; by
-        default they are drawn from :meth:`round_generator`'s streams."""
+        default they are drawn from :meth:`round_generator`'s streams.
+
+        ``deadline`` + ``completion_time`` [C] — deadline-masked
+        aggregation: a client whose simulated completion time exceeds the
+        deadline gets zero weight and is counted in ``metrics.stragglers``
+        (an inf deadline leaves the round bitwise unchanged).
+        ``attack_scale`` [C] — per-client delta multiplier (sign_flip = -1,
+        scale = factor, benign = 1). ``defense`` — a
+        :class:`~olearning_sim_tpu_torch.engine.defense.DefenseConfig`:
+        L2 delta clipping, trimmed-mean / median aggregation and anomaly
+        scores (``metrics.anomaly_score``, ``metrics.clipped``); one that
+        is not ``enabled`` is the plain round."""
         cfg = self.config
         alg = self.algorithm
         dev = next(iter(state.params.values())).device
@@ -443,7 +510,49 @@ class FedCore:
                 f"algorithm {alg.name!r} is not personalized but personal "
                 f"state was supplied"
             )
+        if defense is not None and not defense.enabled:
+            defense = None
+        if defense is not None and defense.gathers_deltas and alg.control_variates:
+            raise ValueError(
+                "robust aggregators / anomaly scoring are not supported "
+                "with control-variate algorithms (the SCAFFOLD server "
+                "control consumes the weighted mean); use clip_norm only"
+            )
         weight = ds.weight if participate is None else ds.weight * participate.to(dev)
+        stragglers = None
+        if deadline is not None:
+            if completion_time is None:
+                raise ValueError(
+                    "deadline given without completion_time; compute one "
+                    "with olearning_sim_tpu_torch.engine.pacing.completion_times"
+                )
+            # where(late, 0, w) selects the untouched weight for on-time
+            # clients, so a non-binding deadline (inf) changes no bit.
+            late = completion_time.to(dev, torch.float32) > torch.full(
+                (), deadline, dtype=torch.float32, device=dev)
+            stragglers = ((weight > 0) & late).sum().float()
+            weight = torch.where(late, 0.0, weight)
+        elif completion_time is not None:
+            raise ValueError("completion_time given without a deadline")
+        if attack_scale is not None:
+            attack_scale = attack_scale.to(dev)
+        gathered = None
+        if defense is not None:
+            clip = defense.clip_norm
+            if clip is None or not np.isfinite(clip):
+                clip = CLIP_DISABLED
+            # Host scalars become device tensors through a fill launch, not
+            # a copy from host memory: the stream is never synchronized.
+            clip_norm = torch.full((), clip, dtype=torch.float32, device=dev)
+            trim_fraction = torch.full((), defense.trim_fraction, dtype=torch.float32,
+                                       device=dev)
+            n_clip = torch.zeros((), dtype=torch.float32, device=dev)
+            if defense.gathers_deltas:
+                # Every client's gated, clipped f32 delta, for the robust
+                # statistics after the loop, and its effective weight.
+                gathered = {k: torch.empty((C,) + p.shape, dtype=torch.float32, device=dev)
+                            for k, p in state.params.items()}
+                gathered_w = torch.empty(C, dtype=torch.float32, device=dev)
         if num_steps is None:
             num_steps = torch.full((C,), cfg.max_local_steps, dtype=torch.int64)
         steps_eff = torch.clamp(num_steps.to(dev), max=cfg.max_local_steps)
@@ -476,13 +585,30 @@ class FedCore:
 
             final, losses = self._masked_sgd(start, bx, by, bsteps, indices[blk],
                                              prox_anchor=params, grad_transform=transform)
-            deltas = {k: final[k] - params[k] for k in params}
+            deltas = trained = {k: final[k] - params[k] for k in params}
+            if attack_scale is not None:
+                # The shipped delta; SCAFFOLD's refresh below reads the
+                # trained one, as the JAX engine's local training returns it.
+                deltas = _attack_deltas(trained, attack_scale[blk])
             ok = _finite_client_mask(losses, deltas)
             bw = weight[blk]
             bw_eff = torch.where(ok, bw, 0.0)
-            for k, d in deltas.items():
-                gated = torch.where(_bcast(ok, d), d.float(), 0.0)
-                sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
+            if defense is None:
+                for k, d in deltas.items():
+                    gated = torch.where(_bcast(ok, d), d.float(), 0.0)
+                    sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
+            else:
+                d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
+                       for k, d in deltas.items()}
+                d32, too_big = _clip_client_deltas(d32, clip_norm)
+                n_clip = n_clip + ((bw_eff > 0) & too_big).sum().float()
+                for k, d in d32.items():
+                    sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
+                if gathered is not None:
+                    for k, d in d32.items():
+                        gathered[k][blk] = d
+                    gathered_w[blk] = bw_eff
+                del d32
             sum_w = sum_w + bw_eff.sum()
             sum_loss = sum_loss + torch.where(ok, bw * losses, 0.0).sum()
             count = count + (bw_eff > 0).sum().float()
@@ -493,7 +619,7 @@ class FedCore:
                 # participants that survived the finiteness gate.
                 k_lr = torch.clamp(bsteps, min=1).float() * alg.local_lr
                 ran, active = bsteps > 0, bw_eff > 0
-                for k, d in deltas.items():
+                for k, d in trained.items():
                     dci = torch.where(_bcast(ran, d), -sc[k] - d / _bcast(k_lr, d), 0.0)
                     new_client_state[k].append(ci[k] + torch.where(_bcast(active, d), dci, 0.0))
                     sum_dc[k] += torch.tensordot(
@@ -507,9 +633,28 @@ class FedCore:
                     new_client_state[k].append(v)
 
         denom = torch.clamp(sum_w, min=1e-8)
-        # The server optimizer consumes the negative mean delta as a
-        # pseudo-gradient (FedOpt formulation).
-        pseudo_grad = {k: -(s / denom) for k, s in sum_delta.items()}
+        mean_delta = None
+        anomaly_score = None
+        if gathered is not None:
+            participants = gathered_w > 0
+            center = None
+            if defense.aggregator != "mean":
+                mean_delta = robust_aggregate(gathered, participants, defense.aggregator,
+                                              trim_fraction)
+                if defense.aggregator == "median":
+                    center = mean_delta
+            if defense.score_enabled:
+                if center is None:
+                    center = robust_aggregate(gathered, participants, "median",
+                                              trim_fraction)
+                anomaly_score = distance_scores(gathered, center, participants)
+            del gathered
+        # The server optimizer consumes the negative mean delta (or the
+        # robust aggregate) as a pseudo-gradient (FedOpt formulation).
+        if mean_delta is None:
+            pseudo_grad = {k: -(s / denom) for k, s in sum_delta.items()}
+        else:
+            pseudo_grad = {k: -d for k, d in mean_delta.items()}
         updates, opt_state = alg.server_optimizer.update(pseudo_grad, state.opt_state)
         new_params = {k: p + updates[k] for k, p in params.items()}
         metrics = RoundMetrics(
@@ -519,6 +664,12 @@ class FedCore:
             client_loss=torch.cat(client_loss),
             personal_loss=sum_ploss / denom,
         )
+        if stragglers is not None:
+            metrics.stragglers = stragglers
+        if defense is not None:
+            metrics.clipped = n_clip
+        if anomaly_score is not None:
+            metrics.anomaly_score = anomaly_score
         new_state = ServerState(params=new_params, opt_state=opt_state,
                                 round_idx=state.round_idx + 1, seed=state.seed)
         if alg.control_variates or alg.personalized:

@@ -21,7 +21,15 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
   gains rollback-and-retry / skip-round failure policies from an in-memory
   snapshot of the round's entry state or the last readable checkpoint,
   client quarantine, and the injection points ``runner.round_begin``,
-  ``runner.pre_checkpoint`` and ``runner.poison_clients``;
+  ``runner.pre_checkpoint``, ``runner.poison_clients``,
+  ``runner.attack_clients`` and ``runner.straggler_spike``;
+- with a :class:`~olearning_sim_tpu_torch.engine.pacing.DeadlineConfig`
+  each round over-selects its cohort, models every client's completion
+  time, masks late clients out of the aggregate, enforces a quorum through
+  the failure policy (``deadline_miss``) and adapts the next deadline;
+- with a :class:`~olearning_sim_tpu_torch.engine.defense.DefenseConfig`
+  the round clips and robustly aggregates the deltas, and anomaly scores
+  feed the quarantine (``client_flagged``);
 - with a :class:`~olearning_sim_tpu_torch.checkpoint.RoundCheckpointer`
   each round (every ``checkpoint_every``-th) is checkpointed and ``begin``
   resumes from the newest readable step, a cooperative stop fences the last
@@ -32,9 +40,10 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
 - with a :class:`~olearning_sim_tpu_torch.engine.convergence.ConvergenceConfig`
   the loop tracks time-to-accuracy (:meth:`convergence_record`).
 
-Host state that later rounds depend on (quarantine, convergence clocks)
-rides the per-round history records, so a rollback or a resume restores it
-with the history (``_requarantine``, ``_reconverge``).
+Host state that later rounds depend on (quarantine, the adaptive deadline
+controller, convergence clocks) rides the per-round history records, so a
+rollback or a resume restores it with the history (``_requarantine``,
+``_repace``, ``_reconverge``).
 
 The fault injector, the resilience log and the default metrics registry
 and tracer are the port's own process globals: a chaos plan armed through
@@ -45,10 +54,10 @@ is the interface between the two. A ``registry`` passed in is used
 duck-typed, so a control plane's registry receives the round series.
 
 Not in this slice, each refused by the task bridge when a task asks for it
-(``ROADMAP.md``): deadline rounds, attacks and defense (A6), scenario traces
-and streamed populations (A7), buffered async rounds (A8) and the
-multi-task dispatcher (A13). The convergence eval's timing row in a
-performance manager waits for the port of ``performancemgr/`` (A17).
+(``ROADMAP.md``): scenario traces and streamed populations (A7), buffered
+async rounds (A8) and the multi-task dispatcher (A13). The convergence
+eval's timing row in a performance manager waits for the port of
+``performancemgr/`` (A17).
 """
 
 from __future__ import annotations
@@ -57,6 +66,7 @@ import contextlib
 import dataclasses
 import inspect
 import json
+import math
 import threading
 import time
 import zlib
@@ -66,10 +76,20 @@ import numpy as np
 import torch
 
 from olearning_sim_tpu_torch.deviceflow.trace_compiler import compile_trace
+from olearning_sim_tpu_torch.engine import pacing
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset
 from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig, ConvergenceTracker
+from olearning_sim_tpu_torch.engine.defense import DefenseConfig
 from olearning_sim_tpu_torch.engine.fedcore import FedCore
+from olearning_sim_tpu_torch.engine.pacing import (
+    DeadlineConfig,
+    DeadlineController,
+    DeadlineMissError,
+    RoundPacing,
+)
 from olearning_sim_tpu_torch.resilience import (
+    CLIENT_FLAGGED,
+    DEADLINE_MISS,
     ROLLBACK,
     SKIP_ROUND,
     FailurePolicy,
@@ -174,6 +194,8 @@ class SimulationRunner:
         model_io: Optional[Any] = None,
         warm_start_path: Optional[str] = None,
         convergence: Optional[ConvergenceConfig] = None,
+        deadline: Optional[DeadlineConfig] = None,
+        defense: Optional[DefenseConfig] = None,
     ):
         """``task_repo`` — the task table (duck-typed: ``has_task``,
         ``add_task``, ``set_item_value``); a fresh in-memory one when None.
@@ -196,7 +218,15 @@ class SimulationRunner:
         ``utils_run_task.py:327-397``). ``warm_start_path`` — the round-0
         model fetched through ``model_io``'s repo (``Model.modelPath`` with
         ``useModel``). ``convergence`` — opt-in time-to-accuracy tracking,
-        its state riding the history records."""
+        its state riding the history records. ``deadline`` — opt-in
+        deadline-aware rounds: completion-time model, over-selection,
+        deadline-masked aggregation with straggler accounting, a quorum
+        routed through the failure policy as ``deadline_miss`` events, and
+        adaptive pacing whose controller state rides the history records.
+        ``defense`` — opt-in adversarial-client defense: clipping and
+        robust aggregation in the round, and the anomaly -> quarantine
+        feedback loop. None (or a config that is not ``enabled``) keeps
+        the plain round for either."""
         self.task_id = task_id
         self.core = core
         self.populations = populations
@@ -231,6 +261,8 @@ class SimulationRunner:
         self.resilience = resilience
         self._rlog = (resilience.log if resilience is not None and
                       resilience.log is not None else global_log())
+        self.defense = (defense if defense is not None and defense.enabled
+                        else None)
         self._quarantine: Optional[QuarantineManager] = None
         if resilience is not None and resilience.quarantine_after is not None:
             self._quarantine = QuarantineManager(
@@ -238,12 +270,18 @@ class SimulationRunner:
                 readmit_after=resilience.readmit_after,
                 log=self._rlog, task_id=task_id,
             )
-        if self._quarantine is None and quarantine_preseed:
-            # A preseed-only manager keeps pure blocklist semantics: an
-            # effectively infinite strike budget, so it never quarantines
-            # clients nobody asked it to watch.
+        scoring = self.defense is not None and self.defense.score_enabled
+        if self._quarantine is None and (quarantine_preseed or scoring):
+            # The anomaly feedback loop and an operator blocklist need a
+            # manager even when the resilience config did not ask for one.
+            # With scoring the defense's strike budget applies; a
+            # preseed-only manager keeps pure blocklist semantics (an
+            # effectively infinite budget), so it never quarantines clients
+            # nobody asked it to watch.
+            qa, ra = ((self.defense.quarantine_after, self.defense.readmit_after)
+                      if scoring else (1 << 30, 3))
             self._quarantine = QuarantineManager(
-                quarantine_after=1 << 30, readmit_after=3,
+                quarantine_after=qa, readmit_after=ra,
                 log=self._rlog, task_id=task_id,
             )
         if quarantine_preseed:
@@ -263,6 +301,20 @@ class SimulationRunner:
                         f"clients)"
                     )
                 self._quarantine.preseed(pop, ids, ds.num_clients)
+        # Per-round attacks from ``runner.attack_clients``: population name
+        # -> {"mode", "clients", "scale" [C] or None, "y" or None}, redrawn
+        # (seeded by round) at every round begin, so a replay reproduces
+        # the attack set; and each population's clean labels, for
+        # label_flip.
+        self._attacks: Dict[str, Dict[str, Any]] = {}
+        self._clean_y: Dict[str, torch.Tensor] = {}
+        # Deadline-aware rounds: one controller per task, shared across
+        # populations and train operators.
+        self.deadline = (deadline if deadline is not None and deadline.enabled
+                         else None)
+        self._pacer: Optional[DeadlineController] = (
+            DeadlineController(self.deadline) if self.deadline is not None else None
+        )
         # Snapshot of the executing round's entry state (rollback source),
         # plus per-completed-round quarantine snapshots (rollback must
         # restore the quarantine decisions the replayed rounds first saw).
@@ -422,6 +474,70 @@ class SimulationRunner:
         ).observe(time.perf_counter() - t0)
 
     # -------------------------------------------------------------- operators
+    def _completion_times(self, p: DataPopulation, round_idx: int,
+                          operator: OperatorSpec, trace, cfg) -> np.ndarray:
+        """[real] simulated completion times for one (population, round)
+        under ``cfg``'s completion model, with the ``runner.straggler_spike``
+        injection applied. Replays exactly under rollback and resume."""
+        real = p.dataset.num_real_clients
+        stream = zlib.crc32(f"{operator.name}\x00{p.name}".encode())
+        if p.num_steps is not None:
+            steps = np.minimum(
+                np.asarray(p.num_steps[:real], np.int32),
+                self.core.config.max_local_steps,
+            )
+        else:
+            steps = np.full(real, self.core.config.max_local_steps, np.int32)
+        completion = pacing.completion_times(
+            trace.arrival_time[:real], steps, p.class_of_client[:real],
+            p.device_classes, cfg, TRACE_SEED, round_idx, stream=stream,
+        )
+        # ``runner.straggler_spike`` injection point: a simulated fleet-wide
+        # (or targeted) slowdown that multiplies this round's completion
+        # times. Payload: ``{"factor": 5.0, "clients": [...]?}``; scope to
+        # one population with the spec's ``match`` filter (the context is
+        # the population name).
+        spec = faults.fire("runner.straggler_spike", context=p.name,
+                           round_idx=round_idx, task_id=self.task_id)
+        if spec is not None:
+            payload = spec.payload or {}
+            factor = np.float32(payload.get("factor", 10.0))
+            clients = payload.get("clients")
+            if clients is None:
+                completion = completion * factor
+            else:
+                idx = [int(c) for c in clients if int(c) < real]
+                completion[idx] = completion[idx] * factor
+        return completion
+
+    def _plan_pacing(self, p: DataPopulation, round_idx: int,
+                     operator: OperatorSpec, trace,
+                     eligible: np.ndarray) -> RoundPacing:
+        """Host-side deadline plan for one (population, round): over-select
+        the cohort, derive each client's simulated completion time (network
+        arrival + device-class compute), and close the round at the earlier
+        of (controller deadline, K-th arrival). Deterministic for a given
+        (config, trace seed, operator, population, round), so rollback
+        replays reproduce the straggler set."""
+        cfg = self.deadline
+        stream = zlib.crc32(f"{operator.name}\x00{p.name}".encode())
+        selected = pacing.select_cohort(eligible, cfg, TRACE_SEED, round_idx,
+                                        stream=stream)
+        completion = self._completion_times(p, round_idx, operator, trace, cfg)
+        completion = np.where(selected, completion, np.inf).astype(np.float32)
+        eff = pacing.effective_deadline(
+            completion, selected, cfg, self._pacer.current_deadline()
+        )
+        n_selected = int(selected.sum())
+        n_on_time = int((selected & (completion <= eff)).sum())
+        quorum_base = (cfg.target_cohort if cfg.target_cohort is not None
+                       else n_selected)
+        return RoundPacing(
+            selected=selected, completion=completion, deadline_s=float(eff),
+            n_selected=n_selected, n_on_time=n_on_time,
+            quorum_required=int(math.ceil(cfg.quorum_fraction * quorum_base)),
+        )
+
     def _run_train(self, p: DataPopulation, round_idx: int,
                    operator: OperatorSpec) -> Dict[str, Any]:
         real = p.dataset.num_real_clients
@@ -447,31 +563,77 @@ class SimulationRunner:
                 mask[:real] = mask[:real] * self._quarantine.active_mask(
                     p.name, real
                 ).astype(mask.dtype)
-            participate = torch.from_numpy(mask).to(dev)
-            num_steps = (torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
-                         if p.num_steps is not None else None)
+            kwargs: Dict[str, Any] = {}
+            pace: Optional[RoundPacing] = None
+            if self.deadline is not None:
+                pace = self._plan_pacing(p, round_idx, operator, trace, mask[:real] > 0)
+                if not pace.quorum_met:
+                    # Enforced before anything is launched (state untouched):
+                    # a starved cohort degrades through the failure policy
+                    # instead of aggregating silently.
+                    self._rlog.record(
+                        DEADLINE_MISS, point="runner.deadline",
+                        task_id=self.task_id, round_idx=round_idx,
+                        population=p.name, on_time=pace.n_on_time,
+                        required=pace.quorum_required,
+                        selected=pace.n_selected, deadline_s=pace.deadline_s,
+                    )
+                    raise DeadlineMissError(
+                        f"round {round_idx} population {p.name}: "
+                        f"{pace.n_on_time} on-time of {pace.n_selected} "
+                        f"selected is below the quorum of "
+                        f"{pace.quorum_required} "
+                        f"(deadline {pace.deadline_s:.3f}s)"
+                    )
+                # Over-selection: eligible clients left out of the cohort
+                # sit this round out, like churned-out devices.
+                mask[:real] = np.where(pace.selected, mask[:real], 0)
+                comp_full = np.full(p.dataset.num_clients, np.inf, np.float32)
+                comp_full[:real] = pace.completion
+                kwargs.update(completion_time=torch.from_numpy(comp_full).to(dev),
+                              deadline=pace.deadline_s)
+            kwargs["participate"] = torch.from_numpy(mask).to(dev)
+            kwargs["num_steps"] = (torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
+                                   if p.num_steps is not None else None)
+        if self.defense is not None:
+            kwargs["defense"] = self.defense
         t_step0 = time.perf_counter()
         with self._phase(operator.name, "train", round_idx):
             # Launches the round's kernels; the device may still be running
             # them when this phase closes.
-            state = self.states[p.name]
-            kwargs = dict(participate=participate, num_steps=num_steps)
-            if self.core.algorithm.personalized:
-                personal = self.personal_states.get(p.name)
-                if personal is None:
-                    personal = self.core.init_personal(state, p.dataset.num_clients)
-                state, metrics, personal = self.core.round_step(
-                    state, p.dataset, personal=personal, **kwargs)
-                self.personal_states[p.name] = personal
-            elif self.core.algorithm.control_variates:
-                control = self.control_states.get(p.name)
-                if control is None:
-                    control = self.core.init_control(state, p.dataset.num_clients)
-                state, metrics, control = self.core.round_step(
-                    state, p.dataset, control=control, **kwargs)
-                self.control_states[p.name] = control
-            else:
-                state, metrics = self.core.round_step(state, p.dataset, **kwargs)
+            atk = self._attacks.get(p.name)
+            if atk is not None and atk["scale"] is not None:
+                # Byzantine update attack (sign_flip / scale): a per-client
+                # delta multiplier.
+                kwargs["attack_scale"] = torch.from_numpy(atk["scale"]).to(dev)
+            clean_y = None
+            if atk is not None and atk["y"] is not None:
+                # Label flip scoped to this train launch: the finally puts
+                # the clean labels back, so same-round eval operators and
+                # later rounds see them.
+                clean_y = p.dataset.y
+                p.dataset = dataclasses.replace(p.dataset, y=atk["y"])
+            try:
+                state = self.states[p.name]
+                if self.core.algorithm.personalized:
+                    personal = self.personal_states.get(p.name)
+                    if personal is None:
+                        personal = self.core.init_personal(state, p.dataset.num_clients)
+                    state, metrics, personal = self.core.round_step(
+                        state, p.dataset, personal=personal, **kwargs)
+                    self.personal_states[p.name] = personal
+                elif self.core.algorithm.control_variates:
+                    control = self.control_states.get(p.name)
+                    if control is None:
+                        control = self.core.init_control(state, p.dataset.num_clients)
+                    state, metrics, control = self.core.round_step(
+                        state, p.dataset, control=control, **kwargs)
+                    self.control_states[p.name] = control
+                else:
+                    state, metrics = self.core.round_step(state, p.dataset, **kwargs)
+            finally:
+                if clean_y is not None:
+                    p.dataset = dataclasses.replace(p.dataset, y=clean_y)
             self.states[p.name] = state
         with self._phase(operator.name, "host_transfer", round_idx):
             # The copy to the host is the sync point: this interval covers
@@ -488,13 +650,23 @@ class SimulationRunner:
                 time.perf_counter() - t_step0
             )
         ok = np.isfinite(client_loss)
+        flagged = None
+        clipped = 0
+        if self.defense is not None:
+            clipped = int(metrics.clipped)
+            if clipped:
+                instrument("ols_engine_clipped_total", self.registry).labels(
+                    task_id=self.task_id
+                ).inc(clipped)
+            if self.defense.score_enabled:
+                flagged = self._flag_anomalies(p, round_idx, metrics, mask, ok)
         if self._quarantine is not None:
             # Strikes accrue only for clients that participated and came
-            # back non-finite; quarantined clients are then reported failed
-            # in the per-class accounting, as the reference reports dead
-            # phones.
+            # back non-finite or anomaly-flagged; quarantined clients are
+            # then reported failed in the per-class accounting, as the
+            # reference reports dead phones.
             self._quarantine.observe(
-                p.name, round_idx, mask[:real] > 0, ok[:real],
+                p.name, round_idx, mask[:real] > 0, ok[:real], flagged=flagged,
             )
             for ci in self._quarantine.quarantined(p.name):
                 if ci < len(ok):
@@ -512,9 +684,88 @@ class SimulationRunner:
             "sim_duration_s": trace.round_duration(),
             "ok_mask": ok,
         }
+        if self.defense is not None:
+            rec["clipped"] = clipped
+            rec["flagged"] = int(flagged.sum()) if flagged is not None else 0
+        if atk is not None:
+            rec["attacked"] = len(atk["clients"])
+            rec["attack_mode"] = atk["mode"]
+        if pace is not None:
+            rec.update(self._pacing_record(pace, int(metrics.stragglers)))
         if self.core.algorithm.personalized:
             rec["personal_loss"] = float(metrics.personal_loss)
         return rec
+
+    def _flag_anomalies(self, p: DataPopulation, round_idx: int, metrics,
+                        mask: np.ndarray, ok: np.ndarray) -> Optional[np.ndarray]:
+        """The anomaly feedback loop: a participant whose Krum-style score
+        exceeds ``anomaly_threshold x median(score)`` is flagged (and then
+        accrues a quarantine strike). The median normalization makes the
+        threshold model- and scale-free. Returns the [real] flags, or None
+        when no score is positive."""
+        real = p.dataset.num_real_clients
+        scores = metrics.anomaly_score.cpu().numpy()[:real]
+        # scores > 0 aligns the host mask with the round's own participants:
+        # a selected client that missed the deadline had its weight zeroed
+        # and scores exactly 0; it must not be flagged for an update that
+        # was never aggregated.
+        part = (mask[:real] > 0) & ok[:real] & (scores > 0)
+        vals = scores[part]
+        med = float(np.median(vals)) if vals.size else 0.0
+        if med <= 0:
+            return None
+        instrument("ols_engine_anomaly_ratio", self.registry).labels(
+            task_id=self.task_id
+        ).observe_many(vals / med)
+        flagged = np.zeros(real, bool)
+        flagged[part] = vals > self.defense.anomaly_threshold * med
+        ids = np.nonzero(flagged)[0]
+        if len(ids):
+            self._rlog.record(
+                CLIENT_FLAGGED, point="runner.defense",
+                task_id=self.task_id, round_idx=round_idx,
+                population=p.name,
+                clients=[int(i) for i in ids[:64]],
+                num_clients=int(len(ids)),
+                threshold=float(self.defense.anomaly_threshold),
+                median_score=med,
+            )
+        return flagged
+
+    def _pacing_record(self, pace: RoundPacing, stragglers: int) -> Dict[str, Any]:
+        """A deadline round's record fields and series. Stragglers of record
+        come from the round's own deadline mask (``metrics.stragglers``);
+        the adaptive controller observes the cohort's completion times."""
+        finite = pace.completion[np.isfinite(pace.completion)]
+        instrument("ols_engine_stragglers_total", self.registry).labels(
+            task_id=self.task_id
+        ).inc(stragglers)
+        instrument("ols_engine_completion_time_seconds", self.registry).labels(
+            task_id=self.task_id
+        ).observe_many(finite)
+        if np.isfinite(pace.deadline_s):
+            instrument("ols_engine_round_deadline_seconds", self.registry).labels(
+                task_id=self.task_id
+            ).observe(pace.deadline_s)
+        # Updated only on rounds that launched: a rolled-back round's
+        # observation is discarded with the rest of its state.
+        self._pacer.observe(finite)
+        # Tail idle of the synchronous round: every on-time update waits
+        # from its arrival until the single round-close commit.
+        on_time = pace.completion[np.isfinite(pace.completion)
+                                  & (pace.completion <= pace.deadline_s)]
+        idle = float(np.clip(pace.round_close_s() - on_time, 0.0, None).sum())
+        instrument("ols_engine_idle_seconds_total", self.registry).labels(
+            task_id=self.task_id, mode="sync"
+        ).inc(idle)
+        return {
+            "selected": pace.n_selected,
+            "on_time": pace.n_on_time,
+            "stragglers": stragglers,
+            "deadline_s": pace.deadline_s if np.isfinite(pace.deadline_s) else None,
+            "round_close_s": pace.round_close_s(),
+            "idle_s": round(idle, 6),
+        }
 
     def _feed_cost(self, round_wall_s: float) -> None:
         """Feed this round's measured wall time into the cost oracle. Round
@@ -544,15 +795,18 @@ class SimulationRunner:
         this round produced one; otherwise the global model is evaluated
         directly on the first population with held-out eval data."""
         tracker = self._convergence
-        # Simulated round duration: the longest population's dispatch-trace
-        # duration this round (the JAX runner's deadline rounds, A6, close
-        # rounds earlier).
+        # Simulated round duration: the longest population's round close
+        # (deadline rounds) or dispatch-trace duration this round.
         sim_s = 0.0
         for op in self.operators:
             if op.kind != "train":
                 continue
             for rec in (round_record.get(op.name) or {}).values():
-                sim_s = max(sim_s, float(rec.get("sim_duration_s") or 0.0))
+                dur = rec.get("round_close_s")
+                if dur is None:
+                    dur = rec.get("sim_duration_s")
+                if dur:
+                    sim_s = max(sim_s, float(dur))
         tracker.observe_round(round_idx, sim_s, wall_s)
         if not tracker.should_eval(round_idx, self.rounds):
             return
@@ -734,6 +988,7 @@ class SimulationRunner:
         elif self.core.algorithm.control_variates:
             self.control_states = client_states
         self.history = history
+        self._repace()
         self._requarantine()
         self._reconverge()
         self.logger.info(
@@ -848,9 +1103,18 @@ class SimulationRunner:
         self.personal_states = _copy_tree(snap["personal"])
         self.control_states = _copy_tree(snap["control"])
         self.history = list(snap["history"])
+        self._repace()
         self._reconverge()
         if self._quarantine is not None and snap["quarantine"] is not None:
             self._quarantine.restore(snap["quarantine"])
+
+    def _repace(self) -> None:
+        """Rehydrate the adaptive deadline controller from the history just
+        restored (rollback or checkpoint resume): the newest record carrying
+        pacing state holds the controller as of that round's completion, so
+        replayed rounds see the deadlines they first saw."""
+        if self._pacer is not None:
+            self._pacer.load_from_history(self.history)
 
     def _reconverge(self) -> None:
         """Rehydrate the convergence tracker from the history just restored
@@ -915,6 +1179,70 @@ class SimulationRunner:
             x = ds.x.clone()
             x[torch.tensor(idx, device=x.device)] = float("nan")
             p.dataset = dataclasses.replace(ds, x=x)
+
+    def _maybe_attack(self, round_idx: int) -> None:
+        """``runner.attack_clients`` injection point: seeded byzantine
+        client attacks, the finite adversarial behaviour the finiteness gate
+        cannot catch and the defense exists for.
+
+        Spec payload: ``{"mode": "sign_flip"|"scale"|"label_flip",
+        "clients": [...]?, "fraction": 0.1?, "factor": ...?}``; scope to one
+        population with the spec's ``match`` filter (the context is the
+        population name). Without a ``clients`` list, a ``fraction`` of the
+        population is drawn seeded by ``(plan seed, round, crc32(population
+        name))``, so the draw replays exactly; whether a spec fires at all
+        follows the injector's hit counting, so a plan that must replay
+        bitwise across rollbacks and resumes scopes attacks with
+        ``rounds=[...]`` or ``times=-1``. ``sign_flip`` / ``scale`` multiply
+        the client's delta in the round (by -1 / by ``factor``);
+        ``label_flip`` trains that round's train launch on labels ``c ->
+        num_classes - 1 - c`` (:meth:`_run_train` scopes the swap).
+        """
+        self._attacks = {}
+        inj = faults.active_injector()
+        for p in self.populations:
+            spec = faults.fire("runner.attack_clients", context=p.name,
+                               round_idx=round_idx, task_id=self.task_id)
+            if spec is None:
+                continue
+            payload = spec.payload or {}
+            mode = payload.get("mode", "sign_flip")
+            if mode not in ("sign_flip", "scale", "label_flip"):
+                raise ValueError(
+                    f"runner.attack_clients: unknown mode {mode!r} "
+                    f"(known: sign_flip, scale, label_flip)"
+                )
+            real = p.dataset.num_real_clients
+            clients = payload.get("clients")
+            if clients is None:
+                frac = float(payload.get("fraction", 0.1))
+                k = min(real, max(1, int(math.ceil(frac * real))))
+                rng = np.random.default_rng([
+                    int(inj.plan.seed) if inj is not None else 0,
+                    int(round_idx), zlib.crc32(p.name.encode()),
+                ])
+                clients = rng.choice(real, size=k, replace=False)
+            clients = sorted(int(c) for c in clients if 0 <= int(c) < real)
+            if not clients:
+                continue
+            atk: Dict[str, Any] = {"mode": mode, "clients": clients,
+                                   "scale": None, "y": None}
+            if mode in ("sign_flip", "scale"):
+                factor = float(payload.get(
+                    "factor", -1.0 if mode == "sign_flip" else 10.0
+                ))
+                scale = np.ones(p.dataset.num_clients, np.float32)
+                scale[clients] = np.float32(factor)
+                atk["scale"] = scale
+            else:  # label_flip: class c -> (num_classes - 1 - c)
+                if p.name not in self._clean_y:
+                    self._clean_y[p.name] = p.dataset.y.clone()
+                y = self._clean_y[p.name].clone()
+                n_cls = int(y.max()) + 1
+                idx = torch.tensor(clients, device=y.device)
+                y[idx] = n_cls - 1 - y[idx]
+                atk["y"] = y
+            self._attacks[p.name] = atk
 
     def _rollback(self, round_idx: int,
                   error: BaseException) -> Optional[int]:
@@ -1116,8 +1444,7 @@ class SimulationRunner:
                         raise ValueError(f"unknown operator kind {operator.kind!r}")
                     op_record[p.name] = r
                 if operator.kind == "train" and hasattr(timer, "note"):
-                    # The same counts the JAX runner notes (the ones other
-                    # than drops stay 0 in this slice).
+                    # The same counts the JAX runner notes.
                     timer.note(**{k: sum(rec.get(k, 0) for rec in op_record.values())
                                   for k in ("stragglers", "dropped", "clipped",
                                             "flagged", "attacked")})
@@ -1137,6 +1464,10 @@ class SimulationRunner:
             self._observe_convergence(round_idx, round_record, round_wall_s)
         if self._cost_oracle is not None and self._cost_family:
             self._feed_cost(round_wall_s)
+        if self._pacer is not None and self.deadline.adaptive:
+            # The controller after this round's observations rides the
+            # history record, and so checkpoint meta (_repace).
+            round_record["pacing"] = self._pacer.state_dict()
         if self._quarantine is not None:
             # Quarantine state after this round's observations rides the
             # history record, and so checkpoint meta (_requarantine).
@@ -1245,17 +1576,11 @@ class SimulationRunner:
             self._round_snapshot = self._capture_snapshot(round_idx)
         replaying = (round_idx <= self._force_checkpoint_until
                      or lp["retries"].get(round_idx, 0) > 0)
-        for p in self.populations:
-            # Refused outside the failure policy: a retried round would
-            # otherwise run on without the attack the plan asked for.
-            if faults.fire("runner.attack_clients", context=p.name,
-                           round_idx=round_idx, task_id=self.task_id) is not None:
-                raise ValueError("runner.attack_clients: client attacks are not "
-                                 "ported yet: ROADMAP.md A6")
         try:
             faults.inject("runner.round_begin", context=str(round_idx),
                           round_idx=round_idx, task_id=self.task_id)
             self._maybe_poison(round_idx)
+            self._maybe_attack(round_idx)
             status = self._execute_round(
                 round_idx, lp["flow_epoch"] if replaying else 0
             )

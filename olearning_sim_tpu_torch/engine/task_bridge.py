@@ -26,6 +26,11 @@ optional::
       "scheduling": {"family": "..."},        # cost-oracle family key
       "checkpoint": {"directory": "ckpt/{task_id}", "every": 1, "max_to_keep": 3},
       "convergence": {"target_accuracy": 0.9, "eval_every": 5, "round_budget": 40},
+      "deadline":  {"deadline_s": 30.0, "over_selection": 0.3, "target_cohort": 80,
+                    "quorum_fraction": 0.5, "adaptive": true,
+                    "speed_profiles": {"high": 0.05, "low": 0.4}},
+      "defense":   {"clip_norm": 5.0, "aggregator": "trimmed_mean",
+                    "trim_fraction": 0.1, "anomaly_threshold": 4.0},
       "storage":   {"root": "/models"}        # the model files' FILE repo
     }
 
@@ -64,7 +69,9 @@ from olearning_sim_tpu_torch.engine.client_data import (
     make_synthetic_text_dataset,
 )
 from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig
+from olearning_sim_tpu_torch.engine.defense import DefenseConfig
 from olearning_sim_tpu_torch.engine.fedcore import FedCoreConfig, build_fedcore
+from olearning_sim_tpu_torch.engine.pacing import DeadlineConfig
 from olearning_sim_tpu_torch.engine.runner import (
     DataPopulation,
     OperatorSpec,
@@ -80,14 +87,12 @@ BUILTIN_PREFIX = "builtin:"
 # Engine-params blocks of the JAX bridge that this slice leaves out, with
 # the ROADMAP.md item that ports each.
 LEFT_OUT = {
-    "deadline": "A6 (deadline rounds)",
-    "defense": "A6 (adversarial-client defense)",
     "scenario": "A7 (scenario traces and streaming)",
     "async": "A8 (buffered async rounds)",
 }
 KNOWN = {"model", "algorithm", "fedcore", "data", "resilience", "quarantine",
          "operator_flow", "scheduling", "storage", "parallel", "checkpoint",
-         "convergence"} | set(LEFT_OUT)
+         "convergence", "deadline", "defense"} | set(LEFT_OUT)
 
 
 def _engine_params(tc) -> Dict[str, Any]:
@@ -227,6 +232,10 @@ def build_runner_from_taskconfig(
     model_io, warm_start_path = _model_io(task_id, tc, params)
     convergence = (ConvergenceConfig.from_dict(params["convergence"])
                    if params.get("convergence") else None)
+    deadline = (DeadlineConfig.from_dict(params["deadline"])
+                if params.get("deadline") else None)
+    defense = (DefenseConfig.from_dict(params["defense"])
+               if params.get("defense") else None)
 
     model_cfg = params.get("model", {})
     algo_cfg = dict(params.get("algorithm", {}))
@@ -380,4 +389,6 @@ def build_runner_from_taskconfig(
         model_io=model_io,
         warm_start_path=warm_start_path,
         convergence=convergence,
+        deadline=deadline,
+        defense=defense,
     )

@@ -17,8 +17,10 @@ through the JAX package does not reach a port runner.
 
 from olearning_sim_tpu_torch.resilience.events import (
     CHECKPOINT_FALLBACK,
+    CLIENT_FLAGGED,
     CLIENT_QUARANTINED,
     CLIENT_READMITTED,
+    DEADLINE_MISS,
     FAULT_INJECTED,
     QUARANTINE,
     READMIT,
@@ -52,8 +54,10 @@ from olearning_sim_tpu_torch.resilience.retry import NON_RETRYABLE, RetryPolicy
 
 __all__ = [
     "CHECKPOINT_FALLBACK",
+    "CLIENT_FLAGGED",
     "CLIENT_QUARANTINED",
     "CLIENT_READMITTED",
+    "DEADLINE_MISS",
     "FAULT_INJECTED",
     "QUARANTINE",
     "READMIT",

@@ -31,9 +31,16 @@ QUARANTINE = "quarantine"
 READMIT = "readmit"
 SKIP_ROUND = "skip_round"
 CHECKPOINT_FALLBACK = "checkpoint_fallback"
-# A client crossed its strike budget (non-finite updates) — or was
-# blocklisted up-front via quarantine.preseed — and was quarantined out of
-# participation...
+# A round closed below its quorum of on-time completions (deadline-aware
+# rounds, engine/pacing.py) and was routed through the failure policy.
+DEADLINE_MISS = "deadline_miss"
+# Adversarial-client defense (engine/defense.py + the runner's anomaly
+# feedback loop): a participating client's Krum-style anomaly score crossed
+# the flag threshold this round...
+CLIENT_FLAGGED = "client_flagged"
+# ...a client crossed its strike budget (non-finite updates and/or anomaly
+# flags) — or was blocklisted up-front via quarantine.preseed — and was
+# quarantined out of participation...
 CLIENT_QUARANTINED = "client_quarantined"
 # ...or finished its quarantine term and was re-admitted on probation.
 CLIENT_READMITTED = "client_readmitted"

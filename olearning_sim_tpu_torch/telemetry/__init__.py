@@ -50,6 +50,13 @@ _PHASE_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                   2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
 _IO_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                10.0, 30.0, 60.0)
+# Simulated device time (completion/deadline): phone rounds span sub-second
+# high-tier devices to many-minute stragglers.
+_SIM_TIME_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
+                     120.0, 300.0, 600.0, 1800.0)
+# Median-normalized anomaly scores (dimensionless ratio): benign clients
+# cluster near 1; sign-flip/scale attackers land decades above.
+_ANOMALY_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
 
 # name -> (kind, help, label names[, buckets]).
 CATALOG = {
@@ -79,12 +86,52 @@ CATALOG = {
         "Virtual device-rounds advanced (clients x train rounds)",
         ("task_id",),
     ),
+    "ols_engine_stragglers_total": (
+        COUNTER,
+        "Selected clients whose simulated completion missed the round "
+        "deadline (deadline-masked aggregation; distinct from drops)",
+        ("task_id",),
+    ),
+    "ols_engine_completion_time_seconds": (
+        HISTOGRAM,
+        "Simulated per-client completion times (network arrival + "
+        "device-class compute) of each round's selected cohort",
+        ("task_id",), _SIM_TIME_BUCKETS,
+    ),
+    "ols_engine_round_deadline_seconds": (
+        HISTOGRAM,
+        "Effective round deadline (static, adaptive-controller, or K-th "
+        "arrival close) per train round",
+        ("task_id",), _SIM_TIME_BUCKETS,
+    ),
+    "ols_engine_clipped_total": (
+        COUNTER,
+        "Participating clients whose delta L2 norm exceeded the defense "
+        "clip threshold and was rescaled in-jit (adversarial-client "
+        "defense)",
+        ("task_id",),
+    ),
+    "ols_engine_anomaly_ratio": (
+        HISTOGRAM,
+        "Per-participant Krum-style anomaly scores normalized by the "
+        "round's median score (benign clients cluster near 1; the flag "
+        "threshold is defense.anomaly_threshold)",
+        ("task_id",), _ANOMALY_BUCKETS,
+    ),
     "ols_engine_quarantined_clients": (
         GAUGE,
         "Clients currently quarantined out of participation (strike "
         "budget exceeded via non-finite updates, anomaly flags, or "
         "operator preseed)",
         ("task_id",),
+    ),
+    "ols_engine_idle_seconds_total": (
+        COUNTER,
+        "Simulated seconds completed client updates spent waiting to be "
+        "committed (mode=sync: until the round-close commit; mode=async: "
+        "until their buffer filled) — the round-tail idle the async "
+        "engine drives toward ~0",
+        ("task_id", "mode"),
     ),
     "ols_engine_eval_accuracy": (
         GAUGE,

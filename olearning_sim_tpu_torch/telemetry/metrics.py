@@ -66,6 +66,9 @@ class _NullChild:
     def observe(self, value: float) -> None:
         pass
 
+    def observe_many(self, values) -> None:
+        pass
+
 
 _NULL_CHILD = _NullChild()
 
@@ -238,6 +241,25 @@ class _HistogramChild:
             if i < len(self.bounds):
                 self.counts[i] += 1
 
+    def observe_many(self, values) -> None:
+        """Bulk observation: one lock acquisition and one vectorized
+        bucketing for a whole array (the per-client completion-time path
+        observes thousands of samples per round — a Python loop of
+        ``observe`` calls there would tax the round loop)."""
+        import numpy as np
+
+        arr = np.asarray(values, float).ravel()
+        if arr.size == 0:
+            return
+        idx = np.searchsorted(self.bounds, arr, side="left")
+        binned = np.bincount(idx, minlength=len(self.bounds) + 1)
+        with self._lock:
+            self.sum += float(arr.sum())
+            self.count += int(arr.size)
+            for i, c in enumerate(binned[:len(self.bounds)]):
+                if c:
+                    self.counts[i] += int(c)
+
     def cumulative(self) -> List[int]:
         """Per-bucket cumulative counts (Prometheus ``le`` semantics),
         excluding +Inf (which is ``count``)."""
@@ -271,6 +293,10 @@ class Histogram(Metric):
     def observe(self, value: float) -> None:
         if self._enabled:
             self._default_child().observe(value)
+
+    def observe_many(self, values) -> None:
+        if self._enabled:
+            self._default_child().observe_many(values)
 
     def labels(self, *values: Any, **kv: Any) -> "_HistogramChild":
         return super().labels(*values, **kv)

@@ -494,12 +494,66 @@ def test_draws_are_a_function_of_seed_and_round():
     assert not torch.equal(draw(state), draw(dataclasses.replace(state, seed=12)))
 
 
-def test_attack_injection_is_refused():
-    task = task_json("attack")
-    plan = {"seed": 0, "specs": [{"point": "runner.attack_clients",
-                                  "payload": {"mode": "sign_flip"}}]}
-    with pytest.raises(ValueError, match="A6"):
-        _run_port(task, registry=None, chaos=plan)
+@pytest.mark.parametrize("mode", ["label_flip", "sign_flip"])
+def test_attack_is_scoped_to_its_round(mode):
+    """An attack armed for round 1 changes that round's training only: the
+    train launch of round 1 sees flipped labels (label_flip) or a delta
+    multiplier (sign_flip) for the drawn clients; rounds 0 and 2, every
+    round's eval operator and the population's dataset see clean labels;
+    and round 0 equals a clean run's."""
+    seen, evals = [], []
+
+    def run(task_id, chaos):
+        runner = build_runner_from_taskconfig(task_json(task_id, strategy=None),
+                                              device="cpu")
+        step = runner.core.round_step
+
+        def spy(state, ds, **kw):
+            seen.append((ds.y.clone(), kw.get("attack_scale")))
+            return step(state, ds, **kw)
+
+        runner.core.round_step = spy
+        run_eval = runner._run_eval
+
+        def eval_spy(p):
+            evals.append(p.dataset.y.clone())
+            return run_eval(p)
+
+        runner._run_eval = eval_spy
+        with tfaults.chaos(tfaults.FaultPlan.from_dict(chaos)):
+            return runner, runner.run()
+
+    attack = {"seed": 5, "specs": [{"point": "runner.attack_clients", "rounds": [1],
+                                    "payload": {"mode": mode, "fraction": 0.25}}]}
+    runner, history = run("scoped", attack)
+    launches, seen[:] = list(seen), []
+    _, clean = run("scoped", {"seed": 5, "specs": []})
+    clean_y = runner.populations[0].dataset.y
+    assert torch.equal(clean_y, seen[0][0])
+    assert [h["train"]["data_0"].get("attacked") for h in history] == [None, 3, None]
+    # ceil(0.25 * 12) clients drawn from (plan seed, round, population).
+    drawn = sorted(np.random.default_rng([5, 1, zlib.crc32(b"data_0")]).choice(
+        12, size=3, replace=False).tolist())
+    for r, (y, scale) in enumerate(launches):
+        attacked = r == 1
+        changed = torch.nonzero((y != clean_y).any(dim=1)).flatten().tolist()
+        if mode == "label_flip":
+            assert changed == (drawn if attacked else [])
+            assert scale is None
+        else:
+            assert changed == [] and (scale is not None) == attacked
+            if attacked:
+                assert torch.nonzero(scale == -1).flatten().tolist() == drawn
+    losses = [h["train"]["data_0"]["mean_loss"] for h in history]
+    clean_losses = [h["train"]["data_0"]["mean_loss"] for h in clean]
+    # Round 1 trained on other labels (label_flip) or shipped other deltas
+    # (sign_flip, whose local losses are the clean ones): the model round 2
+    # starts from is not the clean run's.
+    assert losses[0] == clean_losses[0] and losses[2] != clean_losses[2]
+    assert (losses[1] != clean_losses[1]) == (mode == "label_flip")
+    # The eval operator of every round, the attacked one included, ran with
+    # the population's clean labels in place.
+    assert len(evals) == 6 and all(torch.equal(y, clean_y) for y in evals)
 
 
 def test_poison_leaves_token_features_alone():

@@ -21,14 +21,13 @@ from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
-             "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence"]
+             "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence",
+             "fedavg_mnist_mlp_deadline", "fedavg_mnist_mlp_defense"]
 REFUSED = {
     "ditto_cifar100_vit": "A10",
     "fedadam_sent140_distilbert_mp2": "A10",
     "fedavg_mnist_mlp_async": "A8",
     "fedavg_mnist_mlp_bf16": "A9",
-    "fedavg_mnist_mlp_deadline": "A6",
-    "fedavg_mnist_mlp_defense": "A6",
     "fedavg_mnist_mlp_trace": "A7",
     "fedprox_femnist_resnet18": "A10",
 }
@@ -58,8 +57,13 @@ def set_engine_params(task, params):
 
 def shrink(task, clients=8, rounds=1):
     """The config cut to a CPU-sized task: clients, rounds, local work and
-    the model's widths, all by editing the loaded JSON."""
+    the model's widths, all by editing the loaded JSON. A deadline's target
+    cohort shrinks with the clients."""
     params = engine_params(task)
+    deadline = params.get("deadline") or {}
+    if deadline.get("target_cohort"):
+        total = sum(sum(td["total_simulation"]["nums"]) for td in task["target"]["data"])
+        deadline["target_cohort"] = max(1, deadline["target_cohort"] * clients // total)
     overrides, shape = SHRINK[params["model"]["name"]]
     params["model"]["overrides"].update(overrides)
     if shape:
@@ -94,6 +98,14 @@ def test_supported_config_runs_a_tiny_round(name):
         record = runner.convergence_record()
         assert record["target_accuracy"] == 0.9 and record["rounds_observed"] == 1
         assert [e["round"] for e in record["evals"]] == [0]  # the final round
+    if name == "fedavg_mnist_mlp_deadline":
+        # 8 clients, target cohort 4 with over-selection 0.25: 5 selected.
+        assert rec["selected"] == 5 and rec["on_time"] >= 2
+        assert runner.deadline.adaptive and history[0]["pacing"]["ema"] is not None
+    if name == "fedavg_mnist_mlp_defense":
+        assert rec["clients_trained"] == 6  # the preseeded clients 1 and 3 sit out
+        assert rec["clipped"] == 0 and "flagged" in rec
+        assert runner.defense.aggregator == "trimmed_mean"
 
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
@@ -105,6 +117,31 @@ def test_unsupported_config_names_its_roadmap_item(name):
 def _with_params(**blocks):
     task = shrink(load("fedavg_mnist_mlp"))
     return set_engine_params(task, dict(engine_params(task), **blocks))
+
+
+@pytest.mark.parametrize("block,bad", [
+    ("deadline", "tight"),
+    ("deadline", {"quorum_fracton": 0.5}),
+    ("deadline", {"quorum_fraction": 2.0}),
+    ("deadline", {"speed_profiles": {"high": "fast"}}),
+    ("defense", "tight"),
+    ("defense", {"aggregator": "krum"}),
+    ("defense", {"clip_nrom": 1.0}),
+    ("defense", {"trim_fraction": 0.7}),
+    ("defense", {"anomaly_threshold": -1.0}),
+])
+def test_malformed_robust_blocks_are_refused_with_jax_messages(block, bad):
+    """A malformed deadline or defense block fails at build time, before
+    any data is made, with the error the JAX package's parser raises."""
+    from olearning_sim_tpu.engine.defense import DefenseConfig as JDefense
+    from olearning_sim_tpu.engine.pacing import DeadlineConfig as JDeadline
+
+    parse = {"deadline": JDeadline, "defense": JDefense}[block].from_dict
+    with pytest.raises((TypeError, ValueError)) as want:
+        parse(bad)
+    with pytest.raises(want.type) as got:
+        build_runner_from_taskconfig(_with_params(**{block: bad}), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 @pytest.mark.parametrize("blocks,item", [
