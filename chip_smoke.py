@@ -136,6 +136,30 @@ Phases (any failure exits non-zero; no phase's exception is caught):
       round 2 trained, recovered from its checkpoint under a retry policy,
       equal to the uninterrupted run bitwise, quarantine state included.
 
+10. The remaining families (no kernel of the repo is on this path:
+    ``resnet18`` is torch convolutions, GroupNorm and ReLU; ``vit_tiny``
+    and ``moe_text`` use dense attention, as the JAX package leaves them
+    to XLA):
+    10a ``fedprox_femnist_resnet18`` through the bridge and runner, train
+       and evaluate, at published width with its block of 64 and its
+       ``exp(-t/30)`` flow_dispatch strategy live; clients cut 3,500 ->
+       128 (RESNET_CLIENTS), 2 of 100 rounds;
+    10b ``ditto_cifar100_vit`` likewise, block 32, bf16 personal params,
+       compute profiles 8/5/2 steps; clients cut 10,000 -> 256
+       (VIT_CLIENTS, the config's 3:4:3), 2 of 100 rounds; then
+       ``evaluate_personal`` and the personal state's bytes per client;
+    10c ``moe_text`` at its registry defaults (vocab 30522, width 256,
+       depth 4, 8 heads, MLP 512, 8 experts, L 64) through
+       ``build_fedcore``: FedAvg lr 0.05, aux_loss_weight 0.01, MOE_CLIENTS
+       synthetic text clients, block 16, batch 16, 2 steps, 2 rounds, then
+       ``evaluate`` (eval batch MOE_EVAL_BATCH) and the aux loss's value;
+    10d each family on 8 clients, one round, on the card and on the CPU
+       with the same indices: in f32 compute within FAMILY_F32_REL, in
+       bf16 the card's move no farther from the CPU's f32 move than
+       BF16_NOISE_RATIO times the CPU's bf16 move;
+    10e one round of 10a under ``torch.profiler``: kernel launches, device
+       busy ms, the idle share and the top 5 kernels.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -190,6 +214,26 @@ RETRY_REL = 1e-6
 # config's block of 64 runs an 80 GB card out of memory even alone
 # (scripts/task_path_memory.py measures each block size).
 DISTILBERT_BLOCK = 16
+# Phase 10's cuts: 10a's 3,500 clients to 64 "high" + 64 "low"; 10b's
+# 10,000 to 256 in the config's 3:4:3 proportion of high/mid/low; 10c's
+# synthetic text clients and its eval batch (moe_text's dispatch tensor is
+# [S, E, capacity], with capacity a share of S, the batch's tokens).
+RESNET_CLIENTS = (64, 64)
+VIT_CLIENTS = (77, 102, 77)
+MOE_CLIENTS = 64
+MOE_EVAL_BATCH = 256
+# Phase 10d, a family's round on the card against the CPU's. In f32
+# compute (TF32 off) the card's move was measured 2.3e-6 to 6.5e-4
+# (relative L2) from the CPU's, while a bf16 move lies 1.25e-2 (moe_text)
+# to 6.7e-2 (resnet18) from the f32 one: FAMILY_F32_REL sits between, so
+# a card that computed in bf16 where f32 was asked fails. A bf16 round is
+# held by how far it moves from the CPU's f32 round against the CPU's own
+# bf16 round (resnet18's bf16 gradient on one minibatch is 5-13% from its
+# f32 gradient, tests/test_torch_resnet.py): measured 0.99-1.06 times.
+# The CPU tests hold the port against JAX by the same ratio and limit
+# (sound 0.94-1.12; PERF.md section 6 lists what planted faults read).
+FAMILY_F32_REL = 5e-3
+BF16_NOISE_RATIO = 1.3
 # Phase 9's per-round record fields (deadline rounds, attacks, defense).
 ROBUST_KEYS = ("selected", "on_time", "stragglers", "deadline_s", "round_close_s", "idle_s",
                "attacked", "attack_mode", "clipped", "flagged")
@@ -702,6 +746,67 @@ def fl_rounds(label, core, ds, dev, rounds, x_eval, y_eval, num_steps=None):
     return state, aux
 
 
+def _moved_on(where, family, alg, cfg, shape, host, draws, num_steps, rounds,
+              overrides=None):
+    """``rounds`` rounds of ``family`` on ``where`` from seed 0's params on the
+    host population ``host`` with the given minibatch ``draws``: what the
+    last round moved (global params, and SCAFFOLD's c_i and c, Ditto's
+    v_k) on the CPU in f32, the last round's mean loss, and its max |c -
+    c_i|. ``draws`` is filled from the core's own draw when empty."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import build_fedcore
+
+    core = build_fedcore(family, alg, cfg, model_overrides=overrides, input_shape=shape,
+                         device=where)
+    ds = host.to(where)
+    state = core.init_state(seed=0, device=where)
+    if not draws:
+        gen = torch.Generator().manual_seed(7)
+        draws += [(core.draw_indices(gen, ds.num_samples),
+                   core.draw_indices(gen, ds.num_samples) if alg.personalized else None)
+                  for _ in range(rounds)]
+    aux = {}
+    if alg.control_variates:
+        aux["control"] = core.init_control(state, ds.num_clients)
+    if alg.personalized:
+        aux["personal"] = core.init_personal(state, ds.num_clients)
+    for idx, pidx in draws:
+        kw = {"indices": idx, "num_steps": num_steps}
+        if alg.personalized:
+            kw["personal_indices"] = pidx
+            v0 = {k: v.clone() for k, v in aux["personal"].params.items()}
+        correction = (max(float((c - ci).abs().max()) for c, ci in zip(
+            aux["control"].server_control.values(),
+            aux["control"].client_controls.values()))
+            if alg.control_variates else 0.0)
+        before = {k: v.clone() for k, v in state.params.items()}
+        out = core.round_step(state, ds, **kw, **aux)
+        state, aux = out[0], dict(zip(aux, out[2:]))
+    moved = {f"params.{k}": out[0].params[k] - before[k] for k in before}
+    if alg.control_variates:
+        moved.update({f"c_i.{k}": v for k, v in out[2].client_controls.items()})
+        moved.update({f"c.{k}": v for k, v in out[2].server_control.items()})
+    if alg.personalized:
+        moved.update({f"v_k.{k}": v.float() - v0[k].float()
+                      for k, v in out[2].params.items()})
+    return ({k: v.float().cpu() for k, v in moved.items()}, float(out[1].mean_loss),
+            correction)
+
+
+def _group_gaps(a, b):
+    """Per group of ``_moved_on``'s keys (params, c_i, c, v_k): (group,
+    ||a - b|| / ||b||, max |a - b|)."""
+    out = []
+    for group in sorted({k.split(".")[0] for k in b}):
+        keys = [k for k in b if k.split(".")[0] == group]
+        num = math.sqrt(sum(float(((a[k] - b[k]) ** 2).sum()) for k in keys))
+        den = math.sqrt(sum(float((b[k] ** 2).sum()) for k in keys))
+        max_abs = max(float((a[k] - b[k]).abs().max()) for k in keys)
+        out.append((group, num / den if den > 0 else float("inf"), max_abs))
+    return out
+
+
 def card_vs_cpu(dev, label, family, alg, cfg, shape, n_local, alpha, num_steps=None,
                 rounds=1):
     """``rounds`` rounds of 8 clients on the card and on the CPU from the
@@ -711,60 +816,23 @@ def card_vs_cpu(dev, label, family, alg, cfg, shape, n_local, alpha, num_steps=N
     second applies the correction g + c - c_i."""
     import torch
 
-    from olearning_sim_tpu_torch.engine import build_fedcore, make_synthetic_dataset
+    from olearning_sim_tpu_torch.engine import make_synthetic_dataset
 
     host = make_synthetic_dataset(0, 8, n_local, shape, 10, dirichlet_alpha=alpha)
-    gen = torch.Generator().manual_seed(7)
-    draws, results = [], []
-    for where in (dev, torch.device("cpu")):
-        core = build_fedcore(family, alg, cfg, input_shape=shape, device=where)
-        ds = host.to(where)
-        state = core.init_state(seed=0, device=where)
-        if not draws:
-            draws = [(core.draw_indices(gen, ds.num_samples),
-                      core.draw_indices(gen, ds.num_samples) if alg.personalized else None)
-                     for _ in range(rounds)]
-        aux = {}
-        if alg.control_variates:
-            aux["control"] = core.init_control(state, ds.num_clients)
-        if alg.personalized:
-            aux["personal"] = core.init_personal(state, ds.num_clients)
-        for idx, pidx in draws:
-            kw = {"indices": idx, "num_steps": num_steps}
-            if alg.personalized:
-                kw["personal_indices"] = pidx
-                v0 = {k: v.clone() for k, v in aux["personal"].params.items()}
-            correction = (max(float((c - ci).abs().max()) for c, ci in zip(
-                aux["control"].server_control.values(),
-                aux["control"].client_controls.values()))
-                if alg.control_variates else 0.0)
-            before = {k: v.clone() for k, v in state.params.items()}
-            out = core.round_step(state, ds, **kw, **aux)
-            state, aux = out[0], dict(zip(aux, out[2:]))
-        if alg.control_variates and rounds > 1 and not correction > 0:
-            raise AssertionError(f"{label}: the compared round ran with c = c_i")
-        moved = {f"params.{k}": out[0].params[k] - before[k] for k in before}
-        if alg.control_variates:
-            moved.update({f"c_i.{k}": v for k, v in out[2].client_controls.items()})
-            moved.update({f"c.{k}": v for k, v in out[2].server_control.items()})
-        if alg.personalized:
-            moved.update({f"v_k.{k}": v.float() - v0[k].float()
-                          for k, v in out[2].params.items()})
-        results.append(({k: v.float().cpu() for k, v in moved.items()},
-                        float(out[1].mean_loss), correction))
-    (card, card_loss, corr), (cpu, cpu_loss, _) = results
-    parts, ok = [], True
-    for group in sorted({k.split(".")[0] for k in cpu}):
-        keys = [k for k in cpu if k.split(".")[0] == group]
-        num = math.sqrt(sum(float(((card[k] - cpu[k]) ** 2).sum()) for k in keys))
-        den = math.sqrt(sum(float((cpu[k] ** 2).sum()) for k in keys))
-        max_abs = max(float((card[k] - cpu[k]).abs().max()) for k in keys)
-        rel = num / den if den > 0 else float("inf")
-        ok = ok and rel <= CARD_CPU_REL
-        parts.append(f"{group} rel L2 {rel:.3e} (max |diff| {max_abs:.3e})")
+    draws = []
+    (card, card_loss, corr), (cpu, cpu_loss, _) = (
+        _moved_on(where, family, alg, cfg, shape, host, draws, num_steps, rounds)
+        for where in (dev, torch.device("cpu")))
+    if alg.control_variates and rounds > 1 and not corr > 0:
+        raise AssertionError(f"{label}: the compared round ran with c = c_i")
+    gaps = _group_gaps(card, cpu)
+    ok = all(rel <= CARD_CPU_REL for _, rel, _ in gaps)
     extra = f", last round's max |c - c_i| {corr:.3e}" if alg.control_variates else ""
     log(f"card vs CPU, {label} ({rounds} round(s){extra}): mean_loss card {card_loss:.6f} "
-        f"CPU {cpu_loss:.6f}; " + "; ".join(parts) + f" (tol {CARD_CPU_REL:g}) -> {'ok' if ok else 'FAIL'}")
+        f"CPU {cpu_loss:.6f}; " + "; ".join(
+            f"{group} rel L2 {rel:.3e} (max |diff| {max_abs:.3e})"
+            for group, rel, max_abs in gaps)
+        + f" (tol {CARD_CPU_REL:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
         raise AssertionError(f"{label}: the round on the card disagrees with the CPU's")
 
@@ -885,9 +953,12 @@ def load_task(name, rounds, clients=None, edit=None, shrink=None):
     fs["round"] = rounds
     for td in task["target"]["data"]:
         if clients is not None:
-            cuts.append(f"clients {td['total_simulation']['nums']} -> [{clients}]")
-            td["total_simulation"]["nums"] = [clients]
-            td["allocation"]["logical_simulation"] = [clients]
+            ts = td["total_simulation"]
+            old, dyn = ts["nums"], ts["dynamic_nums"]
+            ts["dynamic_nums"] = [d * n // o for d, n, o in zip(dyn, clients, old)]
+            ts["nums"] = td["allocation"]["logical_simulation"] = list(clients)
+            cuts.append(f"clients {old} -> {list(clients)} (dynamic_nums {dyn} -> "
+                        f"{ts['dynamic_nums']})")
     if edit is not None:
         cuts.append(edit(task))
     if shrink is not None:
@@ -898,7 +969,8 @@ def load_task(name, rounds, clients=None, edit=None, shrink=None):
 def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shrink=None,
              stop_after=None):
     """One task JSON from ``configs/`` through the port's bridge and runner.
-    ``rounds`` / ``clients`` cut the loaded JSON; ``edit(task)`` changes it
+    ``rounds`` / ``clients`` (one count per device class, the failure
+    allowance ``dynamic_nums`` scaled with it) cut the loaded JSON; ``edit(task)`` changes it
     further and returns a description of the change; ``chaos`` is a fault
     plan armed in the port's injector for the run; ``stop_after`` sets the
     runner's stop event after that many rounds of this run (a cooperative
@@ -1181,7 +1253,7 @@ def resume_path(dev, tmp, runner_a, runner_d, shrink=None):
     # 8i: 8d at full width, stopped after round 0 and resumed: params and
     # both Adam moments against 8d's uninterrupted run.
     block = block_edit(DISTILBERT_BLOCK) if shrink is None else None
-    dist = dict(clients=64 if shrink is None else None, shrink=shrink,
+    dist = dict(clients=[64] if shrink is None else None, shrink=shrink,
                 edit=_edits(block, ckpt("8i")))
     stopped, _ = run_task("8i stop", "fedadam_sent140_distilbert", dev, 2, stop_after=1, **dist)
     del stopped
@@ -1265,7 +1337,7 @@ def task_path(dev, shrink=None):
     run_task("8b", "fedavg_cifar10_cnn", dev, 2, shrink=shrink)
     run_task("8c", "scaffold_mnist_mlp", dev, 2, shrink=shrink)
     runner_d, hist_d = run_task("8d", "fedadam_sent140_distilbert", dev, 2,
-                                clients=64 if shrink is None else None,
+                                clients=[64] if shrink is None else None,
                                 edit=block_edit(DISTILBERT_BLOCK) if shrink is None else None,
                                 shrink=shrink)
     if not any(h["train"]["data_0"]["dropped"] > 0 for h in hist_d):
@@ -1627,6 +1699,141 @@ def robust_path(dev, shrink=None):
     log(f"phase 9 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+def bf16_card_vs_cpu(dev, label, family, alg, cfg, shape, host, num_steps=None):
+    """Phase 10d: one round of 8 clients of ``family`` on the card and on
+    the CPU with the same params, data and indices. In f32 compute (the
+    model's ``dtype`` override) the two are held within FAMILY_F32_REL; in
+    bf16 compute, which the family runs, the card's move must lie no
+    farther from the CPU's f32 move than BF16_NOISE_RATIO times the CPU's
+    own bf16 move."""
+    import torch
+
+    cpu = torch.device("cpu")
+    draws = []
+    f32 = {"dtype": torch.float32}
+    runs, secs = {}, []
+    for key, where, over in (("card f32", dev, f32), ("cpu f32", cpu, f32),
+                             ("card bf16", dev, None), ("cpu bf16", cpu, None)):
+        t0 = time.perf_counter()
+        runs[key] = _moved_on(where, family, alg, cfg, shape, host, draws, num_steps, 1, over)
+        secs.append(f"{key} {time.perf_counter() - t0:.1f} s")
+    ref = runs["cpu f32"][0]
+    gaps = {key: {g: rel for g, rel, _ in _group_gaps(runs[key][0], ref)}
+            for key in ("card f32", "card bf16", "cpu bf16")}
+    ok = all(rel <= FAMILY_F32_REL for rel in gaps["card f32"].values())
+    ok = ok and all(gaps["card bf16"][g] <= BF16_NOISE_RATIO * gaps["cpu bf16"][g]
+                    for g in gaps["cpu bf16"])
+    log(f"10d card vs CPU, {label}: mean_loss " + ", ".join(
+        f"{key} {run[1]:.6f}" for key, run in runs.items()) + "; " + "; ".join(
+        f"{g}: card f32 rel L2 {gaps['card f32'][g]:.3e} (tol {FAMILY_F32_REL:g}), bf16 "
+        f"moves from the CPU's f32 move: card {gaps['card bf16'][g]:.3e}, CPU "
+        f"{gaps['cpu bf16'][g]:.3e} (card at most {BF16_NOISE_RATIO:g}x the CPU's)"
+        for g in gaps["cpu bf16"]) + f" ({', '.join(secs)}) -> {'ok' if ok else 'FAIL'}")
+    if not ok:
+        raise AssertionError(f"10d {label}: the round on the card disagrees with the CPU's")
+
+
+def families_path(dev, shrink=None):
+    """Phase 10: the remaining families, resnet18, vit_tiny and moe_text."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        ditto,
+        fedavg,
+        fedprox,
+        make_central_text_eval_set,
+        make_synthetic_dataset,
+        make_synthetic_text_dataset,
+    )
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    # 10a: the FedProx config at its published width, block 64 uncut.
+    runner_a, hist_a = run_task("10a", "fedprox_femnist_resnet18", dev, 2,
+                                clients=RESNET_CLIENTS, shrink=shrink)
+    if not any(h["train"]["data_0"]["dropped"] > 0 for h in hist_a):
+        raise AssertionError("10a: the flow_dispatch strategy dropped no client")
+
+    # 10b: the Ditto config at its published width; bf16 personal params.
+    runner_b, _ = run_task("10b", "ditto_cifar100_vit", dev, 2,
+                           clients=VIT_CLIENTS, shrink=shrink)
+    pop = runner_b.populations[0]
+    personal = runner_b.personal_states["data_0"].params
+    p_loss, p_acc = runner_b.core.evaluate_personal(runner_b.personal_states["data_0"],
+                                                    pop.dataset)
+    if not math.isfinite(p_loss):
+        raise AssertionError(f"10b: evaluate_personal loss {p_loss}")
+    per_client = sum(v[0].numel() * v.element_size() for v in personal.values())
+    dtypes = sorted({str(v.dtype) for v in personal.values()})
+    log(f"10b evaluate_personal over {pop.dataset.num_real_clients} clients: loss "
+        f"{p_loss:.6f} acc {p_acc:.4f}; personal state {dtypes} "
+        f"{per_client * pop.dataset.num_clients} bytes for {pop.dataset.num_clients} padded "
+        f"clients, {per_client} per client; the config's 10,000 clients (10,016 padded to "
+        f"its block of 32): {per_client * 10016 / 1e9:.3f} GB")
+
+    # 10c: moe_text at its registry defaults through build_fedcore.
+    cfg = FedCoreConfig(batch_size=16, max_local_steps=2, block_clients=16,
+                        eval_batch_size=MOE_EVAL_BATCH, aux_loss_weight=0.01)
+    core = build_fedcore("moe_text", fedavg(0.05), cfg, input_shape=(64,), device=dev)
+    log(f"10c moe_text: registry defaults, L 64, {MOE_CLIENTS} synthetic text clients of 64 "
+        f"rows, eval_batch_size {MOE_EVAL_BATCH} (each eval batch's [S, E, capacity] "
+        f"dispatch grows as its token count squared: 0.67 GB at 256 rows, 10.7 GB at 1024)")
+    ds = make_synthetic_text_dataset(0, MOE_CLIENTS, 64, 64, 2).pad_for(16).to(dev)
+    state, _ = fl_rounds("10c moe_text", core, ds, dev, 2,
+                         *make_central_text_eval_set(0, 2048, 64, 2))
+    with torch.no_grad():
+        _, aux = torch.func.functional_call(core.model, state.params, (ds.x[0, :16],),
+                                            {"return_aux": True})
+    if not (math.isfinite(float(aux)) and float(aux) > 0):
+        raise AssertionError(f"10c: aux loss {float(aux)}")
+    log(f"10c aux loss of client 0's first 16 rows after the rounds: {float(aux):.6f} "
+        f"(weighted by aux_loss_weight {cfg.aux_loss_weight} in every client's loss)")
+    del ds, state, core
+
+    # 10d: each family on 8 clients, card against CPU.
+    small = dict(batch_size=4, max_local_steps=2, block_clients=8)
+    log(f"10d: 8 clients, published widths, batch {small['batch_size']}, "
+        f"{small['max_local_steps']} local steps, one round")
+    bf16_card_vs_cpu(dev, "resnet18 FedProx", "resnet18", fedprox(0.03, mu=0.1),
+                     FedCoreConfig(**small), (28, 28, 1),
+                     make_synthetic_dataset(0, 8, 16, (28, 28, 1), 62, dirichlet_alpha=0.3))
+    bf16_card_vs_cpu(dev, "vit_tiny Ditto", "vit_tiny", ditto(0.03, lam=0.1),
+                     FedCoreConfig(**small, personal_dtype=torch.bfloat16), (32, 32, 3),
+                     make_synthetic_dataset(0, 8, 16, (32, 32, 3), 100, dirichlet_alpha=0.5),
+                     num_steps=torch.tensor([2, 2, 2, 1, 1, 1, 1, 0]))
+    bf16_card_vs_cpu(dev, "moe_text FedAvg + aux", "moe_text", fedavg(0.05),
+                     FedCoreConfig(**small), (64,),
+                     make_synthetic_text_dataset(0, 8, 16, 64, 2))
+
+    # 10e: one round of 10a under the profiler, after an unprofiled one
+    # for the idle share's wall time.
+    if dev.type == "cuda":
+        import importlib.util
+
+        spec = importlib.util.spec_from_file_location(
+            "profile_torch_port", ROOT / "scripts" / "profile_torch_port.py")
+        profiler = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(profiler)
+        core, pop = runner_a.core, runner_a.populations[0]
+        state = runner_a.states["data_0"]
+
+        def one_round():
+            core.round_step(state, pop.dataset)
+            torch.cuda.synchronize()
+
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        one_round()
+        steady = time.perf_counter() - t0
+        log(f"10e: {card_line()}")
+        profiler.profile("10e resnet18 round (128 clients, block 64)", one_round, None,
+                         top=5, steady_s=steady)
+    log(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1650,6 +1857,7 @@ def main() -> int:
     headline_path(dev)
     task_path(dev)
     robust_path(dev)
+    families_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -28,7 +28,11 @@ The algorithm's options live in the same round, as in the JAX engine:
   :meth:`FedCore.evaluate_personal`);
 - ``FedCoreConfig.carry_dtype``: the local-SGD carry is cast to it (bf16
   halves the bytes a step moves), stepped in it, and the delta is taken in
-  f32 after casting back.
+  f32 after casting back;
+- a model with an auxiliary loss (``sows_aux_loss``: moe_text's Switch
+  load balancing) adds ``aux_loss_weight * aux`` to every local step's
+  loss, in both branches, as the JAX engine's ``apply_aux_fn`` does;
+  ``evaluate`` scores the logits alone.
 
 The round's robustness options, as in the JAX engine (all device tensors,
 no host sync; each off path is the plain round, bitwise):
@@ -113,6 +117,9 @@ class FedCoreConfig:
     # = the global params' (f32). bf16 changes numerics: the per-round
     # delta is quantized to bf16 steps.
     carry_dtype: Optional[torch.dtype] = None
+    # Weight on a model's auxiliary loss (Switch-MoE load balancing); read
+    # only for a model that returns one (``sows_aux_loss``).
+    aux_loss_weight: float = 0.01
 
     def __post_init__(self):
         for fld in ("batch_size", "max_local_steps", "block_clients",
@@ -141,9 +148,8 @@ class FedCoreConfig:
         The JAX engine's other keys are accepted, checked as there, and
         dropped: ``step_unroll``/``block_unroll`` are ``lax.scan`` unroll
         hints (ints >= 1) with no counterpart in loops that eager PyTorch
-        runs in Python; ``aux_loss_weight`` (a float) is read only by the
-        MoE family, not ported yet (ROADMAP.md A10); ``shard_server_update``
-        is accepted when false and refused when true (ROADMAP.md A9)."""
+        runs in Python; ``shard_server_update`` is accepted when false and
+        refused when true (ROADMAP.md A9)."""
         if not isinstance(obj, dict):
             raise TypeError(
                 f"fedcore config must be a JSON object, got {type(obj).__name__}"
@@ -153,9 +159,6 @@ class FedCoreConfig:
             v = obj.pop(k, None)
             if v is not None and int(v) < 1:
                 raise ValueError(f"FedCoreConfig.{k} must be an int >= 1, got {v!r}")
-        if obj.get("aux_loss_weight") is not None:
-            float(obj["aux_loss_weight"])
-        obj.pop("aux_loss_weight", None)
         if bool(obj.pop("shard_server_update", None)):
             raise ValueError(
                 "fedcore.shard_server_update=true (the sharded server update "
@@ -173,6 +176,8 @@ class FedCoreConfig:
                 kw[k] = int(obj[k])
         if obj.get("sample_mode") is not None:
             kw["sample_mode"] = str(obj["sample_mode"])
+        if obj.get("aux_loss_weight") is not None:
+            kw["aux_loss_weight"] = float(obj["aux_loss_weight"])
         for k in ("carry_dtype", "personal_dtype"):
             if obj.get(k) is not None:
                 kw[k] = parse_float_dtype(k, obj[k])
@@ -294,6 +299,9 @@ class FedCore:
         self.model = model
         self.algorithm = algorithm
         self.config = config
+        # A model with an auxiliary loss (moe_text) says so; its forward
+        # then takes return_aux=True and returns (logits, aux).
+        self.has_aux = bool(getattr(model, "sows_aux_loss", False))
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int = 0, device="cuda",
@@ -351,15 +359,26 @@ class FedCore:
         return torch.minimum(idx, n[:, None, None] - 1)
 
     # ------------------------------------------------------- local training
-    def _persample(self, p: Params, x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
-        logits = functional_call(self.model, p, (x,))
-        return F.cross_entropy(logits.float(), y, reduction="none")
+    def _persample(self, p: Params, x: torch.Tensor, y: torch.Tensor):
+        """Per-sample cross-entropy ``[n]`` and, for a model with an
+        auxiliary loss, ``aux_loss_weight * aux`` (else None). In
+        multiplicity mode the aux term sees the client's whole local set,
+        as in the JAX engine."""
+        if not self.has_aux:
+            logits = functional_call(self.model, p, (x,))
+            return F.cross_entropy(logits.float(), y, reduction="none"), None
+        logits, aux = functional_call(self.model, p, (x,), {"return_aux": True})
+        return (F.cross_entropy(logits.float(), y, reduction="none"),
+                self.config.aux_loss_weight * aux.float())
 
     def _loss_gather(self, p, xb, yb):
-        return self._persample(p, xb, yb).mean()
+        losses, aux = self._persample(p, xb, yb)
+        return losses.mean() if aux is None else losses.mean() + aux
 
     def _loss_multiplicity(self, p, x, y, sw):
-        return (sw * self._persample(p, x, y)).sum()
+        losses, aux = self._persample(p, x, y)
+        loss = (sw * losses).sum()
+        return loss if aux is None else loss + aux
 
     def _masked_sgd(self, p: Params, x, y, steps_eff, idx,
                     prox_anchor: Optional[Params] = None,

@@ -10,10 +10,7 @@ activations are a permuted NCHW view for ``F.conv2d``.
   2x2 stride-2 VALID max-pool, then a flatten in flax's NHWC order, a bf16
   Dense with ReLU and an f32 Dense head.
 
-SAME padding is XLA's: the total pad ``max((ceil(n/s) - 1)*s + k - n, 0)``
-goes ``total // 2`` before and the rest after, so a 3x3 stride-2
-convolution of an even input pads 0 before and 1 after on each spatial
-axis (``padding=1`` in ``F.conv2d`` would pad 1 and 1, another function).
+SAME padding is XLA's (:func:`~olearning_sim_tpu_torch.models.common.same_conv`).
 Layers are ``conv.i`` and ``dense.j`` in flax's ``Conv_i`` / ``Dense_j``
 order; the registry derives the input channels (and ``CNNPool``'s flatten
 width) from the input shape, which flax infers at ``init``.
@@ -27,20 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from olearning_sim_tpu_torch.models.common import dense, default_init_params
+from olearning_sim_tpu_torch.models.common import default_init_params, dense, same_conv
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
-
-
-def _same_conv(x: torch.Tensor, conv: nn.Conv2d, stride: int) -> torch.Tensor:
-    """flax ``Conv(padding="SAME", strides=stride, dtype=bf16)`` on NCHW ``x``."""
-    k = conv.weight.shape[-1]
-    pads = []
-    for n in (x.shape[3], x.shape[2]):  # F.pad lists the last axis first
-        total = max((-(-n // stride) - 1) * stride + k - n, 0)
-        pads += [total // 2, total - total // 2]
-    x = F.pad(x.to(torch.bfloat16), pads)
-    return F.conv2d(x, conv.weight.to(torch.bfloat16), conv.bias.to(torch.bfloat16),
-                    stride=stride)
 
 
 class CNN(nn.Module):
@@ -58,7 +43,7 @@ class CNN(nn.Module):
         # x: [N, H, W, C]; returns [N, num_classes] f32 logits.
         x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         for conv in self.conv:
-            x = F.relu(_same_conv(x, conv, 2))
+            x = F.relu(same_conv(x, conv, 2))
         x = x.mean(dim=(2, 3))
         return dense(x, self.dense[0], torch.float32)
 
@@ -84,7 +69,7 @@ class CNNPool(nn.Module):
     def forward(self, x: torch.Tensor) -> torch.Tensor:
         x = x.to(torch.bfloat16).permute(0, 3, 1, 2)
         for conv in self.conv:
-            x = F.max_pool2d(F.relu(_same_conv(x, conv, 1)), 2, 2)
+            x = F.max_pool2d(F.relu(same_conv(x, conv, 1)), 2, 2)
         x = x.permute(0, 2, 3, 1).reshape(x.shape[0], -1)  # flax flattens NHWC
         x = F.relu(dense(x, self.dense[0], torch.bfloat16))
         return dense(x, self.dense[1], torch.float32)

@@ -1,5 +1,6 @@
 """Pieces shared by every model family of the port: flax's default
-initializers, and a ``Dense`` with flax's dtype semantics.
+initializers, a ``Dense`` with flax's dtype semantics, and XLA's SAME
+padding for convolutions and pools.
 
 A ``Dense`` or ``Conv`` kernel is lecun-normal (a normal truncated at +-2
 sigma, rescaled to unit variance, times 1/sqrt(fan_in)), with fan-in = the
@@ -7,6 +8,11 @@ input width of a Linear weight ``[out, in]`` and kh*kw*c_in of a Conv2d
 weight ``[c_out, c_in, kh, kw]``; biases are zero. A family with other
 parameters (embeddings, LayerNorm) initializes those itself through the
 ``special`` hook of :func:`default_init_params`.
+
+SAME padding is XLA's: the total pad ``max((ceil(n/s) - 1)*s + k - n, 0)``
+goes ``total // 2`` before and the rest after, so a 3x3 stride-2 window
+over an even input pads 0 before and 1 after on each spatial axis
+(``padding=1`` in ``F.conv2d`` would pad 1 and 1, another function).
 """
 
 from __future__ import annotations
@@ -29,10 +35,32 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
 
 
-def lecun_normal_(t: torch.Tensor, generator: torch.Generator) -> torch.Tensor:
+def same_pads(x: torch.Tensor, k: int, stride: int) -> list:
+    """``F.pad``'s list (last axis first) of XLA's SAME padding for a
+    ``k`` x ``k`` window at ``stride`` over the H and W axes of NCHW ``x``."""
+    pads = []
+    for n in (x.shape[3], x.shape[2]):
+        total = max((-(-n // stride) - 1) * stride + k - n, 0)
+        pads += [total // 2, total - total // 2]
+    return pads
+
+
+def same_conv(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1,
+              dtype: torch.dtype = torch.bfloat16) -> torch.Tensor:
+    """flax ``Conv(padding="SAME", strides=stride, dtype=dtype)`` on NCHW
+    ``x``, with or without a bias (``use_bias=False``: ``conv.bias`` is
+    None)."""
+    x = F.pad(x.to(dtype), same_pads(x, conv.weight.shape[-1], stride))
+    bias = None if conv.bias is None else conv.bias.to(dtype)
+    return F.conv2d(x, conv.weight.to(dtype), bias, stride=stride)
+
+
+def lecun_normal_(t: torch.Tensor, generator: torch.Generator,
+                  fan_in: Optional[int] = None) -> torch.Tensor:
     """Fill a Linear ``[out, in]`` or Conv ``[c_out, c_in, kh, kw]`` weight
-    in place with flax's ``lecun_normal``."""
-    fan_in = math.prod(t.shape[1:])
+    in place with flax's ``lecun_normal``; ``fan_in`` overrides the fan-in
+    for other layouts."""
+    fan_in = fan_in or math.prod(t.shape[1:])
     std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
     return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
 
@@ -54,3 +82,23 @@ def default_init_params(module: nn.Module, generator: torch.Generator,
                 lecun_normal_(t, generator)
         out[name] = t
     return out
+
+
+def flax_special(generator: torch.Generator) -> Callable[[str, torch.Tensor], bool]:
+    """A ``special`` hook for :func:`default_init_params` with flax's other
+    initializers: unit scales and zero biases of the ``norm.i`` layers
+    (GroupNorm, LayerNorm), normal(0.02) ``pos_embedding`` and
+    ``embed.weight``, a zero ``cls`` token."""
+
+    def special(name, t):
+        if name.startswith("norm.") or ".norm." in name:
+            nn.init.constant_(t, 1.0 if name.endswith("weight") else 0.0)
+        elif name in ("pos_embedding", "embed.weight"):
+            nn.init.normal_(t, std=0.02, generator=generator)
+        elif name == "cls":
+            nn.init.zeros_(t)
+        else:
+            return False
+        return True
+
+    return special

@@ -1,7 +1,8 @@
-"""Model registry: a task names a model (``"distilbert"``, ``"mlp2"``,
-``"cnn4"``) and the engine builds it from the registered defaults plus
-per-task overrides. Same contract as the JAX package's registry, with
-``torch.nn.Module`` builders.
+"""Model registry: a task names a model (``"mlp2"``, ``"cnn4"``,
+``"resnet18"``, ``"distilbert"``, ``"vit_tiny"``, ``"moe_text"``) and the
+engine builds it from the registered defaults plus per-task overrides.
+Same contract as the JAX package's registry, with ``torch.nn.Module``
+builders.
 
 flax infers input widths at ``init``; ``torch.nn`` needs them at
 construction. So :meth:`ModelSpec.build` takes the JAX package's
@@ -56,7 +57,7 @@ def get_model(name: str) -> ModelSpec:
     # Import model modules lazily so registration happens on first lookup.
     import importlib
 
-    for mod in ("transformer", "mlp", "cnn"):
+    for mod in ("mlp", "cnn", "resnet", "transformer", "vit", "moe"):
         importlib.import_module(f"olearning_sim_tpu_torch.models.{mod}")
     if name not in _REGISTRY:
         raise KeyError(f"unknown model {name!r}; known: {sorted(_REGISTRY)}")

@@ -56,9 +56,34 @@ from olearning_sim_tpu_torch.parallel.ring_attention import (
 LN_EPS = 1e-6
 
 
-def _layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
-    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight, ln.bias, LN_EPS)
+def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.Tensor:
+    """flax ``LayerNorm(dtype=dtype)``: statistics, scale and bias in f32
+    (whatever the parameters' dtype), the result cast to ``dtype``."""
+    y = F.layer_norm(x.float(), ln.normalized_shape, ln.weight.float(), ln.bias.float(),
+                     LN_EPS)
     return y.to(dtype)
+
+
+def dense_attention(attn: nn.Module, x: torch.Tensor, pad_mask, heads: int,
+                    dtype: torch.dtype) -> torch.Tensor:
+    """flax's ``MultiHeadDotProductAttention`` self-attention on ``x [B, L,
+    W]`` with ``attn``'s ``query``/``key``/``value``/``out`` Linears: the
+    query scaled by 1/sqrt(D), the softmax in ``dtype``; ``pad_mask [B, L]``
+    (True = real token) masks both ends of a score to ``finfo(dtype).min``,
+    and ``None`` masks nothing."""
+    B, L, W = x.shape
+    D = W // heads
+    q = _dense(x, attn.query, dtype).view(B, L, heads, D)
+    k = _dense(x, attn.key, dtype).view(B, L, heads, D)
+    v = _dense(x, attn.value, dtype).view(B, L, heads, D)
+    q = q / torch.tensor(math.sqrt(D), dtype=dtype)
+    s = torch.einsum("bqhd,bkhd->bhqk", q, k)
+    if pad_mask is not None:
+        mask = pad_mask[:, None, :, None] & pad_mask[:, None, None, :]
+        s = torch.where(mask, s, torch.finfo(dtype).min)
+    w = torch.softmax(s, dim=-1).to(dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, W)
+    return _dense(o, attn.out, dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -86,21 +111,6 @@ class TransformerBlock(nn.Module):
         self.mlp_out = nn.Linear(mlp_dim, width)
         self.ln_2 = nn.LayerNorm(width)
 
-    def _dense_attention(self, x, pad_mask):
-        B, L, W = x.shape
-        H, dt = self.heads, self.dtype
-        D = W // H
-        q = _dense(x, self.query, dt).view(B, L, H, D)
-        k = _dense(x, self.key, dt).view(B, L, H, D)
-        v = _dense(x, self.value, dt).view(B, L, H, D)
-        q = q / torch.tensor(math.sqrt(D), dtype=dt)
-        s = torch.einsum("bqhd,bkhd->bhqk", q, k)
-        mask = pad_mask[:, None, :, None] & pad_mask[:, None, None, :]
-        s = torch.where(mask, s, torch.finfo(dt).min)
-        w = torch.softmax(s, dim=-1).to(dt)
-        o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, W)
-        return _dense(o, self.out, dt)
-
     def _flash_attention(self, x, pad_mask):
         B, L, W = x.shape
         H = self.heads
@@ -118,12 +128,12 @@ class TransformerBlock(nn.Module):
             y = ring_self_attention(self, x, pad_mask, sp_group, self.heads, self.dtype,
                                     self.ring_use_flash)
         else:
-            y = self._dense_attention(x, pad_mask)
-        x = _layer_norm(x + y, self.ln_1, self.dtype)  # post-LN, BERT-style
+            y = dense_attention(self, x, pad_mask, self.heads, self.dtype)
+        x = layer_norm(x + y, self.ln_1, self.dtype)  # post-LN, BERT-style
         y = _dense(x, self.mlp_in, self.dtype)
         y = F.gelu(y, approximate="tanh")
         y = _dense(y, self.mlp_out, self.dtype)
-        return _layer_norm(x + y, self.ln_2, self.dtype)
+        return layer_norm(x + y, self.ln_2, self.dtype)
 
 
 class TextTransformer(nn.Module):
@@ -159,7 +169,7 @@ class TextTransformer(nn.Module):
                 f"positions {offset}..{offset + L - 1} exceed max_len {self.max_len}")
         emb = F.embedding(tokens, self.embed.weight)
         x = (emb + self.pos_embedding[:, offset:offset + L]).to(self.dtype)
-        x = _layer_norm(x, self.ln_emb, self.dtype)
+        x = layer_norm(x, self.ln_emb, self.dtype)
         for block in self.blocks:
             x = block(x, pad_mask, sp_group)
         # Mean-pool over real tokens (of the global sequence under ring).

@@ -17,6 +17,11 @@ Runs the configurations of ``chip_smoke.py``'s paths and prints:
   32, 10 local steps: steady round time over ``--headline-rounds`` rounds
   after a warm-up round, rounds/sec, device-rounds/sec (real clients x
   rounds/sec) and peak memory;
+- ``ditto_cifar100_vit`` (``chip_smoke.py`` 10b) from its config through
+  the port's bridge, cut as 10b cuts it (``chip_smoke.VIT_CLIENTS``):
+  steady time and profile of the round's first block of clients (a whole
+  round's profiler events take minutes to collect). ``chip_smoke.py`` 10e
+  profiles a whole round of 10a (resnet18);
 
 each on the host clock around work that ends in ``torch.cuda.synchronize()``,
 and, for one profiled round, flash and dense ``evaluate``, long-context
@@ -78,7 +83,8 @@ def kernel_kind(name: str) -> str:
 def profile(label, fn, out_dir, top=12, steady_s=None):
     """Profile one call of ``fn``; ``steady_s``, the unprofiled median wall
     time of the same call, adds the idle share against it (the profiler
-    itself lengthens the wall time of a launch-bound call)."""
+    itself lengthens the wall time of a launch-bound call). A gzipped
+    Chrome trace goes to ``out_dir``, unless it is None."""
     import torch
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile as tprofile
@@ -90,8 +96,10 @@ def profile(label, fn, out_dir, top=12, steady_s=None):
         torch.cuda.synchronize()
         wall_us = (time.perf_counter() - t0) * 1e6
     kernels = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
-    trace = out_dir / f"{label}.json.gz"
-    prof.export_chrome_trace(str(trace))
+    trace = None
+    if out_dir is not None:
+        trace = out_dir / f"{label}.json.gz"
+        prof.export_chrome_trace(str(trace))
     if not kernels:
         print(f"{label}: wall {wall_us / 1e3:.3f} ms; device time not measured "
               f"(the profiler recorded no CUDA events)")
@@ -107,8 +115,8 @@ def profile(label, fn, out_dir, top=12, steady_s=None):
               f" (against the unprofiled median {steady_s * 1e3:.3f} ms: "
               f"{max(0.0, 1 - busy / (steady_s * 1e6)):.4f})")
     print(f"{label}: wall {wall_us / 1e3:.3f} ms, device busy {busy / 1e3:.3f} ms, "
-          f"idle share {1 - busy / wall_us:.4f}{steady}, {len(kernels)} kernel launches; "
-          f"trace {trace}")
+          f"idle share {1 - busy / wall_us:.4f}{steady}, {len(kernels)} kernel launches"
+          + ("" if trace is None else f"; trace {trace}"))
     total = sum(t for _, t in by_name.values())
     print("  by kind: " + ", ".join(
         f"{kind} {t / 1e3:.3f} ms ({t / total:.2%}, {calls} launches)"
@@ -160,14 +168,6 @@ def main() -> int:
         print("profile_torch_port: needs a CUDA device", file=sys.stderr)
         return 1
     sys.path.insert(0, str(REPO))
-    from olearning_sim_tpu_torch.engine import (
-        FedCoreConfig,
-        build_fedcore,
-        fedadam,
-        make_central_text_eval_set,
-        make_synthetic_text_dataset,
-    )
-
     out_dir = pathlib.Path(args.out)
     out_dir.mkdir(parents=True, exist_ok=True)
     smi = subprocess.run(
@@ -176,6 +176,25 @@ def main() -> int:
     print(f"card: {smi} | torch {torch.__version__}")
 
     dev = torch.device("cuda", 0)
+    fl_path(dev, out_dir, args.rounds)
+    long_context(dev, out_dir)
+    headline(dev, out_dir, args.headline_rounds)
+    vit_block(dev, out_dir, args.headline_rounds)
+    return 0
+
+
+def fl_path(dev, out_dir, rounds):
+    """The full-width DistilBERT FedAdam round, flash and dense evaluate."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        fedadam,
+        make_central_text_eval_set,
+        make_synthetic_text_dataset,
+    )
+
     cfg = FedCoreConfig(batch_size=16, max_local_steps=4, block_clients=8)
     ds = make_synthetic_text_dataset(0, 16, 24, 64, dirichlet_alpha=0.8)
     ds = ds.pad_for(cfg.block_clients).to(dev)
@@ -189,14 +208,14 @@ def main() -> int:
 
     one_round()  # warm-up: allocator, cuBLAS handles, lazy module setup
     times = []
-    for _ in range(args.rounds):
+    for _ in range(rounds):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         one_round()
         torch.cuda.synchronize()
         times.append(time.perf_counter() - t0)
     med = statistics.median(times)
-    print(f"round: {args.rounds} steady rounds, median {med:.4f} s "
+    print(f"round: {rounds} steady rounds, median {med:.4f} s "
           f"({1 / med:.4f} rounds/sec), min {min(times):.4f} s, max {max(times):.4f} s; "
           f"peak device memory {torch.cuda.max_memory_allocated() / 2**30:.2f} GiB")
     profile("round_step", one_round, out_dir)
@@ -208,9 +227,6 @@ def main() -> int:
     profile("flash_evaluate", lambda: flash.evaluate(fparams, x_eval, y_eval), out_dir)
     dense_params = holder["state"].params
     profile("dense_evaluate", lambda: core.evaluate(dense_params, x_eval, y_eval), out_dir)
-    long_context(dev, out_dir)
-    headline(dev, out_dir, args.headline_rounds)
-    return 0
 
 
 def headline(dev, out_dir, rounds):
@@ -250,6 +266,47 @@ def headline(dev, out_dir, rounds):
         if family == "cnn4":
             conv_calls(f"headline {label}", one_round)
         del ds, core, holder
+
+
+def vit_block(dev, out_dir, rounds):
+    """chip_smoke.py's 10b population (``ditto_cifar100_vit`` through the
+    bridge, clients cut to chip_smoke.VIT_CLIENTS): the steady time of one
+    Ditto round over its first block of clients, and that block's profile.
+    A round runs ``num_clients // block_clients`` such blocks."""
+    import dataclasses
+
+    import torch
+
+    import chip_smoke
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    task, cuts = chip_smoke.load_task("ditto_cifar100_vit", 1, chip_smoke.VIT_CLIENTS)
+    runner = build_runner_from_taskconfig(task, device=dev)
+    core, pop = runner.core, runner.populations[0]
+    ds, block = pop.dataset, core.config.block_clients
+    blk = slice(0, block)
+    part = dataclasses.replace(
+        ds, x=ds.x[blk], y=ds.y[blk], num_samples=ds.num_samples[blk],
+        client_uid=ds.client_uid[blk], weight=ds.weight[blk],
+        num_real_clients=min(block, ds.num_real_clients))
+    steps = torch.as_tensor(pop.num_steps[blk])
+    runner.begin()  # the task's initial params
+    state = runner.states[pop.name]
+    personal = core.init_personal(state, block)
+
+    def one_block():
+        out = core.round_step(state, part, num_steps=steps, personal=personal)
+        return float(out[1].mean_loss)
+
+    torch.cuda.reset_peak_memory_stats(dev)
+    med, lo, hi = _steady(one_block, rounds)
+    print(f"10b vit_tiny Ditto ({'; '.join(cuts)}): one block of {block} clients "
+          f"(steps {sorted(set(steps.tolist()))}), {rounds} steady reps, median {med:.4f} s, "
+          f"min {lo:.4f} s, max {hi:.4f} s; {ds.num_clients // block} blocks a round; peak "
+          f"device memory {torch.cuda.max_memory_allocated(dev) / 2**30:.3f} GiB")
+    profile("vit_tiny_ditto_block", one_block, out_dir, steady_s=med)
 
 
 def _steady(fn, reps):

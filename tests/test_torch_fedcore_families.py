@@ -478,3 +478,102 @@ def test_dtype_knobs_refused(bad):
         jfc.FedCoreConfig.from_dict(bad)
     with pytest.raises(ValueError):
         tfc.FedCoreConfig.from_dict(bad)
+
+
+# ------------------------------------- rounds of the larger families
+# tests/test_torch_{resnet,vit,moe}.py hold resnet18, vit_tiny and moe_text
+# against the JAX engine through family_rounds, at small widths.
+def family_rounds(family, overrides, shape, jalgo, talgo, *, dtype, rounds, text=False,
+                  num_classes=10, controls=(), **cfg):
+    """``rounds`` rounds of one family on both engines in the compute
+    ``dtype`` ("f32" or "bf16", the flax modules' ``dtype`` override), from
+    JAX's init params, on the same 7-client population padded to 8
+    (client 2 runs no step, client 4 sits out) and the same minibatch draws.
+    ``controls``: (name, port algorithm, config overrides, model overrides),
+    each stepped through every round from the port's params on the same
+    draws. Returns one record per round: JAX's and the port's params before
+    and after, their metrics, the controls' params and, for Ditto, both
+    personal states after the round (JAX's as a numpy tree); the run's
+    last ``jper``/``tper`` come back beside them."""
+    jdt, tdt = {"f32": (jnp.float32, torch.float32), "bf16": (jnp.bfloat16, torch.bfloat16)}[dtype]
+    jcfg = {k: (jnp.dtype(str(v).split(".")[-1]) if isinstance(v, torch.dtype) else v)
+            for k, v in cfg.items()}
+    plan = _plan()
+    jcore = jfc.build_fedcore(family, jalgo, plan, jfc.FedCoreConfig(
+        batch_size=BATCH, max_local_steps=STEPS, block_clients=BLOCK, **jcfg),
+        model_overrides=dict(overrides, dtype=jdt), input_shape=shape)
+
+    def tcore(alg, cfg_over=None, model_over=None):
+        return tfc.build_fedcore(family, alg, tfc.FedCoreConfig(
+            batch_size=BATCH, max_local_steps=STEPS, block_clients=BLOCK,
+            **dict(cfg, **(cfg_over or {}))),
+            model_overrides=dict(overrides, dtype=tdt, **(model_over or {})),
+            input_shape=shape, device="cpu")
+
+    core = tcore(talgo)
+    ccores = [(name, tcore(alg, c_over, m_over)) for name, alg, c_over, m_over in controls]
+    jstate = jcore.init_state(jax.random.key(3))
+    tstate = core.init_state(device="cpu", params=params_from_jax(
+        jax.tree.map(np.asarray, jstate.params)))
+    pops = []
+    for mod in (jcd, tcd):
+        if text:
+            pops.append(mod.make_synthetic_text_dataset(
+                1, 7, N_LOCAL, shape[0], num_classes, vocab_size=overrides["vocab_size"],
+                dirichlet_alpha=0.5, num_samples_range=(4, 10)))
+        else:
+            pops.append(mod.make_synthetic_dataset(1, 7, N_LOCAL, shape, num_classes,
+                                                   dirichlet_alpha=0.5,
+                                                   num_samples_range=(4, 10)))
+    jds, tds = pops[0].pad_for(plan, BLOCK).place(plan), pops[1].pad_for(BLOCK).to("cpu")
+    steps = np.array([3, 2, 0, 3, 1, 3, 3, 3], np.int32)
+    part = np.array([1, 1, 1, 1, 0, 1, 1, 1], np.float32)
+    kw_j = dict(num_steps=_put(plan, steps), participate=_put(plan, part))
+    jper = tper = None
+    if talgo.personalized:
+        jper = jcore.init_personal(jstate, jds.num_clients)
+        tper = core.init_personal(tstate, tds.num_clients)
+    key_data = np.asarray(jax.random.key_data(jstate.base_key))
+    records = []
+    for r in range(rounds):
+        uids, ns = tds.client_uid.numpy(), tds.num_samples.numpy()
+        kw_t = dict(num_steps=torch.from_numpy(steps), participate=torch.from_numpy(part),
+                    indices=_jax_indices(key_data, uids, ns, r))
+        rec = {"j_old": _snapshot(jstate.params), "t_old": _clone(tstate.params)}
+        if talgo.personalized:
+            kw_t["personal_indices"] = _jax_indices(key_data, uids, ns, r, salt=SALT)
+            p_old = tfc.PersonalState(_clone(tper.params))
+            jstate, jm, jper = jcore.round_step(jstate, jds, personal=jper, **kw_j)
+            tstate, tm, tper = core.round_step(tstate, tds, personal=tper, **kw_t)
+            # JAX's round donates its personal state: keep a host copy.
+            rec.update(j_personal=jax.tree.map(np.array, jper.params), t_personal=tper)
+        else:
+            jstate, jm = jcore.round_step(jstate, jds, **kw_j)
+            tstate, tm = core.round_step(tstate, tds, **kw_t)
+        rec.update(j_new=_snapshot(jstate.params), t_new=_clone(tstate.params), jm=jm, tm=tm,
+                   controls={})
+        for name, cc in ccores:
+            extra = {"personal": tfc.PersonalState(_clone(p_old.params))} \
+                if talgo.personalized else {}
+            out = cc.round_step(cc.init_state(device="cpu", params=rec["t_old"]), tds,
+                                **kw_t, **extra)
+            rec["controls"][name] = (out[0].params, out[2] if extra else None)
+        records.append(rec)
+    return dict(records=records, jcore=jcore, tcore=core, jds=jds, tds=tds, jper=jper,
+                tper=tper)
+
+
+def real_client_loss_gap(tm, jm, real=7):
+    """Largest |port - JAX| client loss over the real clients (NaN where
+    both ran no step)."""
+    t, j = tm.client_loss.numpy()[:real], np.asarray(jm.client_loss)[:real]
+    np.testing.assert_array_equal(np.isnan(t), np.isnan(j))
+    ok = ~np.isnan(j)
+    return float(np.abs(t[ok] - j[ok]).max())
+
+
+def tree_rel_gap(a, b):
+    """||a - b|| / ||b|| over every leaf of two port param dicts."""
+    num = sum(float((a[k].float() - b[k].float()).pow(2).sum()) for k in b)
+    den = sum(float(b[k].float().pow(2).sum()) for k in b)
+    return (num / den) ** 0.5

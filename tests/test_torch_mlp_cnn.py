@@ -120,5 +120,7 @@ def test_registry_input_shapes():
     assert get_model("cnn4").build(input_shape=(8, 8, 1)).conv[0].in_channels == 1
     pool = get_model("cnn4_pool").build(input_shape=(16, 16, 3))
     assert pool.dense[0].in_features == 4 * 4 * 64
+    assert get_model("resnet18").build(input_shape=(32, 32, 3)).conv[0].in_channels == 3
+    assert get_model("vit_tiny").build(input_shape=(28, 28, 1)).pos_embedding.shape[1] == 50
     with pytest.raises(KeyError):
-        get_model("resnet18")
+        get_model("resnet50")

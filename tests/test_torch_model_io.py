@@ -34,6 +34,12 @@ FAMILIES = {
     "distilbert_flash": ({"depth": 1, "width": 16, "heads": 2, "mlp_dim": 32,
                           "vocab_size": 97, "max_len": 8, "attention_impl": "flash"},
                          (8,), jnp.int32),
+    "resnet18": ({"stage_features": (8, 8, 16, 16), "blocks_per_stage": (1, 1, 1, 1),
+                  "groups": 4}, (28, 28, 1), jnp.float32),
+    "vit_tiny": ({"width": 16, "depth": 2, "heads": 2, "mlp_dim": 32}, (32, 32, 3),
+                 jnp.float32),
+    "moe_text": ({"vocab_size": 97, "max_len": 8, "width": 16, "depth": 2, "heads": 2,
+                  "mlp_dim": 32, "num_experts": 4}, (8,), jnp.int32),
 }
 
 
@@ -41,7 +47,7 @@ def _flax_params(family):
     from olearning_sim_tpu.models import get_model
 
     overrides, shape, dtype = FAMILIES[family]
-    model = get_model(family.split("_")[0]).build(**overrides)
+    model = get_model(family.removesuffix("_flash")).build(**overrides)
     return jax.device_get(model.init(jax.random.key(0), jnp.zeros((1,) + shape, dtype))["params"])
 
 

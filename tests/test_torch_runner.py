@@ -270,11 +270,17 @@ def task_json(task_id, rounds=3, resilience=None, strategy=STRATEGY, evaluate=Tr
     }
 
 
-def _jax_indices(key_data, uids, num_samples, round_idx, steps, batch):
+# JAX salts the key of Ditto's personal branch with this constant.
+PERSONAL_SALT = 0x0D1770
+
+
+def _jax_indices(key_data, uids, num_samples, round_idx, steps, batch, salt=None):
     base_key = jax.random.wrap_key_data(key_data)
 
     def one(uid, n):
         key = jax.random.fold_in(jax.random.fold_in(base_key, uid), jnp.int32(round_idx))
+        if salt is not None:
+            key = jax.random.fold_in(key, salt)
         return jax.vmap(lambda i: jax.random.randint(
             jax.random.fold_in(key, i), (batch,), 0, jnp.maximum(n, 1)))(jnp.arange(steps))
 
@@ -312,9 +318,11 @@ def _run_port(task, registry, init=None, chaos=None):
         step = core.round_step
 
         def round_step_with_jax_draws(state, ds, **kw):
-            kw["indices"] = _jax_indices(key_data, ds.client_uid, ds.num_samples,
-                                         state.round_idx, core.config.max_local_steps,
-                                         core.config.batch_size)
+            args = (key_data, ds.client_uid, ds.num_samples, state.round_idx,
+                    core.config.max_local_steps, core.config.batch_size)
+            kw["indices"] = _jax_indices(*args)
+            if core.algorithm.personalized:
+                kw["personal_indices"] = _jax_indices(*args, salt=PERSONAL_SALT)
             return step(state, ds, **kw)
 
         core.round_step = round_step_with_jax_draws
