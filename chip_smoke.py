@@ -160,6 +160,25 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     10e one round of 10a under ``torch.profiler``: kernel launches, device
        busy ms, the idle share and the top 5 kernels.
 
+11. Scenario traces and block-streamed rounds (no kernel of the repo is on
+    this path either: mlp2 as in phase 7, the staging is copies), through
+    the bridge and runner at ``fedavg_mnist_mlp_trace``'s published width
+    (mlp2 784-200-10, block 32, its scenario live: diurnal phase per device
+    class, the spike at rounds 8-10, churn, joins, label drift):
+    11a its 100 clients streamed in one block of ``stream_block_rows``
+       2048, 3 of 50 rounds: per round the scenario's counts, clients
+       trained, the ``stream`` record, the phase times and the step's peak
+       device memory; held bitwise against the same task run resident (the
+       JSON without ``stream_block_rows``);
+    11b clients 100 -> STREAM_CLIENTS (two stream blocks), 2 rounds
+       streamed and 2 resident, held bitwise; the stream records'
+       transfer bytes, waits and overlap, both runs' peak memory; then one
+       streamed round with the staging thread and one without, in turns
+       (held bitwise against each other);
+    11c 11a with a checkpoint every round, a host preemption at round 2's
+       start ending the run, and a fresh runner over the same directory:
+       bitwise equal to 11a.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -967,7 +986,7 @@ def load_task(name, rounds, clients=None, edit=None, shrink=None):
 
 
 def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shrink=None,
-             stop_after=None):
+             stop_after=None, peaks=None):
     """One task JSON from ``configs/`` through the port's bridge and runner.
     ``rounds`` / ``clients`` (one count per device class, the failure
     allowance ``dynamic_nums`` scaled with it) cut the loaded JSON; ``edit(task)`` changes it
@@ -976,8 +995,9 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
     runner's stop event after that many rounds of this run (a cooperative
     stop, which fences a checkpoint); ``shrink(task)`` is for rehearsals on
     the CPU only. A runner that resumes (a checkpoint or model files) runs
-    the rounds left. Prints the sub-phase's numbers and returns (runner,
-    history)."""
+    the rounds left. ``peaks``, a list, receives each step's peak device
+    memory (None on the CPU). Prints the sub-phase's numbers and returns
+    (runner, history)."""
     import statistics
     import threading
     from contextlib import nullcontext
@@ -1018,10 +1038,14 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
             if stop_after is not None and len(times) == stop_after:
                 stop.set()
             _sync(dev)
+            if peaks is not None and dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
             t0 = time.perf_counter()
             more = runner.step()
             _sync(dev)
             times.append(time.perf_counter() - t0)
+            if peaks is not None:
+                peaks.append(torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None)
         if stop_after is not None:
             times.pop()  # the step that saw the stop ran no round
         t0 = time.perf_counter()
@@ -1405,6 +1429,16 @@ def task_path(dev, shrink=None):
     with tempfile.TemporaryDirectory(prefix="chip_smoke_") as tmp:
         resume_path(dev, tmp, runner_a, runner_d, shrink=shrink)
     log(f"phase 8 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def drop_edit_key(block, key):
+    """An ``edit`` that removes one key of an engine-params block."""
+    def edit(task):
+        params = _engine_params(task)
+        params[block].pop(key, None)
+        _set_engine_params(task, params)
+        return f"without {block}.{key}"
+    return edit
 
 
 def drop_edit(*blocks):
@@ -1834,6 +1868,116 @@ def families_path(dev, shrink=None):
     log(f"phase 10 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# Phase 11b's population, one count per device class of the trace config:
+# two stream blocks of its stream_block_rows (2048), the least that
+# exercises the double buffering.
+STREAM_CLIENTS = (2048, 2048)
+
+
+def _stream_lines(label, hist, peaks):
+    """Per round: the scenario's counts, clients trained, the stream record
+    and the step's peak device memory."""
+    for h, peak in zip(hist, peaks):
+        tr = h["train"]["data_0"]
+        mem = "not measured (cpu)" if peak is None else f"{peak / 2**30:.4f} GiB"
+        log(f"{label} round {h['round']}: scenario {json.dumps(tr['scenario'])} "
+            f"clients_trained={tr['clients_trained']} stream "
+            f"{json.dumps(tr.get('stream'))} peak device memory {mem}")
+
+
+def stream_path(dev, shrink=None):
+    """Phase 11: scenario traces and block-streamed rounds through the
+    port's task bridge and runner (no kernel of the repo is on this path:
+    mlp2 is torch matrix products and elementwise ops, the staging is
+    copies)."""
+    import os
+    import tempfile
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.resilience import HostPreemption, faults
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_11_")
+    name = "fedavg_mnist_mlp_trace"
+    resident = drop_edit_key("scenario", "stream_block_rows")
+    gib = lambda v: "not measured (cpu)" if v is None else f"{v / 2**30:.4f} GiB"
+
+    def same(label, a, b):
+        diff = max(float((a[k] - b[k]).abs().max()) for k in b)
+        log(f"{label}: params max abs diff {diff:g} (tol 0)")
+        if diff != 0 or not all(bool((a[k] == b[k]).all()) for k in b):
+            raise AssertionError(f"{label}: not bitwise equal")
+
+    # 11a: the trace config at its published width and population, 3 of 50
+    # rounds, streamed; then resident (the same JSON without
+    # stream_block_rows: the scenario's masks and drift stay live).
+    peaks_s, peaks_r = [], []
+    runner_s, hist_s = run_task("11a streamed", name, dev, 3, shrink=shrink, peaks=peaks_s)
+    _stream_lines("11a streamed", hist_s, peaks_s)
+    runner_r, hist_r = run_task("11a resident", name, dev, 3, shrink=shrink, edit=resident,
+                                peaks=peaks_r)
+    _stream_lines("11a resident", hist_r, peaks_r)
+    for hs, hr in zip(hist_s, hist_r):
+        a, b = hs["train"]["data_0"], hr["train"]["data_0"]
+        if (a["scenario"], a["clients_trained"], a["mean_loss"]) != \
+                (b["scenario"], b["clients_trained"], b["mean_loss"]):
+            raise AssertionError(f"11a round {hs['round']}: streamed {a} vs resident {b}")
+    same("11a streamed vs resident", runner_s.states["data_0"].params,
+         runner_r.states["data_0"].params)
+    del runner_r
+
+    # 11b: two stream blocks (clients cut up to STREAM_CLIENTS), streamed
+    # and resident, 2 rounds each.
+    peaks_b, peaks_c = [], []
+    runner_b, hist_b = run_task("11b streamed", name, dev, 2, clients=STREAM_CLIENTS,
+                                shrink=shrink, peaks=peaks_b)
+    _stream_lines("11b streamed", hist_b, peaks_b)
+    runner_c, _ = run_task("11b resident", name, dev, 2, clients=STREAM_CLIENTS,
+                           shrink=shrink, edit=resident, peaks=peaks_c)
+    same("11b streamed vs resident", runner_b.states["data_0"].params,
+         runner_c.states["data_0"].params)
+    del runner_c
+    for h in hist_b:
+        if h["train"]["data_0"]["stream"]["blocks"] < 2:
+            raise AssertionError(f"11b round {h['round']}: fewer than 2 stream blocks")
+    log(f"11b peak device memory per round: streamed {[gib(v) for v in peaks_b]}, resident "
+        f"{[gib(v) for v in peaks_c]}; 11a streamed {[gib(v) for v in peaks_s]}, resident "
+        f"{[gib(v) for v in peaks_r]}")
+    del runner_b
+
+    # 11c: 11a with a checkpoint every round, preempted at the start of
+    # round 2 (under fail_task, so that the preemption ends the process's
+    # run instead of being skipped), then a fresh runner with the config's
+    # own resilience block over the same directory.
+    ckpt = params_edit(checkpoint={"directory": os.path.join(tmp.name, "{task_id}"),
+                                   "every": 1})
+    resilience = _engine_params(load_task(name, 1)[0])["resilience"]
+    task, cuts = load_task(name, 3, shrink=shrink, edit=_edits(ckpt, params_edit(
+        resilience=dict(resilience, failure_policy="fail_task"))))
+    log(f"11c {name}: " + "; ".join(cuts) + "; a host preemption at round 2's start")
+    first = build_runner_from_taskconfig(task, device=dev)
+    plan = {"seed": 0, "specs": [{"point": "runner.round_begin", "rounds": [2],
+                                  "error": "preempt"}]}
+    preempted = False
+    with faults.chaos(faults.FaultPlan.from_dict(plan)):
+        first.begin()
+        try:
+            while first.step():
+                pass
+        except HostPreemption:
+            preempted = True
+    first.checkpointer.wait()
+    if not preempted or len(first.history) != 2:
+        raise AssertionError(f"11c: preempted {preempted} after {len(first.history)} rounds")
+    del first
+    resumed, _ = run_task("11c resume", name, dev, 3, edit=ckpt, shrink=shrink)
+    if _restores(resumed) != 1:
+        raise AssertionError("11c: the fresh runner did not resume from the checkpoint")
+    same("11c resume vs 11a", resumed.states["data_0"].params, runner_s.states["data_0"].params)
+    tmp.cleanup()
+    log(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -1858,6 +2002,7 @@ def main() -> int:
     task_path(dev)
     robust_path(dev)
     families_path(dev)
+    stream_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

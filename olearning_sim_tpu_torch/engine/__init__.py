@@ -16,6 +16,7 @@ from olearning_sim_tpu_torch.engine.algorithms import (
 )
 from olearning_sim_tpu_torch.engine.client_data import (
     ClientDataset,
+    HostClientStore,
     make_central_eval_set,
     make_central_text_eval_set,
     make_synthetic_dataset,
@@ -30,13 +31,22 @@ from olearning_sim_tpu_torch.engine.fedcore import (
     PersonalState,
     RoundMetrics,
     ServerState,
+    StreamStats,
     build_fedcore,
     parse_float_dtype,
+)
+from olearning_sim_tpu_torch.engine.scenario import (
+    ScenarioConfig,
+    ScenarioModel,
+    ScenarioTrace,
+    SpikeSpec,
 )
 
 __all__ = [
     "Adagrad", "Adam", "Algorithm", "ClientDataset", "ControlState", "FedCore",
-    "FedCoreConfig", "PersonalState", "RoundMetrics", "SGD", "ServerState", "Yogi",
+    "FedCoreConfig", "HostClientStore", "PersonalState", "RoundMetrics", "SGD",
+    "ScenarioConfig", "ScenarioModel", "ScenarioTrace", "ServerState", "SpikeSpec",
+    "StreamStats", "Yogi",
     "build_fedcore", "ditto", "fedadagrad", "fedadam", "fedavg", "fedavgm", "fedprox",
     "fedyogi", "from_config", "make_central_eval_set", "make_central_text_eval_set",
     "make_synthetic_dataset", "make_synthetic_text_dataset",

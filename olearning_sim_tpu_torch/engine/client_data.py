@@ -4,7 +4,9 @@ The whole simulated population's data is one set of arrays ``[C, n_local,
 ...]``, padded to a rectangle, so one round advances every client.
 Heterogeneous data sizes ride as ``num_samples`` (valid prefix length):
 minibatch indices are drawn below it and aggregation weights are
-proportional to it, so padding never trains.
+proportional to it, so padding never trains. A streamed population stays
+on the host in a :class:`HostClientStore`, which serves row ranges to
+``FedCore.stream_round`` block by block.
 
 The generators are numpy, copied from the JAX package's
 ``engine/client_data.py`` so that one seed gives the same arrays in both:
@@ -124,6 +126,243 @@ class ClientDataset:
             num_real_clients=self.num_real_clients,
             population_size=self.population_size,
         )
+
+
+class HostClientStore:
+    """Host-resident chunked client population for block-streamed rounds.
+
+    The resident :class:`ClientDataset` path places the whole population
+    on the device, so the population is bounded by device memory. A store
+    instead keeps clients on the host and serves arbitrary row ranges on
+    demand, so the streamed round (``FedCore.stream_round``) can walk a
+    million-client population in device-sized blocks with O(block) device
+    memory. A copy of the JAX package's store: the same seed gives the
+    same rows in both packages.
+
+    Rows are addressed globally in ``[0, padded_clients)``; rows at or
+    beyond ``num_real_clients`` are inert padding (weight 0,
+    ``num_samples`` 1 — the exact convention ``ClientDataset.pad_for``
+    uses, so padding never contributes to training). Two constructions:
+
+    - :meth:`from_dataset` wraps a materialized host dataset (zero-copy
+      row views). This is the task-runner path, and the one the
+      bitwise streamed-vs-resident parity tests pin.
+    - :meth:`synthetic` is a lazy row-range-addressable generator:
+      fixed-size chunks are drawn on demand from ``(seed, chunk_idx)``,
+      so host memory is O(chunk) no matter the logical population — the
+      million-client bench path.
+
+    Persistent per-client state (quarantine strikes, pacing EMAs,
+    personalization state at task scale) lives in named ``[C, ...]``
+    numpy arrays (:meth:`ensure_state` / :meth:`state_rows`) that survive
+    across rounds on the host and stream in/out with the data blocks.
+    """
+
+    def __init__(self, *, num_real_clients: int, n_local: int,
+                 row_fn, padded_clients: Optional[int] = None,
+                 population_size: Optional[int] = None):
+        """``row_fn(start, stop) -> dict`` with host arrays ``x``, ``y``,
+        ``num_samples``, ``client_uid``, ``weight`` for REAL rows
+        ``[start, stop)`` (callers never request padding rows from it —
+        the store synthesizes those). Use the classmethod constructors
+        unless you are bringing your own storage backend."""
+        self.num_real_clients = int(num_real_clients)
+        self.n_local = int(n_local)
+        self._row_fn = row_fn
+        self.padded_clients = int(padded_clients
+                                  if padded_clients is not None
+                                  else num_real_clients)
+        if self.padded_clients < self.num_real_clients:
+            raise ValueError(
+                f"padded_clients {self.padded_clients} < real clients "
+                f"{self.num_real_clients}"
+            )
+        self.population_size = population_size
+        self._state: dict = {}
+
+    @property
+    def population(self) -> int:
+        return (self.num_real_clients if self.population_size is None
+                else self.population_size)
+
+    def pad_to(self, padded_clients: int) -> None:
+        """Grow the padded population (streamed execution pads to a
+        multiple of the stream block). Never shrinks below real rows."""
+        padded_clients = int(padded_clients)
+        if padded_clients < self.num_real_clients:
+            raise ValueError(
+                f"cannot pad to {padded_clients} < real clients "
+                f"{self.num_real_clients}"
+            )
+        if padded_clients < self.padded_clients:
+            return
+        self.padded_clients = padded_clients
+        for name, arr in self._state.items():
+            if arr.shape[0] < padded_clients:
+                widths = [(0, padded_clients - arr.shape[0])]
+                widths += [(0, 0)] * (arr.ndim - 1)
+                self._state[name] = np.pad(arr, widths)
+
+    @classmethod
+    def from_dataset(cls, ds: ClientDataset) -> "HostClientStore":
+        """Wrap a HOST (unplaced) dataset; row reads are views."""
+        arrays = {
+            "x": np.asarray(ds.x), "y": np.asarray(ds.y),
+            "num_samples": np.asarray(ds.num_samples, np.int32),
+            "client_uid": np.asarray(ds.client_uid, np.int32),
+            "weight": np.asarray(ds.weight, np.float32),
+        }
+
+        def row_fn(start, stop):
+            return {k: v[start:stop] for k, v in arrays.items()}
+
+        return cls(
+            num_real_clients=ds.num_clients, n_local=ds.n_local,
+            row_fn=row_fn, padded_clients=ds.num_clients,
+            # The dataset may itself carry inert pad rows + a parent
+            # population; preserve the true N for SCAFFOLD-style math.
+            population_size=(ds.population
+                             if ds.population != ds.num_clients else None),
+        )
+
+    @classmethod
+    def synthetic(cls, seed: int, num_clients: int, n_local: int,
+                  input_shape: Tuple[int, ...], num_classes: int,
+                  dirichlet_alpha: Optional[float] = None,
+                  class_sep: float = 2.0, chunk_rows: int = 8192,
+                  cache_chunks: int = 2,
+                  dtype: np.dtype = np.float32) -> "HostClientStore":
+        """Lazy Gaussian-blob population: chunk ``i`` is drawn from
+        ``default_rng([seed, 0x57E4A, i])`` on demand (deterministic and
+        row-range addressable; a ``cache_chunks``-deep LRU bounds host
+        memory at O(cache_chunks x chunk)). The streamed executor reads
+        dp interleaved segments per block, so align ``chunk_rows`` to the
+        per-device segment size (stream_rows / dp) — then every chunk is
+        generated exactly once per round regardless of dp; a misaligned
+        chunk is regenerated once per overlapping segment instead (the
+        port streams at dp 1: one segment per block). Same
+        class-mean table as :func:`make_synthetic_dataset`
+        (seed-derived), so central eval sets from
+        :func:`make_central_eval_set` stay on-distribution."""
+        import collections
+
+        feat_dim = int(np.prod(input_shape))
+        means = _class_means(seed, num_classes, feat_dim,
+                             class_sep).astype(np.float32)
+        cache: "collections.OrderedDict" = collections.OrderedDict()
+        keep = max(1, int(cache_chunks))
+
+        def make_chunk(ci: int):
+            if ci in cache:
+                cache.move_to_end(ci)
+                return cache[ci]
+            start = ci * chunk_rows
+            rows = min(chunk_rows, num_clients - start)
+            rng = np.random.default_rng([seed, 0x57E4A, ci])
+            y = _draw_client_labels(rng, rows, n_local, num_classes,
+                                    dirichlet_alpha)
+            x = rng.standard_normal((rows, n_local, feat_dim),
+                                    dtype=np.float32)
+            x += means[y]
+            x = x.astype(dtype, copy=False).reshape(
+                (rows, n_local) + tuple(input_shape)
+            )
+            chunk = {
+                "x": x, "y": y,
+                "num_samples": np.full(rows, n_local, np.int32),
+                "client_uid": np.arange(start, start + rows, dtype=np.int32),
+                "weight": np.full(rows, float(n_local), np.float32),
+            }
+            while len(cache) >= keep:
+                cache.popitem(last=False)
+            cache[ci] = chunk
+            return chunk
+
+        def row_fn(start, stop):
+            pieces = []
+            pos = start
+            while pos < stop:
+                ci = pos // chunk_rows
+                chunk = make_chunk(ci)
+                lo = pos - ci * chunk_rows
+                hi = min(stop - ci * chunk_rows, chunk["x"].shape[0])
+                pieces.append({k: v[lo:hi] for k, v in chunk.items()})
+                pos = ci * chunk_rows + hi
+            if len(pieces) == 1:
+                return pieces[0]
+            return {k: np.concatenate([p[k] for p in pieces])
+                    for k in pieces[0]}
+
+        return cls(num_real_clients=num_clients, n_local=n_local,
+                   row_fn=row_fn, padded_clients=num_clients)
+
+    # ------------------------------------------------------------- reads
+    def rows(self, start: int, stop: int) -> dict:
+        """Host arrays for global rows ``[start, stop)``; padding rows are
+        synthesized inert (weight 0, ``num_samples`` 1)."""
+        if not 0 <= start <= stop <= self.padded_clients:
+            raise IndexError(
+                f"rows [{start}, {stop}) outside [0, {self.padded_clients})"
+            )
+        real_stop = min(stop, self.num_real_clients)
+        if start < real_stop:
+            out = {k: np.asarray(v)
+                   for k, v in self._row_fn(start, real_stop).items()}
+        else:
+            out = None
+        n_pad = stop - max(start, real_stop)
+        if n_pad:
+            if out is None:
+                probe = self._row_fn(0, 1) if self.num_real_clients else None
+                x_tail = (probe["x"].shape[1:] if probe is not None
+                          else (self.n_local,))
+                x_dtype = probe["x"].dtype if probe is not None else np.float32
+                y_dtype = probe["y"].dtype if probe is not None else np.int32
+                out = {
+                    "x": np.zeros((0,) + x_tail, x_dtype),
+                    "y": np.zeros((0,) + x_tail[:1], y_dtype),
+                    "num_samples": np.zeros(0, np.int32),
+                    "client_uid": np.zeros(0, np.int32),
+                    "weight": np.zeros(0, np.float32),
+                }
+            pad = {
+                "x": np.zeros((n_pad,) + out["x"].shape[1:], out["x"].dtype),
+                "y": np.zeros((n_pad,) + out["y"].shape[1:], out["y"].dtype),
+                # num_samples 1, weight 0: the pad_for convention — no
+                # mod-by-zero, no contribution.
+                "num_samples": np.ones(n_pad, np.int32),
+                "client_uid": np.arange(max(start, real_stop), stop,
+                                        dtype=np.int32),
+                "weight": np.zeros(n_pad, np.float32),
+            }
+            out = {k: np.concatenate([out[k], pad[k]]) for k in out}
+        return out
+
+    # ------------------------------------------------- per-client state
+    def ensure_state(self, name: str, shape_tail: Tuple[int, ...] = (),
+                     dtype=np.float32, fill=0) -> np.ndarray:
+        """Allocate (once) a persistent ``[padded_clients, *shape_tail]``
+        per-client state array; returns the live array."""
+        if name not in self._state:
+            arr = np.full((self.padded_clients,) + tuple(shape_tail), fill,
+                          dtype=dtype)
+            self._state[name] = arr
+        return self._state[name]
+
+    def state_rows(self, name: str, start: int, stop: int) -> np.ndarray:
+        return self._state[name][start:stop]
+
+    def set_state_rows(self, name: str, start: int, stop: int,
+                       values) -> None:
+        self._state[name][start:stop] = values
+
+    def state_names(self):
+        return sorted(self._state)
+
+    def state_bytes(self) -> int:
+        """Resident host bytes of all persistent per-client state
+        (published to ``ols_engine_client_state_bytes``)."""
+        return int(sum(a.nbytes for a in self._state.values()))
 
 
 def make_synthetic_text_dataset(

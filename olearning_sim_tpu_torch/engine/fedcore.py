@@ -48,6 +48,13 @@ no host sync; each off path is the plain round, bitwise):
   scores. A gathering defense keeps every client's gated, clipped f32 delta
   in a ``[C, ...]`` buffer per parameter for the round.
 
+A population too large for the device streams: :meth:`FedCore.stream_round`
+walks a host-resident ``HostClientStore`` in stream blocks, staged double
+buffered (``engine/staging.py``), through the same block body
+(:meth:`FedCore._train_block`) and round close (:meth:`FedCore._finish_round`)
+as :meth:`FedCore.round_step`, so the two agree bit for bit at the same
+padded size.
+
 Randomness is explicit: the minibatch indices ``[C, max_local_steps,
 batch_size]`` come from :meth:`FedCore.round_generator`, a generator
 seeded from the state's ``seed`` and ``round_idx`` alone, as JAX folds the
@@ -63,6 +70,7 @@ both engines the same indices instead.
 from __future__ import annotations
 
 import dataclasses
+import time
 from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
@@ -72,8 +80,9 @@ from torch.func import functional_call, grad_and_value, vmap
 
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine.algorithms import Algorithm
-from olearning_sim_tpu_torch.engine.client_data import ClientDataset
+from olearning_sim_tpu_torch.engine.client_data import ClientDataset, pad_to_multiple
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig, distance_scores, robust_aggregate
+from olearning_sim_tpu_torch.engine.staging import BlockStager
 
 Params = Dict[str, torch.Tensor]
 
@@ -230,8 +239,45 @@ class RoundMetrics:
     clipped: torch.Tensor = dataclasses.field(default_factory=lambda: torch.zeros(()))
 
 
+@dataclasses.dataclass
+class StreamStats:
+    """Host-side accounting of one block-streamed round
+    (:meth:`FedCore.stream_round`)."""
+
+    blocks: int                  # stream blocks executed
+    block_rows: int              # clients per stream block
+    rows: int                    # padded population walked
+    # Host->device bytes staged: every staged tensor in the port's dtypes
+    # (int64 labels and steps, the minibatch indices too).
+    transfer_bytes: int
+    # Wall seconds the round's host thread waited for staged blocks.
+    host_transfer_s: float
+    # Estimated fraction of the steady-state staging hidden behind the
+    # previous block's launches: 1 - (waits after the first block / the
+    # same bytes at the first (unoverlapped) block's rate). None for a
+    # single-block round.
+    overlap_fraction: Optional[float]
+    # Params + server optimizer state + the partial aggregates + two
+    # staged blocks: the O(block) device-memory claim as a number.
+    peak_hbm_bytes_est: int
+    state_bytes: int             # host-resident per-client state bytes
+    # Wall seconds gathering, casting and issuing copies, on whichever thread.
+    staging_s: float = 0.0
+
+
 def _seed_of(seed: int, *stream: int) -> int:
     return int(np.random.SeedSequence([seed, *stream]).generate_state(1, np.uint64)[0])
+
+
+def _tree_nbytes(tree) -> int:
+    """Bytes of every tensor in a nest of dicts, lists and tuples."""
+    if isinstance(tree, torch.Tensor):
+        return tree.numel() * tree.element_size()
+    if isinstance(tree, dict):
+        return sum(_tree_nbytes(v) for v in tree.values())
+    if isinstance(tree, (list, tuple)):
+        return sum(_tree_nbytes(v) for v in tree)
+    return 0
 
 
 def _bcast(mask: torch.Tensor, like: torch.Tensor) -> torch.Tensor:
@@ -277,6 +323,35 @@ def _finite_client_mask(losses: torch.Tensor, deltas: Params) -> torch.Tensor:
     for d in deltas.values():
         ok = ok & torch.isfinite(d.reshape(d.shape[0], -1)).all(dim=1)
     return ok
+
+
+def _defense_scalars(defense: DefenseConfig, dev):
+    """The defense's clip norm and trim fraction as f32 device scalars (a
+    disabled clip as :data:`CLIP_DISABLED`). Host scalars become device
+    tensors through a fill launch, not a copy from host memory: the stream
+    is never synchronized."""
+    clip = defense.clip_norm
+    if clip is None or not np.isfinite(clip):
+        clip = CLIP_DISABLED
+    return (torch.full((), clip, dtype=torch.float32, device=dev),
+            torch.full((), defense.trim_fraction, dtype=torch.float32, device=dev))
+
+
+@dataclasses.dataclass
+class _RoundSums:
+    """A round's running aggregates, carried from block to block."""
+
+    sum_delta: Params
+    sum_w: torch.Tensor
+    sum_loss: torch.Tensor
+    count: torch.Tensor
+    sum_ploss: torch.Tensor
+    sum_dc: Optional[Params]          # SCAFFOLD's weighted control refresh
+    n_clip: Optional[torch.Tensor]    # with a defense: clipped participants
+    new_client_state: Dict[str, list]  # per block: new c_i or Ditto's v_k
+    client_loss: list = dataclasses.field(default_factory=list)
+    gathered: Optional[Params] = None  # a gathering defense's [C, ...] deltas
+    gathered_w: Optional[torch.Tensor] = None
 
 
 class FedCore:
@@ -555,23 +630,9 @@ class FedCore:
             raise ValueError("completion_time given without a deadline")
         if attack_scale is not None:
             attack_scale = attack_scale.to(dev)
-        gathered = None
+        clip_norm = trim_fraction = None
         if defense is not None:
-            clip = defense.clip_norm
-            if clip is None or not np.isfinite(clip):
-                clip = CLIP_DISABLED
-            # Host scalars become device tensors through a fill launch, not
-            # a copy from host memory: the stream is never synchronized.
-            clip_norm = torch.full((), clip, dtype=torch.float32, device=dev)
-            trim_fraction = torch.full((), defense.trim_fraction, dtype=torch.float32,
-                                       device=dev)
-            n_clip = torch.zeros((), dtype=torch.float32, device=dev)
-            if defense.gathers_deltas:
-                # Every client's gated, clipped f32 delta, for the robust
-                # statistics after the loop, and its effective weight.
-                gathered = {k: torch.empty((C,) + p.shape, dtype=torch.float32, device=dev)
-                            for k, p in state.params.items()}
-                gathered_w = torch.empty(C, dtype=torch.float32, device=dev)
+            clip_norm, trim_fraction = _defense_scalars(defense, dev)
         if num_steps is None:
             num_steps = torch.full((C,), cfg.max_local_steps, dtype=torch.int64)
         steps_eff = torch.clamp(num_steps.to(dev), max=cfg.max_local_steps)
@@ -579,83 +640,128 @@ class FedCore:
         if alg.personalized:
             personal_indices = self._indices(personal_indices, state, 1, ds, dev)
 
-        params = state.params
-        sum_delta = {k: torch.zeros_like(p) for k, p in params.items()}
-        sum_w = torch.zeros((), dtype=torch.float32, device=dev)
-        sum_loss = torch.zeros_like(sum_w)
-        count = torch.zeros_like(sum_w)
-        sum_ploss = torch.zeros_like(sum_w)
-        sum_dc = ({k: torch.zeros_like(p) for k, p in params.items()}
-                  if alg.control_variates else None)
-        client_loss = []
-        new_client_state = {k: [] for k in params}
+        sums = self._round_sums(state.params, C, clipping=defense is not None,
+                                gathering=defense is not None and defense.gathers_deltas)
         for s in range(0, C, cfg.block_clients):
             blk = slice(s, s + cfg.block_clients)
-            bx, by, bsteps = ds.x[blk], ds.y[blk], steps_eff[blk]
-            start = {k: v.unsqueeze(0).expand((cfg.block_clients,) + v.shape)
-                     for k, v in params.items()}
-            transform = None
-            if alg.control_variates:
-                sc = control.server_control
-                ci = {k: v[blk] for k, v in control.client_controls.items()}
+            self._train_block(
+                sums, state.params, blk, ds.x[blk], ds.y[blk], steps_eff[blk],
+                indices[blk], weight[blk],
+                None if attack_scale is None else attack_scale[blk],
+                clip_norm=clip_norm, control=control, personal=personal,
+                personal_idx=personal_indices[blk] if alg.personalized else None,
+            )
+        return self._finish_round(state, sums, defense, trim_fraction, stragglers,
+                                  control, ds.population)
 
-                def transform(k, g, _p):
-                    return g + sc[k] - ci[k]
+    def _round_sums(self, params: Params, C: int, clipping: bool,
+                    gathering: bool) -> "_RoundSums":
+        """Zero running aggregates of a round over ``C`` (padded) clients;
+        with ``gathering``, the ``[C, ...]`` f32 delta buffer of a
+        gathering defense."""
+        alg = self.algorithm
+        dev = next(iter(params.values())).device
+        zero = torch.zeros((), dtype=torch.float32, device=dev)
+        sums = _RoundSums(
+            sum_delta={k: torch.zeros_like(p) for k, p in params.items()},
+            sum_w=zero, sum_loss=zero.clone(), count=zero.clone(),
+            sum_ploss=zero.clone(),
+            sum_dc=({k: torch.zeros_like(p) for k, p in params.items()}
+                    if alg.control_variates else None),
+            n_clip=zero.clone() if clipping else None,
+            new_client_state={k: [] for k in params},
+        )
+        if gathering:
+            # Every client's gated, clipped f32 delta, for the robust
+            # statistics after the loop, and its effective weight.
+            sums.gathered = {k: torch.empty((C,) + p.shape, dtype=torch.float32, device=dev)
+                             for k, p in params.items()}
+            sums.gathered_w = torch.empty(C, dtype=torch.float32, device=dev)
+        return sums
 
-            final, losses = self._masked_sgd(start, bx, by, bsteps, indices[blk],
-                                             prox_anchor=params, grad_transform=transform)
-            deltas = trained = {k: final[k] - params[k] for k in params}
-            if attack_scale is not None:
-                # The shipped delta; SCAFFOLD's refresh below reads the
-                # trained one, as the JAX engine's local training returns it.
-                deltas = _attack_deltas(trained, attack_scale[blk])
-            ok = _finite_client_mask(losses, deltas)
-            bw = weight[blk]
-            bw_eff = torch.where(ok, bw, 0.0)
-            if defense is None:
-                for k, d in deltas.items():
-                    gated = torch.where(_bcast(ok, d), d.float(), 0.0)
-                    sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
-            else:
-                d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
-                       for k, d in deltas.items()}
-                d32, too_big = _clip_client_deltas(d32, clip_norm)
-                n_clip = n_clip + ((bw_eff > 0) & too_big).sum().float()
+    def _train_block(self, sums: "_RoundSums", params: Params, blk: slice, bx, by,
+                     bsteps, bidx, bw, batk=None, clip_norm=None, control=None,
+                     personal=None, personal_idx=None) -> None:
+        """One block of ``block_clients`` clients, shared by the resident
+        and the streamed round: local training, the attack, the finiteness
+        gate, the clip, and the block's terms added to ``sums`` in the
+        round's fixed order. ``blk`` is the block's rows in the padded
+        population (the per-client state and the gathered buffer are
+        indexed by it); ``bw`` is the block's aggregation weights after
+        participation and the deadline."""
+        cfg = self.config
+        alg = self.algorithm
+        start = {k: v.unsqueeze(0).expand((cfg.block_clients,) + v.shape)
+                 for k, v in params.items()}
+        transform = None
+        if alg.control_variates:
+            sc = control.server_control
+            ci = {k: v[blk] for k, v in control.client_controls.items()}
+
+            def transform(k, g, _p):
+                return g + sc[k] - ci[k]
+
+        final, losses = self._masked_sgd(start, bx, by, bsteps, bidx,
+                                         prox_anchor=params, grad_transform=transform)
+        deltas = trained = {k: final[k] - params[k] for k in params}
+        if batk is not None:
+            # The shipped delta; SCAFFOLD's refresh below reads the
+            # trained one, as the JAX engine's local training returns it.
+            deltas = _attack_deltas(trained, batk)
+        ok = _finite_client_mask(losses, deltas)
+        bw_eff = torch.where(ok, bw, 0.0)
+        if clip_norm is None:
+            for k, d in deltas.items():
+                gated = torch.where(_bcast(ok, d), d.float(), 0.0)
+                sums.sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
+        else:
+            d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
+                   for k, d in deltas.items()}
+            d32, too_big = _clip_client_deltas(d32, clip_norm)
+            sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
+            for k, d in d32.items():
+                sums.sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
+            if sums.gathered is not None:
                 for k, d in d32.items():
-                    sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
-                if gathered is not None:
-                    for k, d in d32.items():
-                        gathered[k][blk] = d
-                    gathered_w[blk] = bw_eff
-                del d32
-            sum_w = sum_w + bw_eff.sum()
-            sum_loss = sum_loss + torch.where(ok, bw * losses, 0.0).sum()
-            count = count + (bw_eff > 0).sum().float()
-            client_loss.append(losses)
-            if alg.control_variates:
-                # Option II: c_i' - c_i = -c - delta / (K * lr), zero for a
-                # client that ran no step; c_i advances only for
-                # participants that survived the finiteness gate.
-                k_lr = torch.clamp(bsteps, min=1).float() * alg.local_lr
-                ran, active = bsteps > 0, bw_eff > 0
-                for k, d in trained.items():
-                    dci = torch.where(_bcast(ran, d), -sc[k] - d / _bcast(k_lr, d), 0.0)
-                    new_client_state[k].append(ci[k] + torch.where(_bcast(active, d), dci, 0.0))
-                    sum_dc[k] += torch.tensordot(
-                        bw_eff, torch.where(_bcast(ok, d), dci, 0.0), dims=([0], [0]))
-            elif alg.personalized:
-                v_old = {k: v[blk] for k, v in personal.params.items()}
-                new_v, ploss_sum = self._personal_train(
-                    v_old, params, bx, by, bsteps, bw, personal_indices[blk])
-                sum_ploss = sum_ploss + ploss_sum
-                for k, v in new_v.items():
-                    new_client_state[k].append(v)
+                    sums.gathered[k][blk] = d
+                sums.gathered_w[blk] = bw_eff
+            del d32
+        sums.sum_w = sums.sum_w + bw_eff.sum()
+        sums.sum_loss = sums.sum_loss + torch.where(ok, bw * losses, 0.0).sum()
+        sums.count = sums.count + (bw_eff > 0).sum().float()
+        sums.client_loss.append(losses)
+        if alg.control_variates:
+            # Option II: c_i' - c_i = -c - delta / (K * lr), zero for a
+            # client that ran no step; c_i advances only for participants
+            # that survived the finiteness gate.
+            k_lr = torch.clamp(bsteps, min=1).float() * alg.local_lr
+            ran, active = bsteps > 0, bw_eff > 0
+            for k, d in trained.items():
+                dci = torch.where(_bcast(ran, d), -sc[k] - d / _bcast(k_lr, d), 0.0)
+                sums.new_client_state[k].append(ci[k] + torch.where(_bcast(active, d), dci, 0.0))
+                sums.sum_dc[k] += torch.tensordot(
+                    bw_eff, torch.where(_bcast(ok, d), dci, 0.0), dims=([0], [0]))
+        elif alg.personalized:
+            v_old = {k: v[blk] for k, v in personal.params.items()}
+            new_v, ploss_sum = self._personal_train(
+                v_old, params, bx, by, bsteps, bw, personal_idx)
+            sums.sum_ploss = sums.sum_ploss + ploss_sum
+            for k, v in new_v.items():
+                sums.new_client_state[k].append(v)
 
-        denom = torch.clamp(sum_w, min=1e-8)
+    def _finish_round(self, state: ServerState, sums: "_RoundSums", defense,
+                      trim_fraction, stragglers, control, population: int):
+        """The round's close, shared by the resident and the streamed round:
+        the robust statistics of a gathering defense, the server update on
+        the negative mean delta, the metrics and the new per-client state."""
+        alg = self.algorithm
+        params = state.params
+        denom = torch.clamp(sums.sum_w, min=1e-8)
         mean_delta = None
         anomaly_score = None
-        if gathered is not None:
-            participants = gathered_w > 0
+        if sums.gathered is not None:
+            gathered = sums.gathered
+            participants = sums.gathered_w > 0
             center = None
             if defense.aggregator != "mean":
                 mean_delta = robust_aggregate(gathered, participants, defense.aggregator,
@@ -668,41 +774,289 @@ class FedCore:
                                               trim_fraction)
                 anomaly_score = distance_scores(gathered, center, participants)
             del gathered
+            sums.gathered = None
         # The server optimizer consumes the negative mean delta (or the
         # robust aggregate) as a pseudo-gradient (FedOpt formulation).
         if mean_delta is None:
-            pseudo_grad = {k: -(s / denom) for k, s in sum_delta.items()}
+            pseudo_grad = {k: -(s / denom) for k, s in sums.sum_delta.items()}
         else:
             pseudo_grad = {k: -d for k, d in mean_delta.items()}
         updates, opt_state = alg.server_optimizer.update(pseudo_grad, state.opt_state)
         new_params = {k: p + updates[k] for k, p in params.items()}
         metrics = RoundMetrics(
-            mean_loss=sum_loss / denom,
-            weight_sum=sum_w,
-            clients_trained=count,
-            client_loss=torch.cat(client_loss),
-            personal_loss=sum_ploss / denom,
+            mean_loss=sums.sum_loss / denom,
+            weight_sum=sums.sum_w,
+            clients_trained=sums.count,
+            client_loss=torch.cat(sums.client_loss),
+            personal_loss=sums.sum_ploss / denom,
         )
         if stragglers is not None:
             metrics.stragglers = stragglers
-        if defense is not None:
-            metrics.clipped = n_clip
+        if sums.n_clip is not None:
+            metrics.clipped = sums.n_clip
         if anomaly_score is not None:
             metrics.anomaly_score = anomaly_score
         new_state = ServerState(params=new_params, opt_state=opt_state,
                                 round_idx=state.round_idx + 1, seed=state.seed)
         if alg.control_variates or alg.personalized:
-            per_client = {k: torch.cat(v) for k, v in new_client_state.items()}
+            per_client = {k: torch.cat(v) for k, v in sums.new_client_state.items()}
         if alg.control_variates:
             # c <- c + (|S| / N) * weighted-mean refresh, N the true
             # population (survives padding and take()).
-            frac = count / max(float(ds.population), 1.0)
-            server_c = {k: c + frac * (sum_dc[k] / denom)
+            frac = sums.count / max(float(population), 1.0)
+            server_c = {k: c + frac * (sums.sum_dc[k] / denom)
                         for k, c in control.server_control.items()}
             return new_state, metrics, ControlState(per_client, server_c)
         if alg.personalized:
             return new_state, metrics, PersonalState(per_client)
         return new_state, metrics
+
+
+    # --------------------------------------------------------- streamed round
+    def _stream_reject(self, defense) -> None:
+        """What a streamed round refuses, with the JAX engine's messages.
+        Its other two refusals cannot reach a port core: the port refuses
+        ``shard_server_update`` in :meth:`FedCoreConfig.from_dict` and mp or
+        pp above 1 in ``make_mesh_plan`` (ROADMAP.md A9, A10)."""
+        if self.algorithm.personalized or self.algorithm.control_variates:
+            raise ValueError(
+                f"streamed rounds do not support the personalized/"
+                f"control-variate algorithm {self.algorithm.name!r} "
+                f"(per-client state does not yet stream; keep the "
+                f"population resident)"
+            )
+        if defense is not None and defense.gathers_deltas:
+            raise ValueError(
+                "robust aggregators / anomaly scoring do not compose "
+                "with streamed rounds: they need every client's delta "
+                "simultaneously (O(cohort x params)), which is exactly "
+                "the residency streaming removes — use clip_norm only"
+            )
+
+    def _prepare_stream(self, store, stream_rows: int, participate=None,
+                        num_steps=None, completion_time=None, deadline=None,
+                        attack_scale=None, defense=None, label_shift=None,
+                        label_classes=None) -> dict:
+        """Resolve one streamed round's plan: pad the store to whole stream
+        blocks and the per-client host arrays to the padded population."""
+        cfg = self.config
+        if defense is not None and not defense.enabled:
+            defense = None
+        self._stream_reject(defense)
+        R = int(stream_rows)
+        if R % cfg.block_clients != 0:
+            raise ValueError(
+                f"stream_block_rows={R} must be a multiple of "
+                f"dp*block_clients={cfg.block_clients}"
+            )
+        if deadline is None and completion_time is not None:
+            raise ValueError("completion_time given without a deadline")
+        if deadline is not None and completion_time is None:
+            raise ValueError(
+                "deadline given without completion_time; compute one "
+                "with olearning_sim_tpu_torch.engine.pacing.completion_times"
+            )
+        if label_shift is not None and label_classes is None:
+            raise ValueError(
+                "label_shift needs label_classes (the drift modulus); "
+                "the scenario layer passes the population's class count"
+            )
+        c_pad = pad_to_multiple(max(store.num_real_clients, store.padded_clients), R)
+        store.pad_to(c_pad)
+
+        def full(arr, fill, dtype):
+            if arr is None:
+                return None
+            out = np.full(c_pad, fill, dtype)
+            a = np.asarray(arr)
+            out[: a.shape[0]] = a.astype(dtype, copy=False)
+            return out
+
+        return {
+            "R": R, "c_pad": c_pad, "nb": c_pad // R, "defense": defense,
+            "participate": full(participate, 0.0, np.float32),
+            "num_steps": full(num_steps, cfg.max_local_steps, np.int64),
+            "completion_time": full(completion_time, np.inf, np.float32),
+            "deadline": deadline,
+            "attack_scale": full(attack_scale, 1.0, np.float32),
+            "label_shift": full(label_shift, 0, np.int64),
+            "label_classes": label_classes,
+        }
+
+    def _gather_stream_block(self, store, prep: dict, i: int, feature_dtype,
+                             generator, indices) -> Tuple[dict, int]:
+        """Stream block ``i`` as host tensors in the dtypes the round reads
+        (the same values :meth:`round_step` computes on the device from the
+        resident population), and its count of late participants. The
+        minibatch indices of the block's rows are drawn from ``generator``,
+        so blocks drawn in order draw what one whole-population draw does."""
+        cfg = self.config
+        lo, hi = i * prep["R"], (i + 1) * prep["R"]
+        rows = store.rows(lo, hi)
+        x = torch.from_numpy(np.ascontiguousarray(rows["x"]))
+        x_dtype = feature_dtype if feature_dtype is not None and x.is_floating_point() \
+            else x.dtype
+        y = rows["y"]
+        if prep["label_shift"] is not None:
+            # Label drift: the client's labels rotate by its shift this
+            # round; a zero shift leaves them as they are.
+            shift = prep["label_shift"][lo:hi]
+            if shift.any():
+                y = (y.astype(np.int64) + shift[:, None]) % int(prep["label_classes"])
+        weight = np.asarray(rows["weight"], np.float32)
+        if prep["participate"] is not None:
+            weight = weight * prep["participate"][lo:hi]
+        n_late = 0
+        if prep["deadline"] is not None:
+            late = prep["completion_time"][lo:hi] > np.float32(prep["deadline"])
+            n_late = int(((weight > 0) & late).sum())
+            weight = np.where(late, np.float32(0.0), weight)
+        steps = (np.minimum(prep["num_steps"][lo:hi], cfg.max_local_steps)
+                 if prep["num_steps"] is not None
+                 else np.full(hi - lo, cfg.max_local_steps, np.int64))
+        if indices is None:
+            idx = self.draw_indices(generator, torch.from_numpy(
+                np.asarray(rows["num_samples"], np.int64)))
+        else:
+            idx = indices[lo:hi]
+        block = {
+            "x": (x, x_dtype),
+            "y": (torch.from_numpy(np.asarray(y)), torch.int64),
+            "steps": (torch.from_numpy(steps), torch.int64),
+            "weight": (torch.from_numpy(weight), torch.float32),
+            "indices": (idx, torch.int64),
+        }
+        if prep["attack_scale"] is not None:
+            block["attack_scale"] = (torch.from_numpy(prep["attack_scale"][lo:hi]),
+                                     torch.float32)
+        return block, n_late
+
+    def stream_round(self, state: ServerState, store, stream_rows: Optional[int] = None,
+                     participate=None, num_steps=None, completion_time=None,
+                     deadline: Optional[float] = None, attack_scale=None,
+                     defense: Optional[DefenseConfig] = None, label_shift=None,
+                     label_classes: Optional[int] = None,
+                     feature_dtype: Optional[torch.dtype] = torch.bfloat16,
+                     tracer=None, indices: Optional[torch.Tensor] = None):
+        """Advance one FL round over a host-resident
+        :class:`~olearning_sim_tpu_torch.engine.client_data.HostClientStore`,
+        streaming the population through the device in blocks of
+        ``stream_rows`` clients (a multiple of ``block_clients``), double
+        buffered (:class:`~olearning_sim_tpu_torch.engine.staging.BlockStager`),
+        with the partial aggregates carried on the device. Returns
+        ``(state, metrics, StreamStats)``.
+
+        Per-client inputs (``participate``, ``num_steps``,
+        ``completion_time``, ``attack_scale``, ``label_shift``) are host
+        arrays of length ``num_real_clients`` (or the padded population);
+        the scalar knobs mean what they mean in :meth:`round_step`.
+        ``label_shift`` rotates each client's labels by its shift modulo
+        ``label_classes`` (label drift). ``feature_dtype`` is the staged
+        features' dtype, as in ``ClientDataset.to`` (cast on the host).
+        ``indices`` — optional minibatch indices ``[padded, max_local_steps,
+        batch_size]``; by default each block's rows are drawn in order from
+        :meth:`round_generator`, which draws what :meth:`round_step` draws
+        for the same rows.
+
+        Each block runs :meth:`_train_block` over its sub-blocks of
+        ``block_clients`` in the resident round's order, and the round
+        closes through :meth:`_finish_round`: a streamed round equals the
+        resident round at the same padded size bit for bit. ``tracer`` (the
+        default tracer when None) gets a ``stream_stage`` span per block
+        around the wait for its staging and a ``stream_step`` span around
+        its launches."""
+        from olearning_sim_tpu_torch.telemetry import default_tracer, instrument
+
+        tracer = tracer if tracer is not None else default_tracer()
+        if stream_rows is None:
+            raise ValueError(
+                "stream_round needs stream_rows (scenario."
+                "stream_block_rows when driven by engine params)"
+            )
+        prep = self._prepare_stream(
+            store, stream_rows, participate=participate, num_steps=num_steps,
+            completion_time=completion_time, deadline=deadline,
+            attack_scale=attack_scale, defense=defense, label_shift=label_shift,
+            label_classes=label_classes,
+        )
+        cfg = self.config
+        R, nb, defense = prep["R"], prep["nb"], prep["defense"]
+        want = (prep["c_pad"], cfg.max_local_steps, cfg.batch_size)
+        if indices is not None and tuple(indices.shape) != want:
+            raise ValueError(f"indices must be {want}, got {tuple(indices.shape)}")
+        dev = next(iter(state.params.values())).device
+        generator = self.round_generator(state, 0) if indices is None else None
+        clip_norm = _defense_scalars(defense, dev)[0] if defense is not None else None
+        sums = self._round_sums(state.params, prep["c_pad"], clipping=defense is not None,
+                                gathering=False)
+        late = []
+
+        def gather(i):
+            def run():
+                block, n_late = self._gather_stream_block(
+                    store, prep, i, feature_dtype, generator, indices)
+                late.append(n_late)
+                return block
+            return run
+
+        stager = BlockStager(dev)
+        waits = []
+        try:
+            handle = stager.submit(0, gather(0))
+            for i in range(nb):
+                t0 = time.perf_counter()
+                with tracer.span("stream_stage", block=i):
+                    blk = stager.wait(handle)
+                waits.append(time.perf_counter() - t0)
+                if i + 1 < nb:
+                    # On a card the next block is staged while this one
+                    # launches.
+                    handle = stager.submit(i + 1, gather(i + 1))
+                with tracer.span("stream_step", block=i):
+                    for s in range(0, R, cfg.block_clients):
+                        sl = slice(s, s + cfg.block_clients)
+                        rows = slice(i * R + s, i * R + s + cfg.block_clients)
+                        self._train_block(
+                            sums, state.params, rows, blk["x"][sl], blk["y"][sl],
+                            blk["steps"][sl], blk["indices"][sl], blk["weight"][sl],
+                            blk["attack_scale"][sl] if "attack_scale" in blk else None,
+                            clip_norm=clip_norm,
+                        )
+                stager.release(i)
+        finally:
+            stager.close()
+        stragglers = (torch.full((), float(sum(late)), dtype=torch.float32, device=dev)
+                      if prep["deadline"] is not None else None)
+        new_state, metrics = self._finish_round(state, sums, defense, None, stragglers,
+                                                None, store.population)
+
+        transfer_bytes = sum(stager.staged_bytes)
+        block_bytes0 = stager.staged_bytes[0]
+        transfer_s = sum(waits)
+        overlap = None
+        if nb > 1 and waits[0] > 0 and block_bytes0 > 0:
+            est_rest = (transfer_bytes - block_bytes0) / (block_bytes0 / waits[0])
+            if est_rest > 0:
+                overlap = float(np.clip(1.0 - (transfer_s - waits[0]) / est_rest, 0.0, 1.0))
+        acc_bytes = _tree_nbytes((sums.sum_delta, sums.sum_w, sums.sum_loss, sums.count))
+        stats = StreamStats(
+            blocks=nb, block_rows=R, rows=prep["c_pad"],
+            transfer_bytes=int(transfer_bytes),
+            host_transfer_s=round(transfer_s, 6),
+            overlap_fraction=overlap,
+            peak_hbm_bytes_est=int(_tree_nbytes(new_state.params)
+                                   + _tree_nbytes(new_state.opt_state)
+                                   + acc_bytes + 2 * block_bytes0),
+            state_bytes=store.state_bytes(),
+            staging_s=round(stager.staging_s, 6),
+        )
+        name = self.algorithm.name
+        instrument("ols_engine_host_transfer_seconds_total").labels(
+            algorithm=name).inc(transfer_s)
+        instrument("ols_engine_stream_blocks_total").labels(algorithm=name).inc(nb)
+        instrument("ols_engine_client_state_bytes").labels(
+            algorithm=name).set(store.state_bytes())
+        return new_state, metrics, stats
 
     def _personal_train(self, v_old: Params, params: Params, x, y, steps_eff,
                         bw, idx) -> Tuple[Params, torch.Tensor]:

@@ -38,7 +38,13 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
   round's global model is exported as a model file, and a fresh runner
   resumes from the newest one or warm-starts from ``warm_start_path``;
 - with a :class:`~olearning_sim_tpu_torch.engine.convergence.ConvergenceConfig`
-  the loop tracks time-to-accuracy (:meth:`convergence_record`).
+  the loop tracks time-to-accuracy (:meth:`convergence_record`);
+- with a :class:`~olearning_sim_tpu_torch.engine.scenario.ScenarioConfig`
+  each train round intersects the dispatch trace with the scenario's
+  availability (diurnal, charging, spikes, churn) and rotates drifting
+  clients' labels for that launch; a population with a
+  :class:`~olearning_sim_tpu_torch.engine.client_data.HostClientStore`
+  stays on the host and trains through ``FedCore.stream_round``.
 
 Host state that later rounds depend on (quarantine, the adaptive deadline
 controller, convergence clocks) rides the per-round history records, so a
@@ -54,8 +60,8 @@ is the interface between the two. A ``registry`` passed in is used
 duck-typed, so a control plane's registry receives the round series.
 
 Not in this slice, each refused by the task bridge when a task asks for it
-(``ROADMAP.md``): scenario traces and streamed populations (A7), buffered
-async rounds (A8) and the multi-task dispatcher (A13). The convergence
+(``ROADMAP.md``): buffered async rounds (A8) and the multi-task dispatcher
+(A13). The convergence
 eval's timing row in a performance manager waits for the port of
 ``performancemgr/`` (A17).
 """
@@ -75,9 +81,10 @@ from typing import Any, Callable, Dict, List, Optional
 import numpy as np
 import torch
 
-from olearning_sim_tpu_torch.deviceflow.trace_compiler import compile_trace
+from olearning_sim_tpu_torch.device import resolve_device
+from olearning_sim_tpu_torch.deviceflow.trace_compiler import combine_traces, compile_trace
 from olearning_sim_tpu_torch.engine import pacing
-from olearning_sim_tpu_torch.engine.client_data import ClientDataset
+from olearning_sim_tpu_torch.engine.client_data import ClientDataset, HostClientStore
 from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig, ConvergenceTracker
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig
 from olearning_sim_tpu_torch.engine.fedcore import FedCore
@@ -87,6 +94,7 @@ from olearning_sim_tpu_torch.engine.pacing import (
     DeadlineMissError,
     RoundPacing,
 )
+from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig, ScenarioModel
 from olearning_sim_tpu_torch.resilience import (
     CLIENT_FLAGGED,
     DEADLINE_MISS,
@@ -137,7 +145,9 @@ class DataPopulation:
     ``taskService.proto:18-32``)."""
 
     name: str
-    dataset: ClientDataset  # on the device, padded to whole blocks
+    # On the device, padded to whole blocks; a streamed population's stays
+    # on the host, unpadded.
+    dataset: ClientDataset
     device_classes: List[str]  # class names, e.g. ["high", "low"]
     class_of_client: np.ndarray  # [C] int index into device_classes (host)
     nums: List[int]  # target simulated devices per class
@@ -146,8 +156,14 @@ class DataPopulation:
     # Heterogeneous compute profiles: per-client local-step counts [C]
     # (padded). None = every client runs config.max_local_steps.
     num_steps: Optional[np.ndarray] = None
-    # The population's label-class count.
+    # The population's label-class count (the label-drift modulus). None
+    # falls back to the observed max(y) + 1.
     num_classes: Optional[int] = None
+    # Block-streamed population (scenario.stream_block_rows): the clients
+    # stay in this host store and train rounds run through
+    # ``FedCore.stream_round`` (O(block) device memory), on ``device``.
+    store: Optional[HostClientStore] = None
+    device: Any = "cuda"
 
 
 # Seed of the dispatch-trace draws (which clients a strategy releases and
@@ -196,6 +212,7 @@ class SimulationRunner:
         convergence: Optional[ConvergenceConfig] = None,
         deadline: Optional[DeadlineConfig] = None,
         defense: Optional[DefenseConfig] = None,
+        scenario: Optional[ScenarioConfig] = None,
     ):
         """``task_repo`` — the task table (duck-typed: ``has_task``,
         ``add_task``, ``set_item_value``); a fresh in-memory one when None.
@@ -226,7 +243,12 @@ class SimulationRunner:
         ``defense`` — opt-in adversarial-client defense: clipping and
         robust aggregation in the round, and the anomaly -> quarantine
         feedback loop. None (or a config that is not ``enabled``) keeps
-        the plain round for either."""
+        the plain round for either. ``scenario`` — scenario traces:
+        availability masks and arrival times intersected with each train
+        round's dispatch trace, and label drift; a trace is a function of
+        (config, trace seed, round), so a rollback or a resume replays it
+        with no saved state. Populations with a ``store`` stream (the
+        config's ``stream_block_rows``)."""
         self.task_id = task_id
         self.core = core
         self.populations = populations
@@ -339,6 +361,21 @@ class SimulationRunner:
         self._cost_compile_fed = False
         # begin()/step()/finish() loop state; None outside a run.
         self._loop: Optional[Dict[str, Any]] = None
+        self.scenario = scenario
+        self._scenario_models: Dict[str, ScenarioModel] = {}
+        if self.scenario is not None and self.scenario.streamed:
+            if core.algorithm.personalized or core.algorithm.control_variates:
+                raise ValueError(
+                    f"streamed scenario populations do not support the "
+                    f"personalized/control-variate algorithm "
+                    f"{core.algorithm.name!r}"
+                )
+            if self.defense is not None and self.defense.gathers_deltas:
+                raise ValueError(
+                    "streamed scenario populations support clip-only "
+                    "defense: robust aggregators / anomaly scoring need "
+                    "every client's delta resident (docs/performance.md)"
+                )
 
         if not self.task_repo.has_task(task_id):
             self.task_repo.add_task(task_id)
@@ -541,7 +578,7 @@ class SimulationRunner:
     def _run_train(self, p: DataPopulation, round_idx: int,
                    operator: OperatorSpec) -> Dict[str, Any]:
         real = p.dataset.num_real_clients
-        dev = p.dataset.x.device
+        dev = self._device(p)
         with self._phase(operator.name, "select", round_idx):
             # Compiled over real clients only: released slots must never be
             # spent on zero-weight padding clients.
@@ -555,6 +592,13 @@ class SimulationRunner:
                 operator=operator.name,
                 seed=TRACE_SEED,
             )
+            strace = None
+            if self.scenario is not None:
+                # Scenario availability intersects the dispatch trace: a
+                # client participates only if both release it, and arrives
+                # at the later of the two times (pacing sees that).
+                strace = self._scenario_model(p).round_trace(round_idx)
+                trace = combine_traces(trace, strace.as_client_trace())
             mask = np.zeros(p.dataset.num_clients, trace.participate.dtype)
             mask[:real] = trace.participate
             if self._quarantine is not None:
@@ -588,52 +632,44 @@ class SimulationRunner:
                 # Over-selection: eligible clients left out of the cohort
                 # sit this round out, like churned-out devices.
                 mask[:real] = np.where(pace.selected, mask[:real], 0)
-                comp_full = np.full(p.dataset.num_clients, np.inf, np.float32)
-                comp_full[:real] = pace.completion
-                kwargs.update(completion_time=torch.from_numpy(comp_full).to(dev),
-                              deadline=pace.deadline_s)
-            kwargs["participate"] = torch.from_numpy(mask).to(dev)
-            kwargs["num_steps"] = (torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
-                                   if p.num_steps is not None else None)
+                if p.store is None:
+                    comp_full = np.full(p.dataset.num_clients, np.inf, np.float32)
+                    comp_full[:real] = pace.completion
+                    kwargs["completion_time"] = torch.from_numpy(comp_full).to(dev)
+                else:
+                    kwargs["completion_time"] = pace.completion
+                kwargs["deadline"] = pace.deadline_s
+            if p.store is None:
+                kwargs["participate"] = torch.from_numpy(mask).to(dev)
+                kwargs["num_steps"] = (
+                    torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
+                    if p.num_steps is not None else None)
+            else:
+                # Streamed population: the per-client arrays stay on the
+                # host and FedCore.stream_round stages them block by block.
+                kwargs.update(participate=mask[:real], num_steps=p.num_steps)
         if self.defense is not None:
             kwargs["defense"] = self.defense
+        shift = (strace.label_shift if strace is not None and strace.label_shift is not None
+                 and strace.label_shift.any() else None)
+        sstats = None
         t_step0 = time.perf_counter()
         with self._phase(operator.name, "train", round_idx):
             # Launches the round's kernels; the device may still be running
             # them when this phase closes.
             atk = self._attacks.get(p.name)
-            if atk is not None and atk["scale"] is not None:
-                # Byzantine update attack (sign_flip / scale): a per-client
-                # delta multiplier.
-                kwargs["attack_scale"] = torch.from_numpy(atk["scale"]).to(dev)
-            clean_y = None
-            if atk is not None and atk["y"] is not None:
-                # Label flip scoped to this train launch: the finally puts
-                # the clean labels back, so same-round eval operators and
-                # later rounds see them.
-                clean_y = p.dataset.y
-                p.dataset = dataclasses.replace(p.dataset, y=atk["y"])
-            try:
-                state = self.states[p.name]
-                if self.core.algorithm.personalized:
-                    personal = self.personal_states.get(p.name)
-                    if personal is None:
-                        personal = self.core.init_personal(state, p.dataset.num_clients)
-                    state, metrics, personal = self.core.round_step(
-                        state, p.dataset, personal=personal, **kwargs)
-                    self.personal_states[p.name] = personal
-                elif self.core.algorithm.control_variates:
-                    control = self.control_states.get(p.name)
-                    if control is None:
-                        control = self.core.init_control(state, p.dataset.num_clients)
-                    state, metrics, control = self.core.round_step(
-                        state, p.dataset, control=control, **kwargs)
-                    self.control_states[p.name] = control
-                else:
-                    state, metrics = self.core.round_step(state, p.dataset, **kwargs)
-            finally:
-                if clean_y is not None:
-                    p.dataset = dataclasses.replace(p.dataset, y=clean_y)
+            if p.store is not None:
+                atk = self._streamed_attack(p, atk, kwargs)
+                if shift is not None:
+                    kwargs.update(label_shift=shift,
+                                  label_classes=self._label_classes(p, p.dataset.y))
+                state, metrics, sstats = self.core.stream_round(
+                    self.states[p.name], p.store,
+                    stream_rows=self.scenario.stream_block_rows,
+                    tracer=default_tracer(), **kwargs,
+                )
+            else:
+                state, metrics = self._resident_step(p, atk, shift, kwargs)
             self.states[p.name] = state
         with self._phase(operator.name, "host_transfer", round_idx):
             # The copy to the host is the sync point: this interval covers
@@ -690,11 +726,137 @@ class SimulationRunner:
         if atk is not None:
             rec["attacked"] = len(atk["clients"])
             rec["attack_mode"] = atk["mode"]
+        if strace is not None:
+            # The availability, churn and drift counts of the trace this
+            # round trained under ride the history record.
+            rec["scenario"] = strace.counts()
+        if sstats is not None:
+            # The stream cursor of the committed round rides the history
+            # (and checkpoint meta): a round is atomic (one server commit
+            # at its close), so a crash mid-stream replays the round.
+            rec["stream"] = {
+                "blocks": sstats.blocks,
+                "cursor": sstats.blocks,
+                "block_rows": sstats.block_rows,
+                "rows": sstats.rows,
+                "host_transfer_s": sstats.host_transfer_s,
+                "transfer_bytes": sstats.transfer_bytes,
+                "overlap_fraction": sstats.overlap_fraction,
+                "peak_hbm_bytes_est": sstats.peak_hbm_bytes_est,
+                "staging_s": sstats.staging_s,
+            }
         if pace is not None:
             rec.update(self._pacing_record(pace, int(metrics.stragglers)))
         if self.core.algorithm.personalized:
             rec["personal_loss"] = float(metrics.personal_loss)
         return rec
+
+    def _resident_step(self, p: DataPopulation, atk, shift: Optional[np.ndarray],
+                       kwargs: Dict[str, Any]):
+        """The core call of a resident population's train round, with the
+        label flip and label drift swapped in for this launch only.
+        Returns ``(state, metrics)``."""
+        dev = self._device(p)
+        if atk is not None and atk["scale"] is not None:
+            # Byzantine update attack (sign_flip / scale): a per-client
+            # delta multiplier.
+            kwargs["attack_scale"] = torch.from_numpy(atk["scale"]).to(dev)
+        y_swap = atk["y"] if atk is not None else None
+        if shift is not None:
+            # Label drift, scoped to this train launch like the label flip
+            # and composing with it: drift rotates whatever labels the
+            # round would otherwise train on.
+            base = y_swap if y_swap is not None else p.dataset.y
+            y_swap = self._drift_labels(p, base, shift, p.dataset.num_real_clients)
+        clean_y = None
+        if y_swap is not None:
+            # The swap is scoped to this train launch: the finally puts the
+            # clean labels back, so same-round eval operators and later
+            # rounds see them.
+            clean_y = p.dataset.y
+            p.dataset = dataclasses.replace(p.dataset, y=y_swap)
+        try:
+            state = self.states[p.name]
+            if self.core.algorithm.personalized:
+                personal = self.personal_states.get(p.name)
+                if personal is None:
+                    personal = self.core.init_personal(state, p.dataset.num_clients)
+                state, metrics, personal = self.core.round_step(
+                    state, p.dataset, personal=personal, **kwargs)
+                self.personal_states[p.name] = personal
+            elif self.core.algorithm.control_variates:
+                control = self.control_states.get(p.name)
+                if control is None:
+                    control = self.core.init_control(state, p.dataset.num_clients)
+                state, metrics, control = self.core.round_step(
+                    state, p.dataset, control=control, **kwargs)
+                self.control_states[p.name] = control
+            else:
+                state, metrics = self.core.round_step(state, p.dataset, **kwargs)
+        finally:
+            if clean_y is not None:
+                p.dataset = dataclasses.replace(p.dataset, y=clean_y)
+        return state, metrics
+
+    def _streamed_attack(self, p: DataPopulation, atk, kwargs: Dict[str, Any]):
+        """The part of a population's attack that a streamed round applies:
+        sign_flip and scale, as host multipliers in ``kwargs``. A label flip
+        swaps device labels and is resident-only: it is skipped with a
+        warning. Returns the attack applied, or None."""
+        if atk is None:
+            return None
+        if atk["scale"] is None:
+            self.logger.warning(
+                task_id=self.task_id, system_name="engine", module_name="runner",
+                message=f"label_flip attack skipped for streamed "
+                        f"population {p.name} (labels stream from the "
+                        f"host store; use sign_flip/scale)",
+            )
+            return None
+        kwargs["attack_scale"] = atk["scale"][:p.dataset.num_real_clients]
+        return atk
+
+    # ------------------------------------------------- scenario / streaming
+    def _device(self, p: DataPopulation) -> torch.device:
+        """The device of a population's rounds: a resident population's
+        dataset's; a streamed one's (its dataset stays on the host) its
+        state's, or ``p.device`` before the state exists."""
+        if p.store is None:
+            return p.dataset.x.device
+        state = self.states.get(p.name)
+        if state is not None:
+            return next(iter(state.params.values())).device
+        return resolve_device(p.device)
+
+    def _scenario_model(self, p: DataPopulation) -> ScenarioModel:
+        """One ScenarioModel per population over its real clients, built
+        lazily and seeded with the trace seed, so every process, and every
+        relaunch, realizes the same fleet."""
+        m = self._scenario_models.get(p.name)
+        if m is None:
+            m = ScenarioModel(
+                self.scenario, p.dataset.num_real_clients, seed=TRACE_SEED,
+                class_of_client=p.class_of_client, device_classes=p.device_classes,
+            )
+            self._scenario_models[p.name] = m
+        return m
+
+    @staticmethod
+    def _label_classes(p: DataPopulation, base) -> int:
+        """The label-drift modulus: the population's class count when the
+        bridge supplied it, else the observed max(y) + 1."""
+        return int(p.num_classes) if p.num_classes else int(base.max()) + 1
+
+    def _drift_labels(self, p: DataPopulation, base: torch.Tensor,
+                      shift: np.ndarray, real: int) -> torch.Tensor:
+        """The labels with the first ``real`` clients' rotated by their drift
+        shift, modulo the class count (on the labels' device; the integers
+        numpy's rotation gives)."""
+        n_cls = self._label_classes(p, base)
+        y = base.clone()
+        sh = torch.from_numpy(np.asarray(shift[:real], np.int64)).to(y.device)
+        y[:real] = (base[:real] + sh[:, None]) % n_cls
+        return y
 
     def _flag_anomalies(self, p: DataPopulation, round_idx: int, metrics,
                         mask: np.ndarray, ok: np.ndarray) -> Optional[np.ndarray]:
@@ -1164,6 +1326,15 @@ class SimulationRunner:
         for p in self.populations:
             if pop_name and p.name != pop_name:
                 continue
+            if p.store is not None:
+                self.logger.warning(
+                    task_id=self.task_id, system_name="engine",
+                    module_name="runner",
+                    message=f"poison_clients: population {p.name} is "
+                            f"streamed (host store); NaN poisoning "
+                            f"skipped",
+                )
+                continue
             ds = p.dataset
             if not ds.x.is_floating_point():
                 self.logger.warning(
@@ -1236,7 +1407,8 @@ class SimulationRunner:
                 atk["scale"] = scale
             else:  # label_flip: class c -> (num_classes - 1 - c)
                 if p.name not in self._clean_y:
-                    self._clean_y[p.name] = p.dataset.y.clone()
+                    # A streamed population's labels are host arrays.
+                    self._clean_y[p.name] = torch.as_tensor(p.dataset.y).clone()
                 y = self._clean_y[p.name].clone()
                 n_cls = int(y.max()) + 1
                 idx = torch.tensor(clients, device=y.device)
@@ -1524,7 +1696,7 @@ class SimulationRunner:
                 # crc32, not hash(): str hashes are randomized per process.
                 self.states[p.name] = self.core.init_state(
                     seed=zlib.crc32(self.task_id.encode()) & 0x7FFFFFFF,
-                    device=p.dataset.x.device,
+                    device=self._device(p),
                 )
         start_round = self._try_resume()
         if start_round == 0 and self.model_io is not None:

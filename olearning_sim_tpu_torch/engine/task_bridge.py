@@ -31,8 +31,17 @@ optional::
                     "speed_profiles": {"high": 0.05, "low": 0.4}},
       "defense":   {"clip_norm": 5.0, "aggregator": "trimmed_mean",
                     "trim_fraction": 0.1, "anomaly_threshold": 4.0},
-      "storage":   {"root": "/models"}        # the model files' FILE repo
+      "storage":   {"root": "/models"},       # the model files' FILE repo
+      "scenario":  {"online_base": 0.4, "online_amp": 0.3,
+                    "spikes": [{"round": 3, "rounds": 2, "boost": 3.0}],
+                    "leave_rate": 0.001, "drift_period_rounds": 20,
+                    "stream_block_rows": 2048}
     }
+
+With ``scenario.stream_block_rows`` the population stays on the host (a
+``HostClientStore``) and train rounds stream it through the device in
+blocks of that many clients (``FedCore.stream_round``); without it the
+scenario's masks and drift apply to the resident round.
 
 An operator's ``model`` (the first that sets ``use_model`` or
 ``model_update_style``) exports each round's global model through a file
@@ -63,6 +72,7 @@ from olearning_sim_tpu_torch.checkpoint import ModelUpdateExporter, RoundCheckpo
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine.algorithms import from_config as algorithm_from_config
 from olearning_sim_tpu_torch.engine.client_data import (
+    HostClientStore,
     make_central_eval_set,
     make_central_text_eval_set,
     make_synthetic_dataset,
@@ -77,6 +87,7 @@ from olearning_sim_tpu_torch.engine.runner import (
     OperatorSpec,
     SimulationRunner,
 )
+from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig
 from olearning_sim_tpu_torch.resilience import ResilienceConfig, parse_quarantine_params
 from olearning_sim_tpu_torch.storage import make_file_repo
 from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
@@ -87,12 +98,11 @@ BUILTIN_PREFIX = "builtin:"
 # Engine-params blocks of the JAX bridge that this slice leaves out, with
 # the ROADMAP.md item that ports each.
 LEFT_OUT = {
-    "scenario": "A7 (scenario traces and streaming)",
     "async": "A8 (buffered async rounds)",
 }
 KNOWN = {"model", "algorithm", "fedcore", "data", "resilience", "quarantine",
          "operator_flow", "scheduling", "storage", "parallel", "checkpoint",
-         "convergence", "deadline", "defense"} | set(LEFT_OUT)
+         "convergence", "deadline", "defense", "scenario"} | set(LEFT_OUT)
 
 
 def _engine_params(tc) -> Dict[str, Any]:
@@ -236,6 +246,8 @@ def build_runner_from_taskconfig(
                 if params.get("deadline") else None)
     defense = (DefenseConfig.from_dict(params["defense"])
                if params.get("defense") else None)
+    scenario = (ScenarioConfig.from_dict(params["scenario"])
+                if params.get("scenario") else None)
 
     model_cfg = params.get("model", {})
     algo_cfg = dict(params.get("algorithm", {}))
@@ -310,7 +322,13 @@ def build_runner_from_taskconfig(
                 dirichlet_alpha=syn.get("dirichlet_alpha"),
                 class_sep=float(syn.get("class_sep", 2.0)),
             )
-        ds = ds.pad_for(cfg.block_clients).to(dev)
+        store = None
+        if scenario is not None and scenario.streamed:
+            # Never placed whole: the round streams device-sized blocks
+            # from this host store.
+            store = HostClientStore.from_dataset(ds)
+        else:
+            ds = ds.pad_for(cfg.block_clients).to(dev)
         cls = np.zeros(ds.num_clients, int)
         start = 0
         for ci, n in enumerate(nums):
@@ -340,6 +358,7 @@ def build_runner_from_taskconfig(
             name=td.dataName, dataset=ds, device_classes=devices,
             class_of_client=cls, nums=nums, dynamic_nums=dynamic,
             eval_data=eval_data, num_steps=num_steps, num_classes=num_classes,
+            store=store, device=dev,
         ))
 
     fs = tc.operatorFlow.flowSetting
@@ -391,4 +410,5 @@ def build_runner_from_taskconfig(
         convergence=convergence,
         deadline=deadline,
         defense=defense,
+        scenario=scenario,
     )

@@ -133,6 +133,29 @@ CATALOG = {
         "engine drives toward ~0",
         ("task_id", "mode"),
     ),
+    # The port stages on a copy stream (and a staging thread): this counter
+    # sums the seconds the round's host thread waited for staged blocks.
+    "ols_engine_host_transfer_seconds_total": (
+        COUNTER,
+        "Wall seconds spent staging streamed cohort blocks host->device "
+        "(FedCore.stream_round double-buffered placement; compare with "
+        "round wall time for transfer exposure)",
+        ("algorithm",),
+    ),
+    "ols_engine_stream_blocks_total": (
+        COUNTER,
+        "Cohort blocks executed by the streamed round engine (one "
+        "compiled partial step per block; population / stream_block_rows "
+        "per round)",
+        ("algorithm",),
+    ),
+    "ols_engine_client_state_bytes": (
+        GAUGE,
+        "Host-resident persistent per-client state bytes held by the "
+        "streamed population's HostClientStore (quarantine strikes, "
+        "pacing EMAs, personalization state)",
+        ("algorithm",),
+    ),
     "ols_engine_eval_accuracy": (
         GAUGE,
         "Held-out eval accuracy of the global model at the last "

@@ -25,12 +25,11 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
              "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence",
              "fedavg_mnist_mlp_deadline", "fedavg_mnist_mlp_defense",
-             "fedprox_femnist_resnet18", "ditto_cifar100_vit"]
+             "fedprox_femnist_resnet18", "ditto_cifar100_vit", "fedavg_mnist_mlp_trace"]
 REFUSED = {
     "fedadam_sent140_distilbert_mp2": "A10 \\(model parallelism\\)",
     "fedavg_mnist_mlp_async": "A8",
     "fedavg_mnist_mlp_bf16": "A9",
-    "fedavg_mnist_mlp_trace": "A7",
 }
 # Narrow widths per family for the CPU (the configs' own shapes otherwise).
 SHRINK = {
@@ -62,12 +61,15 @@ def set_engine_params(task, params):
 def shrink(task, clients=8, rounds=1):
     """The config cut to a CPU-sized task: clients, rounds, local work and
     the model's widths, all by editing the loaded JSON. A deadline's target
-    cohort shrinks with the clients."""
+    cohort shrinks with the clients, a stream block to two blocks of
+    clients."""
     params = engine_params(task)
     deadline = params.get("deadline") or {}
     if deadline.get("target_cohort"):
         total = sum(sum(td["total_simulation"]["nums"]) for td in task["target"]["data"])
         deadline["target_cohort"] = max(1, deadline["target_cohort"] * clients // total)
+    if (params.get("scenario") or {}).get("stream_block_rows"):
+        params["scenario"]["stream_block_rows"] = 8
     overrides, shape = SHRINK[params["model"]["name"]]
     params["model"]["overrides"].update(overrides)
     if shape:
@@ -115,6 +117,13 @@ def test_supported_config_runs_a_tiny_round(name):
         assert all(v.dtype == torch.bfloat16 and v.shape[0] == 8 for v in personal.values())
         # Two clients per class at 8, 5 and 2 steps, padding in class 0.
         assert runner.populations[0].num_steps.tolist() == [8, 8, 5, 5, 2, 2, 8, 8]
+    if name == "fedavg_mnist_mlp_trace":
+        # Streamed from the host store in one block of 8; the scenario's
+        # counts ride the record.
+        assert runner.populations[0].store is not None
+        assert isinstance(runner.populations[0].dataset.x, np.ndarray)
+        assert rec["stream"]["blocks"] == 1 and rec["stream"]["rows"] == 8
+        assert rec["scenario"]["available"] == rec["released"]
 
 
 # The larger families' configs against the JAX runner (bf16 compute, as
@@ -161,6 +170,38 @@ def test_large_family_config_matches_jax_runner(name):
         assert all(v.dtype == torch.bfloat16 for v in tper.values())
 
 
+def test_trace_config_matches_jax_runner():
+    """fedavg_mnist_mlp_trace, cut to 8 clients, 3 rounds and stream blocks
+    of 8, through the port's bridge and the JAX bridge: the host outputs
+    exactly (scenario counts, dispatch, clients trained, the stream walk,
+    the task row), the params within mlp2's bounds (the port from JAX's
+    init and draws)."""
+    from test_torch_fedcore_families import PARAM_ATOL, _compare_tree
+    from test_torch_runner import LOSS_ATOL, _run_jax
+    from test_torch_streaming import _run_port_streamed
+
+    from olearning_sim_tpu.telemetry import MetricsRegistry
+
+    registry = MetricsRegistry()
+    jtask = shrink(load("fedavg_mnist_mlp_trace"), rounds=3)
+    ttask = shrink(load("fedavg_mnist_mlp_trace"), rounds=3)
+    jtask["task_id"], ttask["task_id"] = "trace_jax", "trace_port"
+    jrunner, jrepo, jhist, init = _run_jax(jtask, registry)
+    trunner, trepo, thist = _run_port_streamed(ttask, registry, init)
+    for col in ("logical_target", "logical_result", "logical_round"):
+        assert trepo.get_item_value("trace_port", col) == \
+            jrepo.get_item_value("trace_jax", col), col
+    for jr, tr in zip(jhist, thist):
+        j, t = jr["train"]["data_0"], tr["train"]["data_0"]
+        for k in ("released", "dropped", "clients_trained", "sim_duration_s", "scenario"):
+            assert t[k] == j[k], (jr["round"], k)
+        for k in ("blocks", "cursor", "block_rows", "rows"):
+            assert t["stream"][k] == j["stream"][k], (jr["round"], k)
+        assert abs(t["mean_loss"] - j["mean_loss"]) <= LOSS_ATOL
+    _compare_tree(trunner.states["data_0"].params, jrunner.states["data_0"].params,
+                  PARAM_ATOL)
+
+
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unsupported_config_names_its_roadmap_item(name):
     with pytest.raises(ValueError, match=f"ROADMAP.md {REFUSED[name]}"):
@@ -182,14 +223,23 @@ def _with_params(**blocks):
     ("defense", {"clip_nrom": 1.0}),
     ("defense", {"trim_fraction": 0.7}),
     ("defense", {"anomaly_threshold": -1.0}),
+    ("scenario", "diurnal"),
+    ("scenario", {"online_bias": 0.5}),
+    ("scenario", {"online_base": 1.5}),
+    ("scenario", {"leave_rate": 1.0}),
+    ("scenario", {"stream_block_rows": 0}),
+    ("scenario", {"spikes": [{"boost": 2.0}]}),
+    ("scenario", {"class_phase_hours": [6.0]}),
 ])
 def test_malformed_robust_blocks_are_refused_with_jax_messages(block, bad):
-    """A malformed deadline or defense block fails at build time, before
-    any data is made, with the error the JAX package's parser raises."""
+    """A malformed deadline, defense or scenario block fails at build time,
+    before any data is made, with the error the JAX package's parser
+    raises."""
     from olearning_sim_tpu.engine.defense import DefenseConfig as JDefense
     from olearning_sim_tpu.engine.pacing import DeadlineConfig as JDeadline
+    from olearning_sim_tpu.engine.scenario import ScenarioConfig as JScenario
 
-    parse = {"deadline": JDeadline, "defense": JDefense}[block].from_dict
+    parse = {"deadline": JDeadline, "defense": JDefense, "scenario": JScenario}[block].from_dict
     with pytest.raises((TypeError, ValueError)) as want:
         parse(bad)
     with pytest.raises(want.type) as got:
