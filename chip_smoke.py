@@ -179,6 +179,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        start ending the run, and a fresh runner over the same directory:
        bitwise equal to 11a.
 
+12. Buffered async rounds, the sharded server update and the multi-task
+    dispatcher (no kernel of the repo is on this path either: the window
+    sums are a matrix product, the commits elementwise), through the bridge
+    and runner at the configs' published width and population:
+    12a ``fedavg_mnist_mlp_async`` (mlp2 784-200-10, 100 clients in two
+       classes, block 32, M 25, max_staleness 8, polynomial alpha 0.5), 3
+       of 50 rounds: per round the async accounting (commits, committed,
+       stale-dropped, windows, idle and close seconds, the commit clock),
+       the phase times and the peak device memory; run twice on the card
+       (bitwise: no atomics in the window sums) and once on the CPU (host
+       outputs exact, the move within CARD_CPU_REL);
+    12b 12a's JSON edited to max_staleness 1 and the score schedule, with a
+       trimmed mean with anomaly scores and ATTACK_PLAN's scale -8 attack,
+       2 rounds on the card and on the CPU: stale-dropped equal to the
+       plan's count, host outputs exact, the move and the scores within
+       CARD_CPU_REL;
+    12c 12a with a checkpoint every round, preempted at round 2's start and
+       resumed by a fresh runner: bitwise 12a, the commit clock included;
+    12d ``fedavg_mnist_mlp_bf16`` whole (shard_server_update true), 3 rounds,
+       bitwise the same JSON with the key false; then one FedAdam round of
+       it each way, its flat moments bitwise the replicated ones;
+    12e 12a's task and ``fedavg_mnist_mlp``, 3 rounds each, solo back to
+       back, then under ``MultiTaskDispatcher`` in turns and on threads
+       with a task repo holding the leases: each task bitwise its solo run,
+       every lease released; the aggregate rounds/sec of each mode.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -253,9 +279,12 @@ MOE_EVAL_BATCH = 256
 # (sound 0.94-1.12; PERF.md section 6 lists what planted faults read).
 FAMILY_F32_REL = 5e-3
 BF16_NOISE_RATIO = 1.3
-# Phase 9's per-round record fields (deadline rounds, attacks, defense).
+# Phase 9's per-round record fields (deadline rounds, attacks, defense),
+# and phase 12's (async rounds; round_close_s and idle_s are among the
+# former).
 ROBUST_KEYS = ("selected", "on_time", "stragglers", "deadline_s", "round_close_s", "idle_s",
                "attacked", "attack_mode", "clipped", "flagged")
+ASYNC_KEYS = ("commits", "committed", "stale_dropped", "windows", "commit_clock")
 # Phase 9b: the card's robust aggregate and scores against a float64 numpy
 # oracle over the same [C, ...] delta buffer: |card - oracle| <= ORACLE_RTOL
 # * |oracle| + ORACLE_ATOL_REL * max |leaf|. The card sorts exactly and
@@ -1077,7 +1106,7 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
         line = (f"{label} round {h['round']}: released={tr['released']} dropped={tr['dropped']} "
                 f"clients_trained={tr['clients_trained']} mean_loss={tr['mean_loss']:.6f}")
         # Deadline rounds, attacks and the defense (phase 9).
-        line += "".join(f" {k}={tr[k]}" for k in ROBUST_KEYS if k in tr)
+        line += "".join(f" {k}={tr[k]}" for k in ROBUST_KEYS + ASYNC_KEYS if k in tr)
         if ev:
             line += f" eval_loss={ev['eval_loss']:.6f} eval_acc={ev['eval_acc']:.4f}"
         log(line + ("" if sec is None else f" seconds={sec:.4f}"))
@@ -1978,6 +2007,256 @@ def stream_path(dev, shrink=None):
     log(f"phase 11 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# Phase 12's record fields held exactly, card against CPU and run against
+# run (the host decides them: the plan, the dispatch trace, the finiteness
+# of each client's loss).
+ASYNC_HOST_KEYS = ("released", "dropped", "clients_trained", "commits", "committed",
+                   "stale_dropped", "buffer_size", "windows", "idle_s", "commit_clock",
+                   "round_close_s", "clipped", "flagged")
+
+
+class _RoundCapture:
+    """Wraps a runner's ``core.round_step``: keeps each call's async plan,
+    participation and returned metrics, so the run's stale drops and
+    anomaly scores can be read back."""
+
+    def __init__(self, runner):
+        self.calls = []
+        step = runner.core.round_step
+
+        def capture(state, ds, **kw):
+            out = step(state, ds, **kw)
+            self.calls.append((kw.get("async_plan"), kw.get("participate"), ds.weight, out[1]))
+            return out
+
+        runner.core.round_step = capture
+
+
+def async_path(dev, shrink=None):
+    """Phase 12: buffered async rounds (12a-12c), the sharded server update
+    at a world of one (12d) and the multi-task dispatcher (12e), through the
+    port's task bridge and runner (no kernel of the repo is on this path:
+    mlp2 is torch matrix products and elementwise ops, the window sums a
+    matrix product, the robust statistics ``torch.sort``)."""
+    import os
+    import tempfile
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.engine.runner import MultiTaskDispatcher
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.resilience import HostPreemption, faults
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_12_")
+    name = "fedavg_mnist_mlp_async"
+    cpu = torch.device("cpu")
+
+    def same(label, a, b):
+        diff = max(float((a[k] - b[k]).abs().max()) for k in b)
+        log(f"{label}: params max abs diff {diff:g} (tol 0)")
+        if diff != 0 or not all(bool((a[k] == b[k]).all()) for k in b):
+            raise AssertionError(f"{label}: not bitwise equal")
+
+    def host_records(hist):
+        return [(h.get("async_clock"), h.get("quarantine_state"),
+                 {k: h["train"]["data_0"].get(k) for k in ASYNC_HOST_KEYS}) for h in hist]
+
+    def init_params(runner):
+        seed = zlib.crc32(runner.task_id.encode()) & 0x7FFFFFFF
+        return runner.core.init_state(seed=seed, device="cpu").params
+
+    def card_vs_cpu_hold(label, runner, hist, runner_cpu, hist_cpu):
+        if host_records(hist) != host_records(hist_cpu):
+            raise AssertionError(f"{label}: host outputs differ from the CPU run's: "
+                                 f"{host_records(hist)} vs {host_records(hist_cpu)}")
+        init = init_params(runner)
+        card = {k: v.cpu() - init[k] for k, v in runner.states["data_0"].params.items()}
+        host = {k: v - init[k] for k, v in runner_cpu.states["data_0"].params.items()}
+        rel = _rel_l2(card, host)
+        log(f"{label}: host outputs equal the CPU run's; the run's move vs the CPU's rel L2 "
+            f"{rel:.3e} (tol {CARD_CPU_REL:g})")
+        if not rel <= CARD_CPU_REL:
+            raise AssertionError(f"{label}: the card's run moved away from the CPU's")
+
+    # 12a: the async config at its published width and population, 3 of 50
+    # rounds, twice on the card (bitwise: the window sums are a matrix
+    # product, no atomics) and once on the CPU.
+    peaks = []
+    runner_a, hist_a = run_task("12a", name, dev, 3, shrink=shrink, peaks=peaks)
+    mem = ["not measured (cpu)" if v is None else f"{v / 2**30:.4f} GiB" for v in peaks]
+    log(f"12a peak device memory per round: {mem}")
+    P = sum(v.numel() for v in runner_a.states["data_0"].params.values())
+    W = hist_a[0]["train"]["data_0"]["windows"]
+    log(f"12a window buffer: W {W} x P {P} x 4 = {W * P * 4} bytes; async clock per round "
+        f"{[h['async_clock'] for h in hist_a]}")
+    runner_a2, hist_a2 = run_task("12a again", name, dev, 3, shrink=shrink)
+    if host_records(hist_a2) != host_records(hist_a) or \
+            [h["train"]["data_0"]["mean_loss"] for h in hist_a2] != \
+            [h["train"]["data_0"]["mean_loss"] for h in hist_a]:
+        raise AssertionError("12a: the second run's records differ")
+    same("12a run vs run (determinism)", runner_a2.states["data_0"].params,
+         runner_a.states["data_0"].params)
+    del runner_a2
+    runner_c, hist_c = run_task("12a cpu", name, cpu, 3, shrink=shrink)
+    card_vs_cpu_hold("12a card vs cpu", runner_a, hist_a, runner_c, hist_c)
+    del runner_c
+
+    # 12b: max_staleness 1 (windows 2-3 dropped), the score schedule, a
+    # scale -8 attack on four clients and a trimmed mean with anomaly
+    # scores; 2 rounds on the card and on the CPU.
+    def compose(task):
+        params = _engine_params(task)
+        params["async"].update(max_staleness=1, schedule="score")
+        params["defense"] = {"aggregator": "trimmed_mean", "trim_fraction": 0.1,
+                             "anomaly_threshold": 4.0}
+        _set_engine_params(task, params)
+        return f"async {json.dumps(params['async'])}; defense {json.dumps(params['defense'])}"
+
+    runs = {}
+    for where in (dev, cpu):
+        task, cuts = load_task(name, 2, edit=compose, shrink=shrink)
+        label = "12b" if where.type != "cpu" else "12b cpu"
+        log(f"{label} {name}: " + "; ".join(cuts) + f"; fault plan {json.dumps(ATTACK_PLAN)}")
+        runner = build_runner_from_taskconfig(task, device=where)
+        cap = _RoundCapture(runner)
+        with faults.chaos(faults.FaultPlan.from_dict(ATTACK_PLAN)):
+            hist = runner.run()
+        for h, (plan, part, weight, metrics) in zip(hist, cap.calls):
+            tr = h["train"]["data_0"]
+            active = (part.cpu().numpy() > 0) & (weight.cpu().numpy() > 0)
+            want = int((plan.stale_dropped_mask() & active).sum())
+            log(f"{label} round {h['round']}: " + " ".join(
+                f"{k}={tr.get(k)}" for k in ASYNC_HOST_KEYS) + f" plan stale-dropped {want}")
+            if tr["stale_dropped"] != want or want == 0:
+                raise AssertionError(f"{label}: stale_dropped {tr['stale_dropped']} is not the "
+                                     f"plan's {want}")
+        runs[where.type] = (runner, hist, [m.anomaly_score.cpu() for *_, m in cap.calls])
+    (runner_b, hist_b, scores_b), (runner_bc, hist_bc, scores_bc) = runs[dev.type], runs["cpu"]
+    card_vs_cpu_hold("12b card vs cpu", runner_b, hist_b, runner_bc, hist_bc)
+    for r, (a, b) in enumerate(zip(scores_b, scores_bc)):
+        part = b > 0
+        rel = float(((a - b).abs()[part] / b[part]).max())
+        log(f"12b round {r} anomaly scores: {int(part.sum())} scored, attackers "
+            f"{[round(float(a[c]), 4) for c in ATTACKERS]}, median "
+            f"{float(a[part].median()):.4f}; card vs cpu max rel {rel:.3e} "
+            f"(tol {CARD_CPU_REL:g})")
+        if not bool(torch.equal(a > 0, part)) or not rel <= CARD_CPU_REL:
+            raise AssertionError(f"12b round {r}: the card's anomaly scores differ")
+    del runs, runner_b, runner_bc
+
+    # 12c: 12a with a checkpoint every round, a host preemption at round
+    # 2's start (fail_task, so it ends the run), and a fresh runner over the
+    # same directory.
+    ckpt = params_edit(checkpoint={"directory": os.path.join(tmp.name, "{task_id}"),
+                                   "every": 1})
+    resilience = _engine_params(load_task(name, 1)[0])["resilience"]
+    task, cuts = load_task(name, 3, shrink=shrink, edit=_edits(ckpt, params_edit(
+        resilience=dict(resilience, failure_policy="fail_task"))))
+    log(f"12c {name}: " + "; ".join(cuts) + "; a host preemption at round 2's start")
+    first = build_runner_from_taskconfig(task, device=dev)
+    plan = {"seed": 0, "specs": [{"point": "runner.round_begin", "rounds": [2],
+                                  "error": "preempt"}]}
+    preempted = False
+    with faults.chaos(faults.FaultPlan.from_dict(plan)):
+        first.begin()
+        try:
+            while first.step():
+                pass
+        except HostPreemption:
+            preempted = True
+    first.checkpointer.wait()
+    if not preempted or len(first.history) != 2:
+        raise AssertionError(f"12c: preempted {preempted} after {len(first.history)} rounds")
+    del first
+    resumed, hist_r = run_task("12c resume", name, dev, 3, edit=ckpt, shrink=shrink)
+    if _restores(resumed) != 1:
+        raise AssertionError("12c: the fresh runner did not resume from the checkpoint")
+    if host_records(hist_r) != host_records(hist_a):
+        raise AssertionError("12c: the resumed run's records (async_clock included) differ")
+    same("12c resume vs 12a", resumed.states["data_0"].params, runner_a.states["data_0"].params)
+    del resumed
+
+    # 12d: the bf16 config whole (shard_server_update true), 3 rounds,
+    # against the same JSON with the key false; then one FedAdam round of
+    # mlp2, whose moments live on the flat coordinates.
+    def shard(on, fedadam=False):
+        def edit(task):
+            params = _engine_params(task)
+            params["fedcore"]["shard_server_update"] = on
+            if fedadam:
+                params["algorithm"] = {"name": "fedadam", "local_lr": 0.05, "server_lr": 0.01}
+            _set_engine_params(task, params)
+            return f"shard_server_update {on}" + ("; fedadam server_lr 0.01" if fedadam else "")
+        return edit
+
+    bf16 = "fedavg_mnist_mlp_bf16"
+    for rounds, fedadam in ((3, False), (1, True)):
+        sharded, _ = run_task("12d sharded", bf16, dev, rounds, shrink=shrink,
+                              edit=shard(True, fedadam))
+        replicated, _ = run_task("12d replicated", bf16, dev, rounds, shrink=shrink,
+                                 edit=shard(False, fedadam))
+        so, ro = sharded.states["data_0"].opt_state, replicated.states["data_0"].opt_state
+        log(f"12d optimizer state: sharded "
+            f"{ {k: [tuple(t.shape) for t in v.values()][:2] for k, v in so.items() if isinstance(v, dict)} }"
+            f" vs replicated "
+            f"{ {k: [tuple(t.shape) for t in v.values()][:2] for k, v in ro.items() if isinstance(v, dict)} }")
+        same(f"12d sharded vs replicated{' (fedadam)' if fedadam else ''}",
+             sharded.states["data_0"].params, replicated.states["data_0"].params)
+        for m in ("mu", "nu") if fedadam else ():
+            same(f"12d fedadam {m}", {k: v.reshape(-1) for k, v in so[m].items()},
+                 {k: v.reshape(-1) for k, v in ro[m].items()})
+        del sharded, replicated
+
+    # 12e: 12a's task and fedavg_mnist_mlp, 3 rounds each, under the
+    # dispatcher in turns and on threads, with a port task repo holding the
+    # leases; each task bitwise its solo run.
+    names = (name, "fedavg_mnist_mlp")
+
+    def build(repo=None):
+        out = []
+        for n in names:
+            task, cuts = load_task(n, 3, shrink=shrink)
+            out.append(build_runner_from_taskconfig(task, task_repo=repo, device=dev))
+        return out
+
+    def timed(fn):
+        _sync(dev)
+        t0 = time.perf_counter()
+        fn()
+        _sync(dev)
+        return time.perf_counter() - t0
+
+    solo = build()
+    secs = timed(lambda: [r.run() for r in solo])
+    rates = {"sequential (solo, back to back)": 6 / secs}
+    for mode in ("step", "thread"):
+        repo = TaskTableRepo()
+        runners = build(repo)
+        disp = MultiTaskDispatcher(runners, task_repo=repo, interleave=mode)
+        secs = timed(disp.run)
+        rates[f"dispatched ({mode})"] = 6 / secs
+        leases = [repo.lease_info(r.task_id)[0] for r in runners]
+        log(f"12e {mode}: {secs:.4f} s for 6 rounds, fenced {disp.fenced}, leases after "
+            f"{leases}")
+        if disp.fenced or any(leases):
+            raise AssertionError(f"12e {mode}: a lease was fenced or left held")
+        for r, s in zip(runners, solo):
+            if host_records(r.history) != host_records(s.history):
+                raise AssertionError(f"12e {mode} {r.task_id}: records differ from the solo run")
+            same(f"12e {mode} {r.task_id} vs solo", r.states["data_0"].params,
+                 s.states["data_0"].params)
+    card = card_line() if dev.type == "cuda" else "cpu"
+    log("12e aggregate rounds/sec: " + "; ".join(f"{k} {v:.4f}" for k, v in rates.items())
+        + f"; thread / sequential {rates['dispatched (thread)'] / rates['sequential (solo, back to back)']:.3f}"
+        + f" | {card}")
+    tmp.cleanup()
+    log(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -2003,6 +2282,7 @@ def main() -> int:
     robust_path(dev)
     families_path(dev)
     stream_path(dev)
+    async_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -14,6 +14,13 @@ from olearning_sim_tpu_torch.engine.algorithms import (
     from_config,
     scaffold,
 )
+from olearning_sim_tpu_torch.engine.async_rounds import (
+    AsyncConfig,
+    AsyncRoundPlan,
+    AsyncStats,
+    plan_async_round,
+    staleness_weights,
+)
 from olearning_sim_tpu_torch.engine.client_data import (
     ClientDataset,
     HostClientStore,
@@ -43,7 +50,8 @@ from olearning_sim_tpu_torch.engine.scenario import (
 )
 
 __all__ = [
-    "Adagrad", "Adam", "Algorithm", "ClientDataset", "ControlState", "FedCore",
+    "Adagrad", "Adam", "Algorithm", "AsyncConfig", "AsyncRoundPlan", "AsyncStats",
+    "ClientDataset", "ControlState", "FedCore",
     "FedCoreConfig", "HostClientStore", "PersonalState", "RoundMetrics", "SGD",
     "ScenarioConfig", "ScenarioModel", "ScenarioTrace", "ServerState", "SpikeSpec",
     "StreamStats", "Yogi",
@@ -51,5 +59,5 @@ __all__ = [
     "fedyogi", "from_config", "make_central_eval_set", "make_central_text_eval_set",
     "make_synthetic_dataset", "make_synthetic_text_dataset",
     "make_synthetic_texture_dataset", "make_texture_eval_set", "parse_float_dtype",
-    "scaffold",
+    "plan_async_round", "scaffold", "staleness_weights",
 ]

@@ -29,6 +29,14 @@ import torch
 Params = Dict[str, torch.Tensor]
 
 
+def _bias_correction(b: float, count) -> torch.Tensor:
+    """``1 - b ** count`` in f32, as optax computes it from an int32 count.
+    The count is a Python int, or a device integer where an async round's
+    commits decide on the device whether a step counts."""
+    dev = count.device if isinstance(count, torch.Tensor) else None
+    return 1 - torch.tensor(b, dtype=torch.float32, device=dev) ** count
+
+
 @dataclasses.dataclass(frozen=True)
 class SGD:
     """``optax.sgd(lr, momentum)``: ``trace = g + momentum * trace``;
@@ -72,9 +80,7 @@ class Adam:
         mu = {k: (1 - self.b1) * g + self.b1 * state["mu"][k] for k, g in grads.items()}
         nu = {k: (1 - self.b2) * (g * g) + self.b2 * state["nu"][k]
               for k, g in grads.items()}
-        # optax computes the correction in f32 from an int32 count.
-        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        c1, c2 = _bias_correction(self.b1, count), _bias_correction(self.b2, count)
         updates = {}
         for k in grads:
             mu_hat = mu[k] / c1.to(mu[k].device)
@@ -109,8 +115,7 @@ class Yogi:
         for k, g in grads.items():
             g2, v = g * g, state["nu"][k]
             nu[k] = v - (1 - self.b2) * torch.sign(v - g2) * g2
-        c1 = 1 - torch.tensor(self.b1, dtype=torch.float32) ** count
-        c2 = 1 - torch.tensor(self.b2, dtype=torch.float32) ** count
+        c1, c2 = _bias_correction(self.b1, count), _bias_correction(self.b2, count)
         updates = {}
         for k in grads:
             mu_hat = mu[k] / c1.to(mu[k].device)

@@ -48,6 +48,13 @@ no host sync; each off path is the plain round, bitwise):
   scores. A gathering defense keeps every client's gated, clipped f32 delta
   in a ``[C, ...]`` buffer per parameter for the round.
 
+``round_step(..., async_plan=...)`` runs the buffered asynchronous round
+instead (``engine/async_rounds.py``): the same block body, with each
+client's weighted delta summed into its commit window, then one server
+commit per window. ``FedCoreConfig.shard_server_update`` keeps the server
+optimizer's state over flat padded coordinates and runs the update on flat
+views, as the JAX engine's sharded update does at dp 1.
+
 A population too large for the device streams: :meth:`FedCore.stream_round`
 walks a host-resident ``HostClientStore`` in stream blocks, staged double
 buffered (``engine/staging.py``), through the same block body
@@ -79,6 +86,7 @@ import torch.nn.functional as F
 from torch.func import functional_call, grad_and_value, vmap
 
 from olearning_sim_tpu_torch.device import resolve_device
+from olearning_sim_tpu_torch.engine import async_rounds
 from olearning_sim_tpu_torch.engine.algorithms import Algorithm
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset, pad_to_multiple
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig, distance_scores, robust_aggregate
@@ -129,6 +137,14 @@ class FedCoreConfig:
     # Weight on a model's auxiliary loss (Switch-MoE load balancing); read
     # only for a model that returns one (``sows_aux_loss``).
     aux_loss_weight: float = 0.01
+    # The server update over flat padded coordinates (arXiv 2004.13336), as
+    # the JAX engine lays it out to shard it over dp: the server optimizer's
+    # state is one flat vector per parameter, padded to a multiple of
+    # dp * mp (1 here: the port's round runs at a world of one, ROADMAP.md
+    # A9), and the update runs on flat views. Every server optimizer is
+    # elementwise, so the params are the replicated update's, bit for bit;
+    # they keep their tree layout (eval, export and model files see it).
+    shard_server_update: bool = False
 
     def __post_init__(self):
         for fld in ("batch_size", "max_local_steps", "block_clients",
@@ -154,11 +170,10 @@ class FedCoreConfig:
         Dtype knobs go through :func:`parse_float_dtype`; ``null`` keeps
         the f32 default.
 
-        The JAX engine's other keys are accepted, checked as there, and
-        dropped: ``step_unroll``/``block_unroll`` are ``lax.scan`` unroll
-        hints (ints >= 1) with no counterpart in loops that eager PyTorch
-        runs in Python; ``shard_server_update`` is accepted when false and
-        refused when true (ROADMAP.md A9)."""
+        The JAX engine's ``step_unroll``/``block_unroll`` are accepted,
+        checked as there, and dropped: they are ``lax.scan`` unroll hints
+        (ints >= 1) with no counterpart in loops that eager PyTorch runs in
+        Python. ``shard_server_update`` is kept, as JAX keeps it."""
         if not isinstance(obj, dict):
             raise TypeError(
                 f"fedcore config must be a JSON object, got {type(obj).__name__}"
@@ -168,11 +183,6 @@ class FedCoreConfig:
             v = obj.pop(k, None)
             if v is not None and int(v) < 1:
                 raise ValueError(f"FedCoreConfig.{k} must be an int >= 1, got {v!r}")
-        if bool(obj.pop("shard_server_update", None)):
-            raise ValueError(
-                "fedcore.shard_server_update=true (the sharded server update "
-                "over dp) is not ported yet: ROADMAP.md A9"
-            )
         known = {f.name for f in dataclasses.fields(cls)}
         unknown = sorted(set(obj) - known)
         if unknown:
@@ -187,6 +197,8 @@ class FedCoreConfig:
             kw["sample_mode"] = str(obj["sample_mode"])
         if obj.get("aux_loss_weight") is not None:
             kw["aux_loss_weight"] = float(obj["aux_loss_weight"])
+        if obj.get("shard_server_update") is not None:
+            kw["shard_server_update"] = bool(obj["shard_server_update"])
         for k in ("carry_dtype", "personal_dtype"):
             if obj.get(k) is not None:
                 kw[k] = parse_float_dtype(k, obj[k])
@@ -314,6 +326,31 @@ def _clip_client_deltas(d32: Params, clip_norm: torch.Tensor):
     return clipped, too_big
 
 
+def _flat_pad_leaf(p: torch.Tensor, multiple: int) -> torch.Tensor:
+    """A leaf flattened and zero-padded to a multiple of ``multiple``: the
+    coordinate layout of the sharded server update (the JAX engine's robust
+    aggregation over dp pads identically)."""
+    flat = p.reshape(-1)
+    target = pad_to_multiple(flat.shape[0], multiple)
+    if target != flat.shape[0]:
+        flat = F.pad(flat, (0, target - flat.shape[0]))
+    return flat
+
+
+def _dp_shardable(leaf, dp: int) -> bool:
+    """Whether an optimizer-state leaf carries per-coordinate state (flat,
+    dp-divisible: sharded over dp) or is a scalar kept whole on every
+    device, like Adam's step count."""
+    shape = getattr(leaf, "shape", ())
+    return len(shape) >= 1 and shape[0] > 0 and shape[0] % dp == 0
+
+
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
 def _finite_client_mask(losses: torch.Tensor, deltas: Params) -> torch.Tensor:
     """[block] bool — clients whose local training stayed finite (finite
     loss AND every delta finite). A diverged client contributes nothing to
@@ -352,6 +389,8 @@ class _RoundSums:
     client_loss: list = dataclasses.field(default_factory=list)
     gathered: Optional[Params] = None  # a gathering defense's [C, ...] deltas
     gathered_w: Optional[torch.Tensor] = None
+    buf: Optional[Params] = None              # an async round's [W, ...] window sums
+    buf_w: Optional[torch.Tensor] = None      # and their [W] weights
 
 
 class FedCore:
@@ -377,6 +416,18 @@ class FedCore:
         # A model with an auxiliary loss (moe_text) says so; its forward
         # then takes return_aux=True and returns (logits, aux).
         self.has_aux = bool(getattr(model, "sows_aux_loss", False))
+        # The sharded server update pads each flat parameter to a multiple
+        # of dp * mp, 1 at the port's world of one. Which leaves of its flat
+        # optimizer state are per coordinate (a world above one shards
+        # them) and which stay whole (Adam's count) is decided once, on the
+        # template, as the JAX engine decides it.
+        self._shard_pad = 1
+        self.opt_sharded = None
+        if config.shard_server_update:
+            template = algorithm.server_optimizer.init(
+                self._flat(dict(model.named_parameters())))
+            self.opt_sharded = _tree_map(lambda leaf: _dp_shardable(leaf, self._shard_pad),
+                                         template)
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int = 0, device="cuda",
@@ -389,9 +440,12 @@ class FedCore:
             gen = torch.Generator().manual_seed(_seed_of(seed, 0))
             params = self.model.init_params(gen)
         params = {k: v.detach().to(dev, torch.float32).clone() for k, v in params.items()}
+        # Under shard_server_update the optimizer state is initialised over
+        # the flat padded coordinates (zeros, as the replicated init's).
         return ServerState(
             params=params,
-            opt_state=self.algorithm.server_optimizer.init(params),
+            opt_state=self.algorithm.server_optimizer.init(
+                self._flat(params) if self.config.shard_server_update else params),
             round_idx=0,
             seed=int(seed),
         )
@@ -413,6 +467,31 @@ class FedCore:
             server_control={k: torch.zeros_like(p, dtype=torch.float32)
                             for k, p in state.params.items()},
         )
+
+    def _flat(self, tree: Params) -> Params:
+        """Each tensor flattened and padded to the sharded update's layout."""
+        return {k: _flat_pad_leaf(v, self._shard_pad) for k, v in tree.items()}
+
+    def _flat_rows(self, stacked: torch.Tensor) -> torch.Tensor:
+        """A stack ``[n, ...]`` as ``[n, flat padded]`` rows."""
+        return torch.stack([_flat_pad_leaf(row, self._shard_pad) for row in stacked])
+
+    def _unflat(self, flat: Params, like: Params) -> Params:
+        """Flat padded tensors back in ``like``'s shapes."""
+        return {k: flat[k][:v.numel()].reshape(v.shape) for k, v in like.items()}
+
+    def _server_update(self, params: Params, pseudo_grad: Params, opt_state):
+        """The server optimizer's step on a pseudo-gradient: ``(new_params,
+        opt_state)``, ``params + updates`` as ``optax.apply_updates``. Under
+        ``shard_server_update`` it runs on the flat padded views that the
+        optimizer state is laid out over."""
+        opt = self.algorithm.server_optimizer
+        if not self.config.shard_server_update:
+            updates, opt_state = opt.update(pseudo_grad, opt_state)
+            return {k: p + updates[k] for k, p in params.items()}, opt_state
+        flat = self._flat(params)
+        updates, opt_state = opt.update(self._flat(pseudo_grad), opt_state)
+        return self._unflat({k: f + updates[k] for k, f in flat.items()}, params), opt_state
 
     def round_generator(self, state: ServerState, stream: int = 0) -> torch.Generator:
         """The CPU generator of a round's minibatch indices: a function of
@@ -541,6 +620,7 @@ class FedCore:
                    deadline: Optional[float] = None,
                    attack_scale: Optional[torch.Tensor] = None,
                    defense: Optional[DefenseConfig] = None,
+                   async_plan=None,
                    ):
         """Advance one FL round over the placed, padded population.
 
@@ -564,7 +644,15 @@ class FedCore:
         :class:`~olearning_sim_tpu_torch.engine.defense.DefenseConfig`:
         L2 delta clipping, trimmed-mean / median aggregation and anomaly
         scores (``metrics.anomaly_score``, ``metrics.clipped``); one that
-        is not ``enabled`` is the plain round."""
+        is not ``enabled`` is the plain round.
+
+        ``async_plan`` — an
+        :class:`~olearning_sim_tpu_torch.engine.async_rounds.AsyncRoundPlan`:
+        the buffered asynchronous round instead of the synchronous one
+        (staleness-weighted commits every ``buffer_size`` arrivals,
+        :func:`~olearning_sim_tpu_torch.engine.async_rounds.async_round`);
+        the return is then ``(state, metrics, async_stats)``. It refuses a
+        deadline and per-client state, as the JAX engine does."""
         cfg = self.config
         alg = self.algorithm
         dev = next(iter(state.params.values())).device
@@ -579,33 +667,14 @@ class FedCore:
                 f"client count {C} must be a multiple of block_clients="
                 f"{cfg.block_clients}; pad with ClientDataset.pad_for(block)"
             )
-        if alg.control_variates:
-            if control is None:
-                raise ValueError(
-                    f"algorithm {alg.name!r} uses control variates; pass "
-                    f"control=core.init_control(state, ds.num_clients)"
-                )
-            self._check_client_state("control.client_controls", control.client_controls,
-                                     C, dev)
-        elif control is not None:
-            raise ValueError(
-                f"algorithm {alg.name!r} does not use control variates but "
-                f"control state was supplied"
-            )
-        if alg.personalized:
-            if personal is None:
-                raise ValueError(
-                    f"algorithm {alg.name!r} is personalized; pass "
-                    f"personal=core.init_personal(state, ds.num_clients)"
-                )
-            self._check_client_state("personal.params", personal.params, C, dev)
-        elif personal is not None or personal_indices is not None:
-            raise ValueError(
-                f"algorithm {alg.name!r} is not personalized but personal "
-                f"state was supplied"
-            )
         if defense is not None and not defense.enabled:
             defense = None
+        if async_plan is not None:
+            async_rounds.check_round(self, ds, async_plan, personal=personal, control=control,
+                                     personal_indices=personal_indices,
+                                     completion_time=completion_time, deadline=deadline)
+        else:
+            self._check_sync_state(C, dev, personal, control, personal_indices)
         if defense is not None and defense.gathers_deltas and alg.control_variates:
             raise ValueError(
                 "robust aggregators / anomaly scoring are not supported "
@@ -640,6 +709,10 @@ class FedCore:
         if alg.personalized:
             personal_indices = self._indices(personal_indices, state, 1, ds, dev)
 
+        if async_plan is not None:
+            return async_rounds.async_round(self, state, ds, async_plan, weight, steps_eff,
+                                            indices, attack_scale, defense, clip_norm,
+                                            trim_fraction)
         sums = self._round_sums(state.params, C, clipping=defense is not None,
                                 gathering=defense is not None and defense.gathers_deltas)
         for s in range(0, C, cfg.block_clients):
@@ -654,16 +727,50 @@ class FedCore:
         return self._finish_round(state, sums, defense, trim_fraction, stragglers,
                                   control, ds.population)
 
+    def _check_sync_state(self, C: int, dev, personal, control, personal_indices) -> None:
+        """The synchronous round's per-client state: present iff the
+        algorithm keeps it, with a leading axis of ``C`` clients on ``dev``."""
+        alg = self.algorithm
+        if alg.control_variates:
+            if control is None:
+                raise ValueError(
+                    f"algorithm {alg.name!r} uses control variates; pass "
+                    f"control=core.init_control(state, ds.num_clients)"
+                )
+            self._check_client_state("control.client_controls", control.client_controls,
+                                     C, dev)
+        elif control is not None:
+            raise ValueError(
+                f"algorithm {alg.name!r} does not use control variates but "
+                f"control state was supplied"
+            )
+        if alg.personalized:
+            if personal is None:
+                raise ValueError(
+                    f"algorithm {alg.name!r} is personalized; pass "
+                    f"personal=core.init_personal(state, ds.num_clients)"
+                )
+            self._check_client_state("personal.params", personal.params, C, dev)
+        elif personal is not None or personal_indices is not None:
+            raise ValueError(
+                f"algorithm {alg.name!r} is not personalized but personal "
+                f"state was supplied"
+            )
+
     def _round_sums(self, params: Params, C: int, clipping: bool,
-                    gathering: bool) -> "_RoundSums":
+                    gathering: bool, windows: Optional[int] = None) -> "_RoundSums":
         """Zero running aggregates of a round over ``C`` (padded) clients;
         with ``gathering``, the ``[C, ...]`` f32 delta buffer of a
-        gathering defense."""
+        gathering defense. An async round (``windows`` W) sums into a
+        ``[W, ...]`` f32 window buffer (none when gathering: the windows are
+        built from the gathered deltas) and its ``[W]`` weights instead of
+        the round's delta sum."""
         alg = self.algorithm
         dev = next(iter(params.values())).device
         zero = torch.zeros((), dtype=torch.float32, device=dev)
         sums = _RoundSums(
-            sum_delta={k: torch.zeros_like(p) for k, p in params.items()},
+            sum_delta=({} if windows else
+                       {k: torch.zeros_like(p) for k, p in params.items()}),
             sum_w=zero, sum_loss=zero.clone(), count=zero.clone(),
             sum_ploss=zero.clone(),
             sum_dc=({k: torch.zeros_like(p) for k, p in params.items()}
@@ -677,18 +784,26 @@ class FedCore:
             sums.gathered = {k: torch.empty((C,) + p.shape, dtype=torch.float32, device=dev)
                              for k, p in params.items()}
             sums.gathered_w = torch.empty(C, dtype=torch.float32, device=dev)
+        if windows:
+            sums.buf_w = torch.zeros(windows, dtype=torch.float32, device=dev)
+            if not gathering:
+                sums.buf = {k: torch.zeros((windows,) + p.shape, dtype=torch.float32,
+                                           device=dev) for k, p in params.items()}
         return sums
 
     def _train_block(self, sums: "_RoundSums", params: Params, blk: slice, bx, by,
                      bsteps, bidx, bw, batk=None, clip_norm=None, control=None,
-                     personal=None, personal_idx=None) -> None:
-        """One block of ``block_clients`` clients, shared by the resident
-        and the streamed round: local training, the attack, the finiteness
-        gate, the clip, and the block's terms added to ``sums`` in the
-        round's fixed order. ``blk`` is the block's rows in the padded
-        population (the per-client state and the gathered buffer are
-        indexed by it); ``bw`` is the block's aggregation weights after
-        participation and the deadline."""
+                     personal=None, personal_idx=None, window=None, score=None) -> None:
+        """One block of ``block_clients`` clients, shared by the resident,
+        the streamed and the async round: local training, the attack, the
+        finiteness gate, the clip, and the block's terms added to ``sums``
+        in the round's fixed order. ``blk`` is the block's rows in the
+        padded population (the per-client state and the gathered buffer
+        are indexed by it); ``bw`` is the block's aggregation weights after
+        participation and the deadline. An async round passes each client's
+        commit ``window`` and, under the ``score`` schedule, its ``score``,
+        which reweights its delta after the clip; the weighted deltas then
+        land in their window's slot of ``sums.buf``."""
         cfg = self.config
         alg = self.algorithm
         start = {k: v.unsqueeze(0).expand((cfg.block_clients,) + v.shape)
@@ -710,17 +825,30 @@ class FedCore:
             deltas = _attack_deltas(trained, batk)
         ok = _finite_client_mask(losses, deltas)
         bw_eff = torch.where(ok, bw, 0.0)
-        if clip_norm is None:
+        if clip_norm is None and window is None:
             for k, d in deltas.items():
                 gated = torch.where(_bcast(ok, d), d.float(), 0.0)
                 sums.sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
         else:
             d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
                    for k, d in deltas.items()}
-            d32, too_big = _clip_client_deltas(d32, clip_norm)
-            sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
-            for k, d in d32.items():
-                sums.sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
+            if clip_norm is not None:
+                d32, too_big = _clip_client_deltas(d32, clip_norm)
+                sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
+            if window is None:
+                for k, d in d32.items():
+                    sums.sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
+            else:
+                if score is not None:
+                    # Apodotiko contribution scores reweight clients inside
+                    # their buffer (the staleness discount applies per window
+                    # at commit time).
+                    d32 = {k: d * _bcast(score, d) for k, d in d32.items()}
+                onehot = async_rounds.window_weights(window, bw_eff, sums.buf_w.shape[0])
+                sums.buf_w = sums.buf_w + onehot.sum(dim=0)
+                if sums.buf is not None:
+                    for k, d in d32.items():
+                        sums.buf[k] += torch.tensordot(onehot, d, dims=([0], [0]))
             if sums.gathered is not None:
                 for k, d in d32.items():
                     sums.gathered[k][blk] = d
@@ -781,8 +909,7 @@ class FedCore:
             pseudo_grad = {k: -(s / denom) for k, s in sums.sum_delta.items()}
         else:
             pseudo_grad = {k: -d for k, d in mean_delta.items()}
-        updates, opt_state = alg.server_optimizer.update(pseudo_grad, state.opt_state)
-        new_params = {k: p + updates[k] for k, p in params.items()}
+        new_params, opt_state = self._server_update(params, pseudo_grad, state.opt_state)
         metrics = RoundMetrics(
             mean_loss=sums.sum_loss / denom,
             weight_sum=sums.sum_w,
@@ -815,15 +942,22 @@ class FedCore:
     # --------------------------------------------------------- streamed round
     def _stream_reject(self, defense) -> None:
         """What a streamed round refuses, with the JAX engine's messages.
-        Its other two refusals cannot reach a port core: the port refuses
-        ``shard_server_update`` in :meth:`FedCoreConfig.from_dict` and mp or
-        pp above 1 in ``make_mesh_plan`` (ROADMAP.md A9, A10)."""
+        Its refusal of mp or pp above 1 cannot reach a port core:
+        ``make_mesh_plan`` refuses both (ROADMAP.md A10)."""
         if self.algorithm.personalized or self.algorithm.control_variates:
             raise ValueError(
                 f"streamed rounds do not support the personalized/"
                 f"control-variate algorithm {self.algorithm.name!r} "
                 f"(per-client state does not yet stream; keep the "
                 f"population resident)"
+            )
+        if self.config.shard_server_update:
+            raise ValueError(
+                "streamed rounds use the replicated server update; "
+                "fedcore.shard_server_update=true does not compose with "
+                "scenario.stream_block_rows (the round-close stitch "
+                "would need the manual psum_scatter tail per stream "
+                "variant — docs/performance.md composition matrix)"
             )
         if defense is not None and defense.gathers_deltas:
             raise ValueError(

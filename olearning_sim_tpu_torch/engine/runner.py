@@ -44,12 +44,21 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
   availability (diurnal, charging, spikes, churn) and rotates drifting
   clients' labels for that launch; a population with a
   :class:`~olearning_sim_tpu_torch.engine.client_data.HostClientStore`
-  stays on the host and trains through ``FedCore.stream_round``.
+  stays on the host and trains through ``FedCore.stream_round``;
+- with an :class:`~olearning_sim_tpu_torch.engine.async_rounds.AsyncConfig`
+  each train round plans its clients' simulated arrivals into commit
+  windows and runs the buffered asynchronous round (staleness-weighted
+  commits every ``buffer_size`` arrivals), with the commit, staleness,
+  buffer-depth and idle accounting.
 
 Host state that later rounds depend on (quarantine, the adaptive deadline
-controller, convergence clocks) rides the per-round history records, so a
-rollback or a resume restores it with the history (``_requarantine``,
-``_repace``, ``_reconverge``).
+controller, the async commit clock, convergence clocks) rides the per-round
+history records, so a rollback or a resume restores it with the history
+(``_requarantine``, ``_repace``, ``_reasync``, ``_reconverge``).
+
+:class:`MultiTaskDispatcher` drives several runners in one process, in
+turns (``begin``/``step``/``finish``) or on threads, holding each task's
+lease in a task repo.
 
 The fault injector, the resilience log and the default metrics registry
 and tracer are the port's own process globals: a chaos plan armed through
@@ -59,11 +68,8 @@ task row (``_persist_resilience`` writes the ``resilience`` column), which
 is the interface between the two. A ``registry`` passed in is used
 duck-typed, so a control plane's registry receives the round series.
 
-Not in this slice, each refused by the task bridge when a task asks for it
-(``ROADMAP.md``): buffered async rounds (A8) and the multi-task dispatcher
-(A13). The convergence
-eval's timing row in a performance manager waits for the port of
-``performancemgr/`` (A17).
+The convergence eval's timing row in a performance manager waits for the
+port of ``performancemgr/`` (A17).
 """
 
 from __future__ import annotations
@@ -73,6 +79,7 @@ import dataclasses
 import inspect
 import json
 import math
+import os
 import threading
 import time
 import zlib
@@ -84,6 +91,7 @@ import torch
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.deviceflow.trace_compiler import combine_traces, compile_trace
 from olearning_sim_tpu_torch.engine import pacing
+from olearning_sim_tpu_torch.engine.async_rounds import AsyncConfig, plan_async_round
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset, HostClientStore
 from olearning_sim_tpu_torch.engine.convergence import ConvergenceConfig, ConvergenceTracker
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig
@@ -213,6 +221,7 @@ class SimulationRunner:
         deadline: Optional[DeadlineConfig] = None,
         defense: Optional[DefenseConfig] = None,
         scenario: Optional[ScenarioConfig] = None,
+        async_config: Optional[AsyncConfig] = None,
     ):
         """``task_repo`` — the task table (duck-typed: ``has_task``,
         ``add_task``, ``set_item_value``); a fresh in-memory one when None.
@@ -248,7 +257,12 @@ class SimulationRunner:
         round's dispatch trace, and label drift; a trace is a function of
         (config, trace seed, round), so a rollback or a resume replays it
         with no saved state. Populations with a ``store`` stream (the
-        config's ``stream_block_rows``)."""
+        config's ``stream_block_rows``). ``async_config`` — buffered
+        asynchronous rounds: arrivals simulated by its completion model
+        fill commit windows of ``buffer_size``, each committed with a
+        staleness discount; the cumulative commit clock rides the history
+        records. It excludes ``deadline``, per-client-state algorithms and
+        a streamed population."""
         self.task_id = task_id
         self.core = core
         self.populations = populations
@@ -361,9 +375,34 @@ class SimulationRunner:
         self._cost_compile_fed = False
         # begin()/step()/finish() loop state; None outside a run.
         self._loop: Optional[Dict[str, Any]] = None
+        # Buffered asynchronous rounds: commits every M arrivals with a
+        # staleness discount instead of one deadline-masked commit per
+        # round. max_staleness is their lateness control.
+        self.async_config = async_config
+        if self.async_config is not None:
+            if self.deadline is not None:
+                raise ValueError(
+                    "async and deadline configs are mutually exclusive: "
+                    "the buffered engine's lateness control is "
+                    "async.max_staleness (docs/performance.md)"
+                )
+            if core.algorithm.personalized or core.algorithm.control_variates:
+                raise ValueError(
+                    f"async rounds do not support the personalized/"
+                    f"control-variate algorithm {core.algorithm.name!r}"
+                )
+        # Cumulative committed buffer windows across the task (the async
+        # staleness clock); it rides the history records (_reasync).
+        self._async_commit_clock = 0
         self.scenario = scenario
         self._scenario_models: Dict[str, ScenarioModel] = {}
         if self.scenario is not None and self.scenario.streamed:
+            if self.async_config is not None:
+                raise ValueError(
+                    "streamed scenario populations do not compose with "
+                    "buffered async rounds (the commit-window scan needs "
+                    "the whole cohort resident; docs/performance.md)"
+                )
             if core.algorithm.personalized or core.algorithm.control_variates:
                 raise ValueError(
                     f"streamed scenario populations do not support the "
@@ -608,6 +647,17 @@ class SimulationRunner:
                     p.name, real
                 ).astype(mask.dtype)
             kwargs: Dict[str, Any] = {}
+            aplan = async_completion = None
+            if self.async_config is not None:
+                # Simulate the cohort's arrivals and assign commit windows
+                # in completion-time order: deterministic for (config, trace
+                # seed, operator, population, round), so a rollback or a
+                # resume replays the commit sequence.
+                async_completion = self._completion_times(
+                    p, round_idx, operator, trace, self.async_config.pacing_config())
+                aplan = plan_async_round(self.async_config, async_completion,
+                                         mask[:real] > 0, p.dataset.num_clients)
+                kwargs["async_plan"] = aplan
             pace: Optional[RoundPacing] = None
             if self.deadline is not None:
                 pace = self._plan_pacing(p, round_idx, operator, trace, mask[:real] > 0)
@@ -652,7 +702,7 @@ class SimulationRunner:
             kwargs["defense"] = self.defense
         shift = (strace.label_shift if strace is not None and strace.label_shift is not None
                  and strace.label_shift.any() else None)
-        sstats = None
+        sstats = astats = None
         t_step0 = time.perf_counter()
         with self._phase(operator.name, "train", round_idx):
             # Launches the round's kernels; the device may still be running
@@ -669,7 +719,7 @@ class SimulationRunner:
                     tracer=default_tracer(), **kwargs,
                 )
             else:
-                state, metrics = self._resident_step(p, atk, shift, kwargs)
+                state, metrics, astats = self._resident_step(p, atk, shift, kwargs)
             self.states[p.name] = state
         with self._phase(operator.name, "host_transfer", round_idx):
             # The copy to the host is the sync point: this interval covers
@@ -747,6 +797,9 @@ class SimulationRunner:
             }
         if pace is not None:
             rec.update(self._pacing_record(pace, int(metrics.stragglers)))
+        if aplan is not None:
+            rec.update(self._async_record(p, aplan, async_completion, astats, metrics,
+                                          mask, ok))
         if self.core.algorithm.personalized:
             rec["personal_loss"] = float(metrics.personal_loss)
         return rec
@@ -755,7 +808,8 @@ class SimulationRunner:
                        kwargs: Dict[str, Any]):
         """The core call of a resident population's train round, with the
         label flip and label drift swapped in for this launch only.
-        Returns ``(state, metrics)``."""
+        Returns ``(state, metrics, async_stats)``, the stats None for a
+        synchronous round."""
         dev = self._device(p)
         if atk is not None and atk["scale"] is not None:
             # Byzantine update attack (sign_flip / scale): a per-client
@@ -775,6 +829,7 @@ class SimulationRunner:
             # rounds see them.
             clean_y = p.dataset.y
             p.dataset = dataclasses.replace(p.dataset, y=y_swap)
+        astats = None
         try:
             state = self.states[p.name]
             if self.core.algorithm.personalized:
@@ -791,12 +846,14 @@ class SimulationRunner:
                 state, metrics, control = self.core.round_step(
                     state, p.dataset, control=control, **kwargs)
                 self.control_states[p.name] = control
+            elif "async_plan" in kwargs:
+                state, metrics, astats = self.core.round_step(state, p.dataset, **kwargs)
             else:
                 state, metrics = self.core.round_step(state, p.dataset, **kwargs)
         finally:
             if clean_y is not None:
                 p.dataset = dataclasses.replace(p.dataset, y=clean_y)
-        return state, metrics
+        return state, metrics, astats
 
     def _streamed_attack(self, p: DataPopulation, atk, kwargs: Dict[str, Any]):
         """The part of a population's attack that a streamed round applies:
@@ -928,6 +985,45 @@ class SimulationRunner:
             "round_close_s": pace.round_close_s(),
             "idle_s": round(idle, 6),
         }
+
+    def _async_record(self, p: DataPopulation, aplan, completion: np.ndarray, astats,
+                      metrics, mask: np.ndarray, ok: np.ndarray) -> Dict[str, Any]:
+        """An async round's record fields and series: commits, staleness,
+        buffer depth and the committed updates' buffer wait (idle), from the
+        plan and the round's own stats. ``ok`` is the accounting mask after
+        the quarantine."""
+        real = p.dataset.num_real_clients
+        commits = int(astats.commits)
+        committed = int(metrics.clients_trained)
+        self._async_commit_clock += commits
+        idle = aplan.idle_seconds(completion)
+        rec: Dict[str, Any] = {
+            "commits": commits,
+            "committed": committed,
+            "stale_dropped": int(astats.dropped_stale),
+            "buffer_size": self.async_config.buffer_size,
+            "windows": aplan.num_windows,
+            "idle_s": round(idle, 6),
+            "commit_clock": self._async_commit_clock,
+        }
+        instrument("ols_engine_buffer_depth", self.registry).labels(
+            task_id=self.task_id
+        ).set(committed / commits if commits else 0.0)
+        # A committed client's staleness is its commit-window index (server
+        # commits between its dispatch and its commit).
+        committed_mask = ((aplan.window[:real] >= 0) & ~aplan.stale_dropped_mask()[:real]
+                          & ok[:real] & (mask[:real] > 0))
+        if committed_mask.any():
+            instrument("ols_engine_staleness_rounds", self.registry).labels(
+                task_id=self.task_id
+            ).observe_many(aplan.window[:real][committed_mask].astype(np.float64))
+            # The round's simulated makespan, the last committed arrival
+            # (the final commit's clock): the convergence clock reads it.
+            rec["round_close_s"] = float(completion[committed_mask].max())
+        instrument("ols_engine_idle_seconds_total", self.registry).labels(
+            task_id=self.task_id, mode="async"
+        ).inc(idle)
+        return rec
 
     def _feed_cost(self, round_wall_s: float) -> None:
         """Feed this round's measured wall time into the cost oracle. Round
@@ -1152,6 +1248,7 @@ class SimulationRunner:
         self.history = history
         self._repace()
         self._requarantine()
+        self._reasync()
         self._reconverge()
         self.logger.info(
             task_id=self.task_id, system_name="engine", module_name="runner",
@@ -1266,6 +1363,7 @@ class SimulationRunner:
         self.control_states = _copy_tree(snap["control"])
         self.history = list(snap["history"])
         self._repace()
+        self._reasync()
         self._reconverge()
         if self._quarantine is not None and snap["quarantine"] is not None:
             self._quarantine.restore(snap["quarantine"])
@@ -1277,6 +1375,21 @@ class SimulationRunner:
         replayed rounds see the deadlines they first saw."""
         if self._pacer is not None:
             self._pacer.load_from_history(self.history)
+
+    def _reasync(self) -> None:
+        """Rehydrate the async commit clock from the history just restored
+        (rollback or checkpoint resume): the newest record carrying an
+        ``async_clock`` holds the cumulative commit count as of that
+        round's completion, so replays continue the sequence instead of
+        double-counting commits."""
+        if self.async_config is None:
+            return
+        for rec in reversed(self.history):
+            clock = rec.get("async_clock")
+            if clock is not None:
+                self._async_commit_clock = int(clock)
+                return
+        self._async_commit_clock = 0
 
     def _reconverge(self) -> None:
         """Rehydrate the convergence tracker from the history just restored
@@ -1644,6 +1757,10 @@ class SimulationRunner:
             # Quarantine state after this round's observations rides the
             # history record, and so checkpoint meta (_requarantine).
             round_record["quarantine_state"] = self._quarantine.state_json()
+        if self.async_config is not None:
+            # The async commit clock rides checkpoint meta the same way, so
+            # a resumed run reports a continuous commit sequence (_reasync).
+            round_record["async_clock"] = self._async_commit_clock
         if self._convergence is not None:
             # The tracker's clocks, eval series and to-target facts ride
             # checkpoint meta the same way (_reconverge).
@@ -1837,3 +1954,250 @@ class SimulationRunner:
         while self.step():
             pass
         return self.finish()
+
+
+class MultiTaskDispatcher:
+    """Several tasks' rounds multiplexed in one process, on one device.
+
+    A port of the JAX package's dispatcher over the runner's
+    ``begin()``/``step()``/``finish()``:
+
+    - ``interleave="step"`` (default): cooperative round-robin, one round
+      of one task per turn. With ``fair_share=True`` the task with the most
+      pending device-rounds goes next (ties by list order), so a big task
+      cannot be starved by small ones; otherwise strict rotation. Each
+      task's results are bitwise its solo run's: task states are
+      independent, and the order of turns enters no task's math.
+    - ``interleave="thread"``: each task runs its whole loop on its own
+      thread, so one task's host phases may overlap another's device work.
+      Every runner needs a core of its own: a round passes its parameters
+      through ``functional_call``, which swaps them into the core's module
+      for the call, so two threads on one core would train on each other's
+      weights.
+
+    Leases: with a ``task_repo`` (the port's or the JAX package's
+    ``TaskTableRepo``, used duck-typed), the dispatcher claims each task's
+    lease at start, renews it as a heartbeat (every turn in step mode; a
+    daemon thread in thread mode), releases it on finish, and fences a
+    task whose renewal fails: another process (a supervisor that saw the
+    lease expire) owns it now, so the local run stops and cedes the row. A
+    fenced task's checkpointed rounds stay durable; the reclaimer resumes
+    from them. A task whose ``begin``, ``step`` or ``finish`` raises is
+    isolated: the other tasks run to their end, its lease is left to expire
+    for the supervisor, and the first error is raised after.
+    """
+
+    def __init__(self, runners: List[SimulationRunner], *,
+                 task_repo: Optional[TaskTableRepo] = None,
+                 owner_id: Optional[str] = None,
+                 lease_ttl_s: float = 30.0,
+                 fair_share: bool = True,
+                 interleave: str = "step",
+                 logger: Optional[Logger] = None):
+        if interleave not in ("step", "thread"):
+            raise ValueError(
+                f"interleave must be 'step' or 'thread', got {interleave!r}"
+            )
+        ids = [r.task_id for r in runners]
+        if len(set(ids)) != len(ids):
+            raise ValueError(f"duplicate task ids in dispatcher: {ids}")
+        if interleave == "thread":
+            cores = [id(getattr(r, "core", r)) for r in runners]
+            if len(set(cores)) != len(cores):
+                raise ValueError(
+                    "interleave='thread' needs one FedCore per runner: a round "
+                    "swaps its parameters into the core's module "
+                    "(functional_call), so threads sharing a core would train "
+                    "on each other's weights"
+                )
+        self.runners = list(runners)
+        self.task_repo = task_repo
+        self.owner_id = owner_id or f"dispatcher-{os.getpid()}"
+        self.lease_ttl_s = float(lease_ttl_s)
+        self.fair_share = bool(fair_share)
+        self.interleave = interleave
+        self.logger = logger if logger is not None else Logger()
+        # Task ids dropped mid-run because another process took their
+        # lease (inspect after run(); their histories are not returned:
+        # the new owner's are the ones of record).
+        self.fenced: List[str] = []
+
+    # ------------------------------------------------------------- leases
+    def _claim(self, runner: SimulationRunner) -> bool:
+        if self.task_repo is None:
+            return True
+        if not self.task_repo.has_task(runner.task_id):
+            self.task_repo.add_task(runner.task_id)
+        return self.task_repo.claim_lease(runner.task_id, self.owner_id, self.lease_ttl_s)
+
+    def _renew(self, runner: SimulationRunner) -> bool:
+        if self.task_repo is None:
+            return True
+        return self.task_repo.renew_lease(runner.task_id, self.owner_id, self.lease_ttl_s)
+
+    def _release(self, runner: SimulationRunner) -> None:
+        if self.task_repo is not None:
+            self.task_repo.release_lease(runner.task_id, self.owner_id)
+
+    @staticmethod
+    def _retire(runner: SimulationRunner) -> None:
+        """Retire a finished task's metric series from its registry: a
+        dispatcher serving a stream of tasks in one long-lived process would
+        otherwise keep one labelled series per finished task. Fenced and
+        failed tasks keep theirs: their reclaimer owns them."""
+        from olearning_sim_tpu_torch.telemetry import default_registry
+
+        # getattr: stub runners carry no registry.
+        reg = getattr(runner, "registry", None)
+        reg = reg if reg is not None else default_registry()
+        reg.retire_label_value("task_id", runner.task_id)
+
+    def _fence(self, runner: SimulationRunner) -> None:
+        """Another process owns the task now: stop locally and cede the row
+        (no release: the lease belongs to the new owner)."""
+        self.fenced.append(runner.task_id)
+        self.logger.warning(
+            task_id=runner.task_id, system_name="engine",
+            module_name="dispatcher",
+            message="lease renewal failed; fencing task (another process "
+                    "reclaimed it)",
+        )
+
+    def _report(self, errors: Dict[str, BaseException]) -> None:
+        """Log every task's failure and raise the first."""
+        if not errors:
+            return
+        for tid, e in errors.items():
+            self.logger.error(
+                task_id=tid, system_name="engine", module_name="dispatcher",
+                message=f"task failed under dispatch: {type(e).__name__}: {e}",
+            )
+        raise next(iter(errors.values()))
+
+    # ---------------------------------------------------------------- run
+    def run(self) -> Dict[str, List[Dict[str, Any]]]:
+        """Drive every task to completion; returns task_id -> history for
+        the tasks this process finished (fenced tasks excluded)."""
+        if self.interleave == "thread":
+            return self._run_threaded()
+        return self._run_cooperative()
+
+    def _pick(self, active: List[SimulationRunner], rotation: int) -> SimulationRunner:
+        if not self.fair_share:
+            return active[rotation % len(active)]
+        # Deficit fairness: the most pending device-rounds goes next; ties
+        # break by list order.
+        return max(active, key=lambda r: r.pending_device_rounds())
+
+    def _run_cooperative(self) -> Dict[str, List[Dict[str, Any]]]:
+        active: List[SimulationRunner] = []
+        results: Dict[str, List[Dict[str, Any]]] = {}
+        errors: Dict[str, BaseException] = {}
+        for r in self.runners:
+            if not self._claim(r):
+                self._fence(r)
+                continue
+            try:
+                r.begin()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — reported below
+                # A task that cannot start must not abandon its co-tasks;
+                # its lease is left to expire for the supervisor.
+                errors[r.task_id] = e
+                continue
+            active.append(r)
+        rotation = 0
+        while active:
+            # Renew every active task's lease each turn, not just the
+            # picked one's: one slow step of task A must not let task B's
+            # lease expire mid-run.
+            for other in list(active):
+                if not self._renew(other):
+                    active.remove(other)
+                    self._fence(other)
+            if not active:
+                break
+            r = self._pick(active, rotation)
+            rotation += 1
+            try:
+                more = r.step()
+            except (KeyboardInterrupt, SystemExit):
+                raise
+            except BaseException as e:  # noqa: BLE001 — reported below
+                # The task failed under its failure policy; the others run
+                # on, and its lease is left to expire for the supervisor.
+                active.remove(r)
+                errors[r.task_id] = e
+                continue
+            if not more:
+                active.remove(r)
+                try:
+                    results[r.task_id] = r.finish()
+                except (KeyboardInterrupt, SystemExit):
+                    raise
+                except BaseException as e:  # noqa: BLE001 — reported below
+                    errors[r.task_id] = e
+                    continue
+                self._release(r)
+                self._retire(r)
+        self._report(errors)
+        return results
+
+    def _run_threaded(self) -> Dict[str, List[Dict[str, Any]]]:
+        results: Dict[str, List[Dict[str, Any]]] = {}
+        errors: Dict[str, BaseException] = {}
+        started: List[SimulationRunner] = []
+        for r in self.runners:
+            if not self._claim(r):
+                self._fence(r)
+                continue
+            if r.stop_event is None:
+                # Fencing needs a handle to stop a running loop.
+                r.stop_event = threading.Event()
+            started.append(r)
+
+        fenced_ids: set = set()
+
+        def worker(r: SimulationRunner) -> None:
+            try:
+                results[r.task_id] = r.run()
+            except BaseException as e:  # noqa: BLE001 — reported below
+                errors[r.task_id] = e
+
+        threads = [threading.Thread(target=worker, args=(r,), name=f"dispatch-{r.task_id}",
+                                    daemon=True) for r in started]
+        stop_heart = threading.Event()
+
+        def heartbeat() -> None:
+            # Renew every ttl/3; a failed renewal stops that task's loop at
+            # its next round boundary.
+            while not stop_heart.wait(max(0.05, self.lease_ttl_s / 3.0)):
+                for r in started:
+                    if r.task_id in fenced_ids or r.task_id in results:
+                        continue
+                    if not self._renew(r):
+                        fenced_ids.add(r.task_id)
+                        self._fence(r)
+                        r.stop_event.set()
+
+        heart = None
+        if self.task_repo is not None:
+            heart = threading.Thread(target=heartbeat, name="dispatch-heartbeat", daemon=True)
+            heart.start()
+        for t in threads:
+            t.start()
+        for t in threads:
+            t.join()
+        stop_heart.set()
+        if heart is not None:
+            heart.join()
+        for r in started:
+            if r.task_id in fenced_ids:
+                # A fenced task's history is not ours to report.
+                results.pop(r.task_id, None)
+            elif r.task_id in results:
+                self._release(r)
+                self._retire(r)
+        self._report(errors)
+        return results

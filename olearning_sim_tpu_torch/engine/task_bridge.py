@@ -35,7 +35,10 @@ optional::
       "scenario":  {"online_base": 0.4, "online_amp": 0.3,
                     "spikes": [{"round": 3, "rounds": 2, "boost": 3.0}],
                     "leave_rate": 0.001, "drift_period_rounds": 20,
-                    "stream_block_rows": 2048}
+                    "stream_block_rows": 2048},
+      "async":     {"buffer_size": 64, "max_staleness": 8,
+                    "schedule": "polynomial", "staleness_alpha": 0.5,
+                    "speed_profiles": {"high": 0.05, "low": 0.4}}
     }
 
 With ``scenario.stream_block_rows`` the population stays on the host (a
@@ -51,8 +54,9 @@ has ``{task_id}`` replaced, and a relative one is placed under
 ``tempfile.gettempdir()``, so a relaunch from another working directory
 resumes from the same steps.
 
-A task that asks for a part of the JAX bridge this slice leaves out raises
-a ``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
+A task that asks for a part of the JAX bridge the port leaves out (dp or mp
+above 1, the websocket round provider, a real dataset) raises a
+``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
 dropped block would run a different simulation than the one asked for.
 The JAX bridge's persistent compile-cache switch has no counterpart in
 eager PyTorch and is dropped.
@@ -71,6 +75,7 @@ import numpy as np
 from olearning_sim_tpu_torch.checkpoint import ModelUpdateExporter, RoundCheckpointer
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine.algorithms import from_config as algorithm_from_config
+from olearning_sim_tpu_torch.engine.async_rounds import AsyncConfig
 from olearning_sim_tpu_torch.engine.client_data import (
     HostClientStore,
     make_central_eval_set,
@@ -95,14 +100,9 @@ from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
 
 BUILTIN_PREFIX = "builtin:"
 
-# Engine-params blocks of the JAX bridge that this slice leaves out, with
-# the ROADMAP.md item that ports each.
-LEFT_OUT = {
-    "async": "A8 (buffered async rounds)",
-}
 KNOWN = {"model", "algorithm", "fedcore", "data", "resilience", "quarantine",
          "operator_flow", "scheduling", "storage", "parallel", "checkpoint",
-         "convergence", "deadline", "defense", "scenario"} | set(LEFT_OUT)
+         "convergence", "deadline", "defense", "scenario", "async"}
 
 
 def _engine_params(tc) -> Dict[str, Any]:
@@ -131,10 +131,6 @@ def _refuse_left_out(task_id: str, params: Dict[str, Any], tc) -> None:
     if unknown:
         raise ValueError(f"task {task_id}: unknown engine params blocks {unknown} "
                          f"(known: {sorted(KNOWN)})")
-    for block, item in LEFT_OUT.items():
-        if params.get(block):
-            raise ValueError(f"task {task_id}: engine params {block!r} are not "
-                             f"ported yet: ROADMAP.md {item}")
     par = params.get("parallel")
     if par:
         item = ("A10 (model parallelism)" if any(int(par.get(k, 1)) > 1 for k in ("mp", "pp"))
@@ -248,6 +244,7 @@ def build_runner_from_taskconfig(
                if params.get("defense") else None)
     scenario = (ScenarioConfig.from_dict(params["scenario"])
                 if params.get("scenario") else None)
+    async_config = AsyncConfig.from_dict(params["async"]) if params.get("async") else None
 
     model_cfg = params.get("model", {})
     algo_cfg = dict(params.get("algorithm", {}))
@@ -411,4 +408,5 @@ def build_runner_from_taskconfig(
         deadline=deadline,
         defense=defense,
         scenario=scenario,
+        async_config=async_config,
     )

@@ -57,6 +57,10 @@ _SIM_TIME_BUCKETS = (0.1, 0.25, 0.5, 1.0, 2.5, 5.0, 10.0, 30.0, 60.0,
 # Median-normalized anomaly scores (dimensionless ratio): benign clients
 # cluster near 1; sign-flip/scale attackers land decades above.
 _ANOMALY_BUCKETS = (0.25, 0.5, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0, 128.0)
+# Staleness (server commits between a client's dispatch and its commit):
+# async buffers keep most commits in the low single digits; the long tail
+# is what max_staleness truncates.
+_STALENESS_BUCKETS = (0.0, 1.0, 2.0, 4.0, 8.0, 16.0, 32.0, 64.0)
 
 # name -> (kind, help, label names[, buckets]).
 CATALOG = {
@@ -124,6 +128,20 @@ CATALOG = {
         "budget exceeded via non-finite updates, anomaly flags, or "
         "operator preseed)",
         ("task_id",),
+    ),
+    "ols_engine_buffer_depth": (
+        GAUGE,
+        "Mean committed updates per async buffer commit in the last "
+        "round (the buffer-utilization signal; the configured capacity "
+        "is async.buffer_size)",
+        ("task_id",),
+    ),
+    "ols_engine_staleness_rounds": (
+        HISTOGRAM,
+        "Per committed client update: server commits between its dispatch "
+        "and its commit (async buffered rounds; the staleness-weight "
+        "schedule discounts by this)",
+        ("task_id",), _STALENESS_BUCKETS,
     ),
     "ols_engine_idle_seconds_total": (
         COUNTER,

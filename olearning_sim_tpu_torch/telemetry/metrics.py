@@ -148,6 +148,27 @@ class Metric:
         with self._lock:
             return sorted(self._children.items())
 
+    def remove_children(self, **match: Any) -> int:
+        """Drop children whose labels include ``match`` (e.g.
+        ``task_id="t1"``); returns how many were removed. Prometheus
+        scrapers treat a disappearing series as a counter reset."""
+        want = {k: str(v) for k, v in match.items()}
+        idx = {n: i for i, n in enumerate(self.label_names)}
+        unknown = set(want) - set(idx)
+        if unknown:
+            raise ValueError(
+                f"{self.name}: unknown labels {sorted(unknown)} "
+                f"(declared: {list(self.label_names)})"
+            )
+        with self._lock:
+            doomed = [
+                key for key in self._children
+                if key and all(key[idx[k]] == v for k, v in want.items())
+            ]
+            for key in doomed:
+                del self._children[key]
+            return len(doomed)
+
 
 class _CounterChild:
     __slots__ = ("value", "_lock")
@@ -366,6 +387,17 @@ class MetricsRegistry:
     def metrics(self) -> List[Metric]:
         with self._lock:
             return [self._metrics[k] for k in sorted(self._metrics)]
+
+    def retire_label_value(self, label_name: str, value: Any) -> int:
+        """Drop every child series carrying ``label_name=value`` across all
+        metrics — the retention lever for per-task labels in long-lived
+        processes (call with ``("task_id", task_id)`` once a task's series
+        no longer need scraping). Returns the number of series removed."""
+        removed = 0
+        for metric in self.metrics():
+            if label_name in metric.label_names:
+                removed += metric.remove_children(**{label_name: value})
+        return removed
 
     def clear(self) -> None:
         """Drop every instrument (tests); registrants re-create on next use."""

@@ -3,7 +3,8 @@ state is kept behind, and its dict-backed implementation.
 
 A copy of ``TableRepo`` and ``MemoryTableRepo`` from the JAX package's
 ``utils/repo.py`` (the reference keeps this state in MySQL through a generic
-table accessor). The runner uses a task repo duck-typed (``has_task``,
+table accessor), with the lease rows (``claim_row`` / ``release_row``,
+atomic under the in-memory repo's lock). The runner uses a task repo duck-typed (``has_task``,
 ``add_task``, ``set_item_value``), so a control plane may pass in its own
 SQLite or MySQL-backed repo; the port itself needs only the in-memory one.
 
@@ -50,6 +51,26 @@ class TableRepo(abc.ABC):
     # Convenience shared helpers -------------------------------------------------
     def has_item(self, identify_name: str, identify_value: Any) -> bool:
         return len(self.get_values_by_conditions(identify_name, **{identify_name: identify_value})) > 0
+
+    @staticmethod
+    def _lease_claimable(owner: Any, expires: Any, owner_value: str,
+                         now: float, steal: bool) -> bool:
+        """Shared claim predicate. With ``steal`` a row is claimable when it
+        is already ours, unowned, or its lease has expired (a set owner with
+        no parseable expiry is a legacy/torn row — treated as expired).
+        Without ``steal`` (renewal) ONLY the current owner qualifies — a
+        renewal that succeeded on an unowned row would let a fenced/stale
+        process silently re-adopt a task that was already finalized."""
+        if owner == owner_value:
+            return True
+        if not steal:
+            return False
+        if owner in (None, ""):
+            return True
+        try:
+            return float(expires) < now
+        except (TypeError, ValueError):
+            return True
 
 
 class MemoryTableRepo(TableRepo):
@@ -110,3 +131,40 @@ class MemoryTableRepo(TableRepo):
     def query_all(self):
         with self._lock:
             return [dict(r) for r in self._rows]
+
+    def claim_row(self, identify_name, identify_value, owner_item,
+                  owner_value, expires_item, new_expires, now,
+                  steal: bool = True) -> bool:
+        """Atomic conditional ownership write (the lease CAS): set
+        ``owner_item = owner_value`` and ``expires_item = new_expires`` iff
+        the row is unowned, already owned by ``owner_value``, or (when
+        ``steal``) its lease expired before ``now``. Returns True iff this
+        caller owns the row after the call."""
+        with self._lock:
+            for row in self._rows:
+                if row.get(identify_name) != identify_value:
+                    continue
+                if not self._lease_claimable(
+                    row.get(owner_item), row.get(expires_item),
+                    owner_value, now, steal,
+                ):
+                    return False
+                row[owner_item] = owner_value
+                row[expires_item] = repr(float(new_expires))
+                return True
+            return False
+
+    def release_row(self, identify_name, identify_value, owner_item,
+                    owner_value, expires_item) -> bool:
+        """Drop ownership iff ``owner_item == owner_value``, atomically, so a
+        release racing a steal never wipes the new owner's live lease."""
+        with self._lock:
+            for row in self._rows:
+                if row.get(identify_name) != identify_value:
+                    continue
+                if row.get(owner_item) != owner_value:
+                    return False
+                row[owner_item] = ""
+                row[expires_item] = ""
+                return True
+            return False

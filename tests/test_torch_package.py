@@ -57,6 +57,8 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.checkpoint import checkpointer, msgpack_wire\n"
         "from olearning_sim_tpu_torch.storage import file_repo\n"
         "from olearning_sim_tpu_torch.engine import convergence, scenario, staging\n"
+        "from olearning_sim_tpu_torch.engine import async_rounds\n"
+        "from olearning_sim_tpu_torch.engine.runner import MultiTaskDispatcher\n"
         "from olearning_sim_tpu_torch.utils import durable\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"

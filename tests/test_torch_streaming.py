@@ -254,8 +254,6 @@ def test_stream_round_matches_jax(case):
 
 
 def test_stream_refusals_match_jax():
-    from olearning_sim_tpu.engine import fedcore as jfc
-
     jcore, tcore, jstate, tstate = _cores("mlp2", jalg.fedavg(0.05), talg.fedavg(0.05))
     jstore = jcd.HostClientStore.from_dataset(_host(jcd))
     tstore = tcd.HostClientStore.from_dataset(_host(tcd))
@@ -290,10 +288,15 @@ def test_stream_refusals_match_jax():
         with pytest.raises(ValueError) as got:
             tc.stream_round(ts, tstore, stream_rows=STREAM_ROWS)
         assert str(got.value) == str(want.value)
-    # The sharded server update never reaches a port core.
-    assert jfc.FedCoreConfig.from_dict({"shard_server_update": True}).shard_server_update
-    with pytest.raises(ValueError, match="ROADMAP.md A9"):
-        tfc.FedCoreConfig.from_dict({"shard_server_update": True})
+    # The sharded server update does not stream, in either package.
+    jc, tc, js, ts = _cores("mlp2", jalg.fedavg(0.05), talg.fedavg(0.05),
+                            shard_server_update=True)
+    with pytest.raises(ValueError) as want:
+        jc.stream_round(js, jstore, stream_rows=STREAM_ROWS)
+    with pytest.raises(ValueError) as got:
+        tc.stream_round(ts, tstore, stream_rows=STREAM_ROWS)
+    assert str(got.value) == str(want.value)
+    assert "shard_server_update=true does not compose" in str(got.value)
 
 
 # -------------------------------------------------------- the runner path

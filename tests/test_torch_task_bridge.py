@@ -25,11 +25,10 @@ REPO = pathlib.Path(__file__).resolve().parent.parent
 SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
              "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence",
              "fedavg_mnist_mlp_deadline", "fedavg_mnist_mlp_defense",
-             "fedprox_femnist_resnet18", "ditto_cifar100_vit", "fedavg_mnist_mlp_trace"]
+             "fedprox_femnist_resnet18", "ditto_cifar100_vit", "fedavg_mnist_mlp_trace",
+             "fedavg_mnist_mlp_async", "fedavg_mnist_mlp_bf16"]
 REFUSED = {
     "fedadam_sent140_distilbert_mp2": "A10 \\(model parallelism\\)",
-    "fedavg_mnist_mlp_async": "A8",
-    "fedavg_mnist_mlp_bf16": "A9",
 }
 # Narrow widths per family for the CPU (the configs' own shapes otherwise).
 SHRINK = {
@@ -124,6 +123,14 @@ def test_supported_config_runs_a_tiny_round(name):
         assert isinstance(runner.populations[0].dataset.x, np.ndarray)
         assert rec["stream"]["blocks"] == 1 and rec["stream"]["rows"] == 8
         assert rec["scenario"]["available"] == rec["released"]
+    if name == "fedavg_mnist_mlp_async":
+        # 8 clients in buffers of 25: one window, committed.
+        assert runner.async_config.buffer_size == 25 and runner.async_config.max_staleness == 8
+        assert rec["windows"] == 1 and rec["commits"] == 1 and rec["committed"] == 8
+        assert history[0]["async_clock"] == 1
+    if name == "fedavg_mnist_mlp_bf16":
+        assert runner.core.config.shard_server_update
+        assert runner.core.config.carry_dtype == torch.bfloat16
 
 
 # The larger families' configs against the JAX runner (bf16 compute, as
@@ -168,6 +175,43 @@ def test_large_family_config_matches_jax_runner(name):
         tper = trunner.personal_states["data_0"].params
         assert jax.tree.leaves(jper)[0].dtype == jnp.bfloat16
         assert all(v.dtype == torch.bfloat16 for v in tper.values())
+
+
+def test_async_config_matches_jax_runner():
+    """fedavg_mnist_mlp_async cut to 8 clients in buffers of 3 (three
+    windows, the third past a max_staleness of 1) for 3 rounds, through
+    both bridges: the host outputs exactly (dispatch, the async accounting,
+    the commit clock, the task row), the params within mlp2's bounds."""
+    from test_torch_fedcore_families import PARAM_ATOL, _compare_tree
+    from test_torch_runner import LOSS_ATOL, _run_jax, _run_port
+
+    from olearning_sim_tpu.telemetry import MetricsRegistry
+
+    registry = MetricsRegistry()
+    tasks = []
+    for tid in ("async_jax", "async_port"):
+        task = shrink(load("fedavg_mnist_mlp_async"), rounds=3)
+        params = engine_params(task)
+        params["async"].update(buffer_size=3, max_staleness=1)
+        task["task_id"] = tid
+        tasks.append(set_engine_params(task, params))
+    jrunner, jrepo, jhist, init = _run_jax(tasks[0], registry)
+    trunner, trepo, thist = _run_port(tasks[1], registry, init)
+    for col in ("logical_target", "logical_result", "logical_round"):
+        assert trepo.get_item_value("async_port", col) == \
+            jrepo.get_item_value("async_jax", col), col
+    for jr, tr in zip(jhist, thist):
+        assert tr["async_clock"] == jr["async_clock"]
+        j, t = jr["train"]["data_0"], tr["train"]["data_0"]
+        assert sorted(t) == sorted(j)
+        for k in ("released", "dropped", "clients_trained", "sim_duration_s", "commits",
+                  "committed", "stale_dropped", "buffer_size", "windows", "idle_s",
+                  "commit_clock", "round_close_s"):
+            assert t[k] == j[k], (jr["round"], k)
+        assert abs(t["mean_loss"] - j["mean_loss"]) <= LOSS_ATOL
+        assert t["windows"] == 3 and t["stale_dropped"] == 2
+    _compare_tree(trunner.states["data_0"].params, jrunner.states["data_0"].params,
+                  PARAM_ATOL)
 
 
 def test_trace_config_matches_jax_runner():
@@ -230,16 +274,23 @@ def _with_params(**blocks):
     ("scenario", {"stream_block_rows": 0}),
     ("scenario", {"spikes": [{"boost": 2.0}]}),
     ("scenario", {"class_phase_hours": [6.0]}),
+    ("async", "buffered"),
+    ("async", {"bufer_size": 8}),
+    ("async", {"buffer_size": 0}),
+    ("async", {"schedule": "exponential"}),
+    ("async", {"max_staleness": -1}),
 ])
 def test_malformed_robust_blocks_are_refused_with_jax_messages(block, bad):
-    """A malformed deadline, defense or scenario block fails at build time,
-    before any data is made, with the error the JAX package's parser
-    raises."""
+    """A malformed deadline, defense, scenario or async block fails at
+    build time, before any data is made, with the error the JAX package's
+    parser raises."""
+    from olearning_sim_tpu.engine.async_rounds import AsyncConfig as JAsync
     from olearning_sim_tpu.engine.defense import DefenseConfig as JDefense
     from olearning_sim_tpu.engine.pacing import DeadlineConfig as JDeadline
     from olearning_sim_tpu.engine.scenario import ScenarioConfig as JScenario
 
-    parse = {"deadline": JDeadline, "defense": JDefense, "scenario": JScenario}[block].from_dict
+    parse = {"deadline": JDeadline, "defense": JDefense, "scenario": JScenario,
+             "async": JAsync}[block].from_dict
     with pytest.raises((TypeError, ValueError)) as want:
         parse(bad)
     with pytest.raises(want.type) as got:
@@ -457,21 +508,23 @@ def test_task_manager_stops_a_port_runner():
     {"aux_loss_weight": 0.5},
     {"aux_loss_weight": None, "step_unroll": None},
     {"shard_server_update": False, "batch_size": 8},
+    {"shard_server_update": None},
 ])
 def test_fedcore_config_accepts_jax_keys(obj):
-    # Both accept the input; the port drops the JAX-only keys (it has no
-    # field for them), keeps aux_loss_weight as JAX's from_dict does (a
-    # float, 0.01 when absent or null; read by moe_text) and keeps every
-    # field the two share equal.
+    # Both accept the input; the port drops the JAX-only unroll hints (it
+    # has no field for them), keeps aux_loss_weight as JAX's from_dict does
+    # (a float, 0.01 when absent or null; read by moe_text) and
+    # shard_server_update (False when absent or null), and keeps every field
+    # the two share equal.
     from olearning_sim_tpu.engine import fedcore as jfc
 
     a, b = jfc.FedCoreConfig.from_dict(obj), tfc.FedCoreConfig.from_dict(obj)
-    for k in ("step_unroll", "block_unroll", "shard_server_update"):
+    for k in ("step_unroll", "block_unroll"):
         assert not hasattr(b, k), k
     for k in ("batch_size", "max_local_steps", "block_clients", "eval_batch_size",
-              "sample_mode", "aux_loss_weight"):
+              "sample_mode", "aux_loss_weight", "shard_server_update"):
         assert getattr(a, k) == getattr(b, k), k
-    assert type(b.aux_loss_weight) is float
+    assert type(b.aux_loss_weight) is float and type(b.shard_server_update) is bool
 
 
 @pytest.mark.parametrize("obj", [{"step_unroll": 0}, {"block_unroll": -1},
@@ -487,8 +540,12 @@ def test_fedcore_config_rejects_as_jax(obj):
 
 
 def test_fedcore_config_refuses_sharded_server_update():
+    # Since the port runs the sharded server update at a world of one
+    # (tests/test_torch_shard_update.py), the key is accepted and kept as
+    # JAX keeps it; the name stays from when the port refused it.
     from olearning_sim_tpu.engine import fedcore as jfc
 
-    assert jfc.FedCoreConfig.from_dict({"shard_server_update": True}).shard_server_update
-    with pytest.raises(ValueError, match="ROADMAP.md A9"):
-        tfc.FedCoreConfig.from_dict({"shard_server_update": True})
+    for value in (True, 1, "yes"):
+        a = jfc.FedCoreConfig.from_dict({"shard_server_update": value})
+        b = tfc.FedCoreConfig.from_dict({"shard_server_update": value})
+        assert a.shard_server_update is b.shard_server_update is True
