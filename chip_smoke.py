@@ -203,7 +203,27 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     12e 12a's task and ``fedavg_mnist_mlp``, 3 rounds each, solo back to
        back, then under ``MultiTaskDispatcher`` in turns and on threads
        with a task repo holding the leases: each task bitwise its solo run,
-       every lease released; the aggregate rounds/sec of each mode.
+       every lease released; the aggregate rounds/sec of each mode; then
+       two ``fedavg_mnist_mlp`` tasks sharing one FedCore on threads, each
+       bitwise its solo run.
+
+13. Data parallelism over ``torch.distributed`` (no kernel of the repo is
+    on this path: the collectives are NCCL's and gloo's):
+    13a an NCCL group of one rank (``init_method`` tcp on localhost): phase
+       4's DistilBERT round, 8a, 9b (its attack), 11a, 12a and 12d
+       (sharded) rerun through the same entry points, each bitwise its
+       earlier run with no group, with the bytes each collective is handed
+       per round and phase 4's rounds/sec under the group against none;
+       then the group is destroyed;
+    13b two ranks on the one card over gloo (NCCL refuses two ranks on one
+       card), spawned: ``fedavg_mnist_mlp``, ``_defense`` under 9b's
+       attack, ``_async``, ``_bf16`` sharded and replicated, and 12c's
+       preempted async run resumed, through the bridge (its plan over
+       both ranks): the ranks' records and params equal; 9b bitwise dp 1's
+       (quarantine included), 12d sharded bitwise replicated, the resume
+       bitwise the uninterrupted dp-2 run, the mean-aggregated runs within
+       DP_PARAM_ATOL of dp 1's; 9b's peak memory per rank at dp 1 and 2,
+       and the gloo rounds/sec (through the host: not a speed of the port).
 
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
@@ -562,31 +582,49 @@ def stats_kernel_phase(dev):
             "replaces": REPLACES_STATS, "max_abs_err": slice_err, **times}
 
 
-def main_path(dev):
-    """Phases 4 and 5; returns K1's launches in them."""
-    import torch
+# Earlier phases' results on the card, held by phase 13: each entry's
+# final params on the host (and phase 4's round seconds, 9b's peak memory).
+RESULTS = {}
+MAIN_CFG = dict(batch_size=16, max_local_steps=4, block_clients=8)
+MAIN_SEQ_LEN = 64
 
+
+def _host(params):
+    return {k: v.detach().cpu().clone() for k, v in params.items()}
+
+
+def distilbert_setup(dev, plan):
+    """Phase 4's full-width DistilBERT FedAdam core on ``plan`` and its 16
+    synthetic clients (block 8), this rank's shard placed."""
     from olearning_sim_tpu_torch.engine import (
         FedCoreConfig,
         build_fedcore,
         fedadam,
-        make_central_text_eval_set,
         make_synthetic_text_dataset,
     )
-    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
 
-    cfg = FedCoreConfig(batch_size=16, max_local_steps=4, block_clients=8)
-    seq_len, eval_n = 64, 2048
-    ds = make_synthetic_text_dataset(0, 16, 24, seq_len, dirichlet_alpha=0.8)
-    ds = ds.pad_for(cfg.block_clients).to(dev)
-    x_eval, y_eval = make_central_text_eval_set(0, eval_n, seq_len)
+    cfg = FedCoreConfig(**MAIN_CFG)
+    ds = make_synthetic_text_dataset(0, 16, 24, MAIN_SEQ_LEN, dirichlet_alpha=0.8)
+    ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
+    return build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, device=dev, plan=plan), ds
 
-    flash_attention.launches = flash_attention_stats.launches = 0
-    core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, device=dev)
+
+def distilbert_rounds(dev, label):
+    """Phase 4's two full-width DistilBERT FedAdam rounds (16 synthetic
+    clients, block 8) on the plan over the default group, or a world of
+    one: returns (core, state, seconds per round)."""
+    import torch
+
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
+
+    plan = make_mesh_plan()
+    core, ds = distilbert_setup(dev, plan)
+    cfg = core.config
     state = core.init_state(seed=0, device=dev)
     n_params = sum(p.numel() for p in state.params.values())
-    log(f"main path: distilbert {n_params} params, {ds.num_clients} clients, "
-        f"block {cfg.block_clients}, batch {cfg.batch_size}, steps {cfg.max_local_steps}")
+    log(f"{label}: distilbert {n_params} params, {ds.padded_clients} clients over dp "
+        f"{plan.dp}, block {cfg.block_clients}, batch {cfg.batch_size}, steps "
+        f"{cfg.max_local_steps}")
     times = []
     for r in range(2):
         torch.cuda.synchronize()
@@ -597,9 +635,31 @@ def main_path(dev):
         times.append(time.perf_counter() - t0)
         real = metrics.client_loss[:ds.num_real_clients]
         if not (math.isfinite(loss) and bool(torch.isfinite(real).all())):
-            raise AssertionError(f"round {r}: non-finite loss {loss} / {real}")
-        log(f"round {r}: mean_loss={loss:.6f} clients_trained="
+            raise AssertionError(f"{label} {r}: non-finite loss {loss} / {real}")
+        log(f"{label} {r}: mean_loss={loss:.6f} clients_trained="
             f"{float(metrics.clients_trained):.0f} seconds={times[-1]:.4f}")
+    return core, state, times
+
+
+def main_path(dev):
+    """Phases 4 and 5; returns K1's launches in them."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        fedadam,
+        make_central_text_eval_set,
+    )
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+
+    cfg = FedCoreConfig(**MAIN_CFG)
+    seq_len, eval_n = MAIN_SEQ_LEN, 2048
+    x_eval, y_eval = make_central_text_eval_set(0, eval_n, seq_len)
+
+    flash_attention.launches = flash_attention_stats.launches = 0
+    core, state, times = distilbert_rounds(dev, "round")
+    RESULTS["4"] = {"params": _host(state.params), "seconds": times}
     log(f"main path rounds/sec (round 1, after the first): {1.0 / times[1]:.4f}")
     t0 = time.perf_counter()
     loss, acc = core.evaluate(state.params, x_eval, y_eval)
@@ -1051,7 +1111,7 @@ def run_task(label, name, dev, rounds, clients=None, edit=None, chaos=None, shri
     runner = build_runner_from_taskconfig(task, registry=registry, stop_event=stop, device=dev)
     pop = runner.populations[0]
     log(f"{label}: built in {time.perf_counter() - t0:.1f} s: {runner.core.algorithm.name}, "
-        f"{pop.dataset.num_real_clients} clients (padded to {pop.dataset.num_clients}), "
+        f"{pop.dataset.num_real_clients} clients (padded to {pop.dataset.padded_clients}), "
         f"features {tuple(pop.dataset.x.shape)} {pop.dataset.x.dtype}, "
         f"{len(runner.operators)} operator(s)")
     times = []
@@ -1387,6 +1447,7 @@ def task_path(dev, shrink=None):
 
     t_phase = time.perf_counter()
     runner_a, hist_a = run_task("8a", "fedavg_mnist_mlp", dev, 3, shrink=shrink)
+    RESULTS["8a"] = {"params": _host(runner_a.states["data_0"].params)}
     run_task("8b", "fedavg_cifar10_cnn", dev, 2, shrink=shrink)
     run_task("8c", "scaffold_mnist_mlp", dev, 2, shrink=shrink)
     runner_d, hist_d = run_task("8d", "fedadam_sent140_distilbert", dev, 2,
@@ -1712,6 +1773,9 @@ def robust_path(dev, shrink=None):
         runner_b, hist_b = run_task("9b attacked defended", name, dev, 6, chaos=ATTACK_PLAN,
                                     shrink=shrink)
     losses["9b attacked defended"] = hist_b[-1]["evaluate"]["data_0"]["eval_loss"]
+    RESULTS["9b"] = {"params": _host(runner_b.states["data_0"].params),
+                     "quarantine": runner_b._quarantine.state_json(),
+                     "peak": _peak(dev)}
     log("9b final eval loss: " + "; ".join(f"{k[3:]} {v:.6f}" for k, v in losses.items()))
     pop = runner_b.populations[0]
     n_params = sum(p.numel() for p in runner_b.states["data_0"].params.values())
@@ -1942,6 +2006,7 @@ def stream_path(dev, shrink=None):
     # stream_block_rows: the scenario's masks and drift stay live).
     peaks_s, peaks_r = [], []
     runner_s, hist_s = run_task("11a streamed", name, dev, 3, shrink=shrink, peaks=peaks_s)
+    RESULTS["11a"] = {"params": _host(runner_s.states["data_0"].params)}
     _stream_lines("11a streamed", hist_s, peaks_s)
     runner_r, hist_r = run_task("11a resident", name, dev, 3, shrink=shrink, edit=resident,
                                 peaks=peaks_r)
@@ -2087,6 +2152,7 @@ def async_path(dev, shrink=None):
     # product, no atomics) and once on the CPU.
     peaks = []
     runner_a, hist_a = run_task("12a", name, dev, 3, shrink=shrink, peaks=peaks)
+    RESULTS["12a"] = {"params": _host(runner_a.states["data_0"].params)}
     mem = ["not measured (cpu)" if v is None else f"{v / 2**30:.4f} GiB" for v in peaks]
     log(f"12a peak device memory per round: {mem}")
     P = sum(v.numel() for v in runner_a.states["data_0"].params.values())
@@ -2197,6 +2263,8 @@ def async_path(dev, shrink=None):
     for rounds, fedadam in ((3, False), (1, True)):
         sharded, _ = run_task("12d sharded", bf16, dev, rounds, shrink=shrink,
                               edit=shard(True, fedadam))
+        if not fedadam:
+            RESULTS["12d"] = {"params": _host(sharded.states["data_0"].params)}
         replicated, _ = run_task("12d replicated", bf16, dev, rounds, shrink=shrink,
                                  edit=shard(False, fedadam))
         so, ro = sharded.states["data_0"].opt_state, replicated.states["data_0"].opt_state
@@ -2249,12 +2317,287 @@ def async_path(dev, shrink=None):
                 raise AssertionError(f"12e {mode} {r.task_id}: records differ from the solo run")
             same(f"12e {mode} {r.task_id} vs solo", r.states["data_0"].params,
                  s.states["data_0"].params)
+    # Two runners sharing one FedCore on threads (each thread trains in a
+    # module skeleton of its own), each bitwise its solo run.
+    shared = []
+    for suffix in ("a", "b"):
+        task, _ = load_task("fedavg_mnist_mlp", 3, shrink=shrink)
+        task["task_id"] += f"_shared_{suffix}"
+        shared.append(build_runner_from_taskconfig(task, device=dev))
+    alone = [build_runner_from_taskconfig(
+        dict(load_task("fedavg_mnist_mlp", 3, shrink=shrink)[0], task_id=r.task_id),
+        device=dev) for r in shared]
+    for r in alone:
+        r.run()
+    shared[1].core = shared[0].core
+    MultiTaskDispatcher(shared, interleave="thread").run()
+    for r, s in zip(shared, alone):
+        same(f"12e thread, one shared core, {r.task_id} vs solo", r.states["data_0"].params,
+             s.states["data_0"].params)
     card = card_line() if dev.type == "cuda" else "cpu"
     log("12e aggregate rounds/sec: " + "; ".join(f"{k} {v:.4f}" for k, v in rates.items())
         + f"; thread / sequential {rates['dispatched (thread)'] / rates['sequential (solo, back to back)']:.3f}"
         + f" | {card}")
     tmp.cleanup()
     log(f"phase 12 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def _peak(dev):
+    import torch
+
+    return torch.cuda.max_memory_allocated(dev) if dev.type == "cuda" else None
+
+
+def _free_port() -> int:
+    import socket
+
+    with socket.socket() as sk:
+        sk.bind(("localhost", 0))
+        return sk.getsockname()[1]
+
+
+def _held(label, got, want, atol=0.0):
+    """``got``'s params against ``want``'s: bitwise when ``atol`` is 0,
+    else within ``atol`` (max abs); prints the largest difference."""
+    import torch
+
+    diff = max(float((got[k].cpu() - want[k].cpu()).abs().max()) for k in want)
+    log(f"{label}: params max abs diff {diff:g} (tol {atol:g})")
+    exact = all(torch.equal(got[k].cpu(), want[k].cpu()) for k in want)
+    if (atol == 0 and not exact) or not diff <= atol:
+        raise AssertionError(f"{label}: params differ")
+
+
+# Phase 13b's tasks per rank: (label, config, rounds, engine-params edit).
+DP_TASKS = (("8a", "fedavg_mnist_mlp", 3), ("9b", "fedavg_mnist_mlp_defense", 6),
+            ("12a", "fedavg_mnist_mlp_async", 3), ("12d", "fedavg_mnist_mlp_bf16", 3))
+# Phase 13b, a mean-aggregated dp-2 run against the dp-1 run on the card:
+# the two add the ranks' partial sums in another order, and the CPU tests
+# hold the port at dp 2 to JAX's dp 2 within this (test_torch_dp.py).
+DP_PARAM_ATOL = 1e-3
+DP_TIMEOUT_S = 420
+
+
+def _dp_rank(rank, world, store_path, out_dir, ckpt_dir, dev_type, shrink):
+    """Phase 13b on one rank (a spawned process): the tasks of DP_TASKS
+    over a gloo group of ``world`` ranks, all on card 0 (or the CPU in a
+    rehearsal), then a resume; results as a torch file per rank. Rank 0
+    alone prints."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.parallel import collectives
+    from olearning_sim_tpu_torch.resilience import HostPreemption, faults
+
+    dev = torch.device("cpu")
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world)
+    out = {}
+    try:
+        with quiet:
+            for label, name, rounds in DP_TASKS:
+                chaos = ATTACK_PLAN if label == "9b" else None
+                collectives.reset_bytes()
+                runner, hist = run_task(f"13b {label} dp {world} gloo", name, dev, rounds,
+                                        chaos=chaos, shrink=shrink)
+                if runner.core.dp != world:
+                    raise AssertionError(f"13b {label}: the bridge's plan has dp "
+                                         f"{runner.core.dp}, not the world's {world}")
+                out[label] = {"params": _host(runner.states["data_0"].params),
+                              "history": json.dumps(hist, sort_keys=True, default=float),
+                              "peak": _peak(dev), "bytes": dict(collectives.BYTES),
+                              "quarantine": (runner._quarantine.state_json()
+                                             if runner._quarantine is not None else None)}
+                if label == "12d":
+                    replicated, _ = run_task(f"13b 12d replicated dp {world} gloo", name, dev,
+                                             rounds, shrink=shrink, edit=_shard_edit(False))
+                    out["12d replicated"] = {"params": _host(replicated.states["data_0"]
+                                                             .params)}
+            # A resume at dp 2, as 12c: 12a with a checkpoint every round, a
+            # host preemption at round 2's start ending the run, a fresh
+            # runner.
+            ckpt = params_edit(checkpoint={"directory": os.path.join(ckpt_dir, "{task_id}"),
+                                           "every": 1})
+            resilience = _engine_params(load_task("fedavg_mnist_mlp_async", 1)[0])["resilience"]
+            task, _ = load_task("fedavg_mnist_mlp_async", 3, shrink=shrink, edit=_edits(
+                ckpt, params_edit(resilience=dict(resilience, failure_policy="fail_task"))))
+            first = build_runner_from_taskconfig(task, device=dev)
+            plan = {"seed": 0, "specs": [{"point": "runner.round_begin", "rounds": [2],
+                                          "error": "preempt"}]}
+            with faults.chaos(faults.FaultPlan.from_dict(plan)):
+                first.begin()
+                with contextlib.suppress(HostPreemption):
+                    while first.step():
+                        pass
+            first.checkpointer.wait()
+            resumed, hist = run_task(f"13b resume dp {world} gloo", "fedavg_mnist_mlp_async", dev,
+                                     3, edit=ckpt, shrink=shrink)
+            out["resume"] = {"params": _host(resumed.states["data_0"].params),
+                             "start": len(first.history),
+                             "history": json.dumps(hist, sort_keys=True, default=float)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _shard_edit(on):
+    def edit(task):
+        params = _engine_params(task)
+        params["fedcore"]["shard_server_update"] = on
+        _set_engine_params(task, params)
+        return f"shard_server_update {on}"
+    return edit
+
+
+def dp_path(dev, shrink=None):
+    """Phase 13: the port's round data-parallel over ``torch.distributed``
+    (no kernel of the repo is on this path: the collectives are NCCL's and
+    gloo's). 13a runs earlier phases' paths under an NCCL group of one rank,
+    so every collective of the round launches on the card, each bitwise its
+    earlier run with no group; 13b runs two ranks on the one card over gloo
+    (NCCL refuses two ranks on one card) against the dp-1 runs."""
+    import tempfile
+
+    import torch
+    import torch.distributed as dist
+    import torch.multiprocessing as tmp
+
+    from olearning_sim_tpu_torch.parallel import collectives
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
+
+    t_phase = time.perf_counter()
+    card = card_line() if dev.type == "cuda" else "cpu"
+    backend = "nccl" if dev.type == "cuda" else "gloo"
+
+    # 13a: an NCCL group of one rank.
+    dist.init_process_group(backend, init_method=f"tcp://localhost:{_free_port()}",
+                            world_size=1, rank=0)
+    plan = make_mesh_plan()
+    log(f"13a: {dist.get_backend()} group of {dist.get_world_size()} rank; plan dp {plan.dp}, "
+        f"dp group {'set' if plan.dp_group is not None else 'none'}")
+    if plan.dp_group is None:
+        raise AssertionError("13a: the plan over an initialised group has no dp group")
+
+    def traffic(label, rounds):
+        per = {k: v // rounds for k, v in collectives.BYTES.items() if v}
+        log(f"13a {label}: bytes handed to the backend per round {per}")
+        if not per:
+            raise AssertionError(f"13a {label}: no collective launched")
+
+    if shrink is None:
+        collectives.reset_bytes()
+        _, state, times = distilbert_rounds(dev, "13a 4 round")
+        _held(f"13a 4 ({backend} group of one) vs phase 4 (no group)", state.params,
+              RESULTS["4"]["params"])
+        log(f"13a 4 rounds/sec (round 1): {backend} group of one {1.0 / times[1]:.4f}, no group "
+            f"{1.0 / RESULTS['4']['seconds'][1]:.4f} | {card}")
+        traffic("4", 2)
+        del state
+        # Within one process and one state: round 0 from the same params,
+        # in turns with no group and with the group, and the psum of the
+        # round's sums alone (CUDA events).
+        from olearning_sim_tpu_torch.parallel.mesh import MeshPlan
+
+        core_g, ds = distilbert_setup(dev, make_mesh_plan())
+        core_n, _ = distilbert_setup(dev, MeshPlan(dp=1, sp=1, rank=0))
+        state0 = core_n.init_state(seed=0, device=dev)
+        secs, outs = {"no group": [], backend: []}, {}
+        for _ in range(3):
+            for name, core in (("no group", core_n), (backend, core_g)):
+                _sync(dev)
+                t0 = time.perf_counter()
+                st, m = core.round_step(state0, ds)
+                float(m.mean_loss)
+                _sync(dev)
+                secs[name].append(time.perf_counter() - t0)
+                outs[name] = st.params
+        _held(f"13a 4 round 0 ({backend} group of one) vs no group, in turns", outs[backend],
+              outs["no group"])
+        sums = [torch.zeros_like(v) for v in state0.params.values()] + \
+            [torch.zeros((), device=v.device) for v in list(state0.params.values())[:4]]
+        psum_ms = sorted(cuda_time_ms(lambda: collectives.psum(sums, plan.dp_group), iters=5,
+                                      warmup=1) for _ in range(3))
+        log(f"13a 4 round seconds in turns: " + "; ".join(
+            f"{k} {[round(v, 4) for v in vs]} (median {sorted(vs)[1]:.4f})"
+            for k, vs in secs.items())
+            + f"; the round's psum alone {psum_ms[1]:.4f} ms | {card}")
+        del core_g, core_n, state0, outs, sums, st, m, ds
+    for label, name, rounds, chaos in (("8a", "fedavg_mnist_mlp", 3, None),
+                                       ("9b", "fedavg_mnist_mlp_defense", 6, ATTACK_PLAN),
+                                       ("11a", "fedavg_mnist_mlp_trace", 3, None),
+                                       ("12a", "fedavg_mnist_mlp_async", 3, None),
+                                       ("12d", "fedavg_mnist_mlp_bf16", 3, None)):
+        collectives.reset_bytes()
+        runner, _ = run_task(f"13a {label}", name, dev, rounds, chaos=chaos, shrink=shrink,
+                             edit=_shard_edit(True) if label == "12d" else None)
+        _held(f"13a {label} ({backend} group of one) vs {label} (no group)",
+              runner.states["data_0"].params, RESULTS[label]["params"])
+        if label == "9b" and runner._quarantine.state_json() != RESULTS["9b"]["quarantine"]:
+            raise AssertionError("13a 9b: the quarantine state differs")
+        traffic(label, rounds)
+        del runner
+    dist.destroy_process_group()
+    log(f"13a: group destroyed; initialised {dist.is_initialized()}")
+
+    # 13b: two ranks over gloo on the one card.
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_13_") as work:
+        ckpt_dir = tempfile.mkdtemp(dir=work)
+        t0 = time.perf_counter()
+        ctx = tmp.start_processes(_dp_rank, args=(world, f"{work}/store", work, ckpt_dir,
+                                                  dev.type, shrink),
+                                  nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1):
+                if time.perf_counter() - t0 > DP_TIMEOUT_S:
+                    raise AssertionError(f"13b: the ranks passed {DP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False) for r in range(world)]
+    log(f"13b: {world} gloo ranks on one card ran in {time.perf_counter() - t0:.1f} s "
+        f"(the gloo collectives go through the host: their rounds/sec above is not a speed "
+        f"of the port)")
+    for label in [t[0] for t in DP_TASKS] + ["12d replicated", "resume"]:
+        if ranks[0][label].get("history") != ranks[1][label].get("history"):
+            raise AssertionError(f"13b {label}: the ranks' host records differ")
+        _held(f"13b {label} rank 1 vs rank 0", ranks[1][label]["params"],
+              ranks[0][label]["params"])
+    r0 = ranks[0]
+    for label, _, rounds in DP_TASKS:
+        log(f"13b {label}: bytes handed to gloo per round "
+            f"{ {k: v // rounds for k, v in r0[label]['bytes'].items() if v} }")
+    _held("13b 8a dp 2 vs 8a dp 1", r0["8a"]["params"], RESULTS["8a"]["params"], DP_PARAM_ATOL)
+    _held("13b 12a dp 2 vs 12a dp 1", r0["12a"]["params"], RESULTS["12a"]["params"],
+          DP_PARAM_ATOL)
+    _held("13b 12d dp 2 vs 12d dp 1", r0["12d"]["params"], RESULTS["12d"]["params"],
+          DP_PARAM_ATOL)
+    _held("13b 12d sharded vs replicated at dp 2", r0["12d"]["params"],
+          r0["12d replicated"]["params"])
+    # The trimmed mean sorts every coordinate's client column whole on the
+    # rank that owns it: bitwise dp 1, the quarantine decisions included.
+    _held("13b 9b dp 2 vs 9b dp 1", r0["9b"]["params"], RESULTS["9b"]["params"])
+    if r0["9b"]["quarantine"] != RESULTS["9b"]["quarantine"]:
+        raise AssertionError("13b 9b: the quarantine state differs from dp 1's")
+    if r0["resume"]["start"] != 2:
+        raise AssertionError(f"13b resume: preempted after {r0['resume']['start']} rounds")
+    _held("13b resume dp 2 vs 12a dp 2", r0["resume"]["params"], r0["12a"]["params"])
+    gib = lambda v: "not measured (cpu)" if v is None else f"{v / 2**30:.4f} GiB"
+    log(f"13b 9b peak device memory per rank: dp 1 {gib(RESULTS['9b']['peak'])}, dp 2 "
+        + ", ".join(f"rank {r} {gib(res['9b']['peak'])}" for r, res in enumerate(ranks))
+        + f" | {card}")
+    log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
 def main() -> int:
@@ -2283,6 +2626,7 @@ def main() -> int:
     families_path(dev)
     stream_path(dev)
     async_path(dev)
+    dp_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

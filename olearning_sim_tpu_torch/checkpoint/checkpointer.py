@@ -28,6 +28,16 @@ previous good step without reading it, a step with no manifest is attempted
 and skipped if unreadable, each skip logged as ``checkpoint_fallback``.
 A port checkpoint is not an orbax step: neither package reads the other's.
 Model files (:class:`ModelUpdateExporter`) are the interchange format.
+
+Over dp ranks (:attr:`RoundCheckpointer.group`, the runner's dp group) the
+runner hands every rank's save the same full tree (sharded optimizer state
+gathered to its flat padded layout, per-client state over the whole
+population); rank 0 writes it, and every rank meets the others at each
+commit (:meth:`RoundCheckpointer.wait` agrees on the commit's outcome, so
+a failed write raises on every rank) and reads the same step on restore.
+As in the JAX package, a step whose leaves do not match the template (a
+sharded optimizer state saved at a dp whose padding differs) is unreadable,
+and restore falls back past it.
 """
 
 from __future__ import annotations
@@ -46,6 +56,7 @@ from typing import Any, Dict, List, Optional, Tuple
 import numpy as np
 import torch
 
+from olearning_sim_tpu_torch.parallel import collectives
 from olearning_sim_tpu_torch.checkpoint.msgpack_wire import (
     msgpack_restore,
     restore_into,
@@ -143,6 +154,18 @@ class RoundCheckpointer:
         self._commit_thread: Optional[threading.Thread] = None
         self._commit_error: Optional[BaseException] = None
         self._streams: Dict[torch.device, Any] = {}
+        # The dp group of the ranks that share this directory (set by the
+        # runner); None: one process.
+        self.group = None
+
+    @property
+    def writer(self) -> bool:
+        """Whether this rank writes (rank 0 of the group)."""
+        return collectives.rank(self.group) == 0
+
+    def _barrier(self) -> None:
+        if self.group is not None:
+            collectives.agree(False, self.group)
 
     def _call(self, point: str, fn, *args, **kwargs):
         """``fn`` behind the ``point`` fault-injection point."""
@@ -170,12 +193,18 @@ class RoundCheckpointer:
         # One commit in flight: the previous step must have landed (and its
         # error, if any, surfaced) before this one is staged.
         self.wait()
-        if not force and os.path.isdir(self._step_dir(round_idx)):
+        # The writer's view of the directory, taken before its commit of this
+        # step can start, decides for every rank.
+        if not force and collectives.agree(
+                self.writer and os.path.isdir(self._step_dir(round_idx)), self.group):
             raise FileExistsError(f"checkpoint step {round_idx} already exists in "
                                   f"{self.directory}")
         t0 = time.perf_counter()
         leaves = _flatten({"states": states, "personal": personal})
-        staged, events = self._call("checkpoint.save", self._stage, leaves)
+        # Every rank passes the fault point, so an injected failure fails
+        # every rank alike; only the writer stages.
+        stage = self._stage if self.writer else (lambda _leaves: ([], []))
+        staged, events = self._call("checkpoint.save", stage, leaves)
         instrument("ols_checkpoint_save_duration_seconds",
                    self.registry).labels(
             task_id=self.task_id
@@ -184,7 +213,8 @@ class RoundCheckpointer:
                    self.registry).labels(
             task_id=self.task_id
         ).inc(_tree_bytes(leaves))
-        self._start_commit(round_idx, staged, events, meta)
+        if self.writer:
+            self._start_commit(round_idx, staged, events, meta)
         self._maybe_corrupt(round_idx)
 
     def _side_stream(self, dev: torch.device):
@@ -237,6 +267,8 @@ class RoundCheckpointer:
         # deterministically a post-commit tear (manifest mismatch at
         # restore).
         self._join_commit()
+        if not self.writer:
+            return
         step_dir = self._step_dir(round_idx)
         largest, size = None, -1
         for dirpath, _dirs, files in os.walk(step_dir):
@@ -354,11 +386,13 @@ class RoundCheckpointer:
 
     def wait(self) -> None:
         """Block until the in-flight commit has landed; raise its error if
-        it failed."""
+        it failed. Over dp ranks every rank waits here for the writer's
+        commit and raises if it failed."""
         self._join_commit()
         err, self._commit_error = self._commit_error, None
-        if err is not None:
-            raise err
+        if collectives.agree(err is not None, self.group):
+            raise err if err is not None else RuntimeError(
+                "checkpoint commit failed on rank 0")
 
     # ----------------------------------------------------------- restore
     def latest_round(self) -> Optional[int]:
@@ -395,6 +429,7 @@ class RoundCheckpointer:
         from olearning_sim_tpu_torch.telemetry import instrument
 
         self._join_commit()
+        self._barrier()
         steps = sorted(self._all_steps(), reverse=True)
         if not steps:
             return None
@@ -453,9 +488,14 @@ class RoundCheckpointer:
         stale/corrupt future checkpoints must not shadow the replayed
         rounds). Returns the discarded steps."""
         self._join_commit()
+        self._barrier()
         discarded = [s for s in self._all_steps() if s > round_idx]
-        for step in discarded:
-            self._delete_step(step)
+        try:
+            if self.writer:
+                for step in discarded:
+                    self._delete_step(step)
+        finally:
+            self._barrier()
         return discarded
 
     def close(self) -> None:

@@ -24,8 +24,9 @@ times in both packages. Ties in completion time break by client index
 (``pacing.arrival_ranks``), which is what lets a resume replay the commit
 sequence.
 
-The program half, :func:`async_round`, is the JAX engine's buffered round at
-dp 1 in torch, reached through ``FedCore.round_step(..., async_plan=...)``:
+The program half, :func:`async_round`, is the JAX engine's buffered round in
+torch, data-parallel over the core's ranks as the synchronous round is,
+reached through ``FedCore.round_step(..., async_plan=...)``:
 local training of every selected client once, on the anchor model, through
 the synchronous round's block body (``FedCore._train_block``: the attack,
 the finiteness gate, the clip, then the ``score`` reweighting); the block's
@@ -345,12 +346,12 @@ def check_round(core, ds, plan: AsyncRoundPlan, *, personal=None, control=None,
         )
     acfg = plan.config
     W = int(plan.num_windows)
-    if W != acfg.num_windows(ds.num_clients):
+    if W != acfg.num_windows(ds.padded_clients):
         raise ValueError(
             f"async plan was built for a different population: "
             f"plan windows {W} != "
-            f"{acfg.num_windows(ds.num_clients)} for "
-            f"{ds.num_clients} padded clients at "
+            f"{acfg.num_windows(ds.padded_clients)} for "
+            f"{ds.padded_clients} padded clients at "
             f"M={acfg.buffer_size}"
         )
     alg = core.algorithm
@@ -379,22 +380,35 @@ def _tree_where(pred: torch.Tensor, a, b):
 def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
                 steps_eff: torch.Tensor, indices: torch.Tensor, attack_scale=None,
                 defense=None, clip_norm=None, trim_fraction=None):
-    """The buffered round over a resident population, after
-    ``FedCore.round_step`` resolved its inputs (``weight`` after
-    participation). Returns ``(state, RoundMetrics, AsyncStats)``."""
-    from olearning_sim_tpu_torch.engine.defense import distance_scores, robust_aggregate
+    """The buffered round over a resident population (``ds`` this rank's
+    shard), after ``FedCore.round_step`` resolved its inputs to this rank's
+    rows (``weight`` after participation). The window sums and scalars
+    meet over dp at the round's close as the JAX engine's do: a psum, or a
+    psum_scatter onto the coordinate shards under the sharded update; a
+    gathering defense re-lays the deltas with one all_to_all. Returns
+    ``(state, RoundMetrics, AsyncStats)``, the same on every rank."""
+    from olearning_sim_tpu_torch.engine.defense import (
+        distance_scores,
+        place_coordinate_shard,
+        robust_aggregate,
+        shard_client_deltas,
+    )
     from olearning_sim_tpu_torch.engine.fedcore import RoundMetrics, ServerState
+    from olearning_sim_tpu_torch.parallel import collectives
 
     cfg = core.config
     acfg = plan.config
     dev = weight.device
     W = int(plan.num_windows)
     C = ds.num_clients
+    rows = core.client_rows(ds)
+    group = core.group
+    shard_update = cfg.shard_server_update
     f32 = dict(dtype=torch.float32, device=dev)
 
     # Per-window staleness discount [W]: uniform within a window (staleness
     # == window index == commits since dispatch), entirely data.
-    window = torch.from_numpy(np.asarray(plan.window, np.int32)).to(dev)
+    window = torch.from_numpy(np.asarray(plan.window[rows], np.int32)).to(dev)
     max_stale = torch.full((), float(acfg.max_staleness) if acfg.max_staleness is not None
                            else _NO_MAX_STALENESS, **f32)
     widx = torch.arange(W, **f32)
@@ -412,7 +426,7 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
     weight = torch.where(stale_ok, weight, 0.0)
     # Non-members sit in window 0 with weight 0.
     wclamp = torch.clamp(window, 0, W - 1).long()
-    score = (torch.from_numpy(np.asarray(plan.score, np.float32)).to(dev)
+    score = (torch.from_numpy(np.asarray(plan.score[rows], np.float32)).to(dev)
              if acfg.schedule == "score" else None)
 
     sums = core._round_sums(state.params, C, clipping=defense is not None,
@@ -426,52 +440,72 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
             clip_norm=clip_norm, window=wclamp[blk],
             score=None if score is None else score[blk],
         )
-    buf_w = sums.buf_w
 
-    # Per-window aggregates feeding the commits: robust statistics, or the
-    # weighted window sums normalized by their weight.
+    keys = list(state.params)
+    # Per-window aggregates feeding the commits: robust statistics on
+    # coordinate shards, or the weighted window sums normalized by their
+    # (global) weight.
     anomaly_score = None
     stack = None
     buf = sums.buf
     if sums.gathered is not None:
-        gathered, w_all = sums.gathered, sums.gathered_w
+        gathered, w_loc = sums.gathered, sums.gathered_w
+        w_all, win_all = collectives.all_gather([w_loc, wclamp], group)
+        shards = shard_client_deltas(gathered, group)
         robust = defense.aggregator in ("trimmed_mean", "median")
-        scores = torch.zeros(C, **f32)
+        scores = torch.zeros(w_all.shape[0], **f32)
         centers = []
         for w in range(W):
-            mask_w = (wclamp == w) & (w_all > 0)
-            center = robust_aggregate(gathered, mask_w,
+            mask_w = (win_all == w) & (w_all > 0)
+            center = robust_aggregate(shards, mask_w,
                                       defense.aggregator if robust else "median",
                                       trim_fraction)
             if defense.score_enabled:
-                scores = torch.where(mask_w, distance_scores(gathered, center, mask_w), scores)
+                scores = torch.where(mask_w, distance_scores(shards, center, mask_w, group),
+                                     scores)
             centers.append(center)
         if defense.score_enabled:
             anomaly_score = scores
         if robust:
-            stack = {k: torch.stack([c[k] for c in centers]) for k in state.params}
+            # [W, P_pad/dp] coordinate shards per leaf.
+            stack = {k: torch.stack([c[k] for c in centers]) for k in keys}
+            if not shard_update:
+                full = place_coordinate_shard(stack, group)
+                stack = {k: full[k][:, :p.numel()].reshape((W,) + p.shape)
+                         for k, p in state.params.items()}
         else:
             # The score-only defense keeps the weighted mean: the window
-            # buffer is rebuilt from the gathered clipped deltas.
-            onehot = window_weights(wclamp, w_all, W)
+            # buffer is rebuilt from this rank's gathered clipped deltas.
+            onehot = window_weights(wclamp, w_loc, W)
             buf = {k: torch.tensordot(onehot, g, dims=([0], [0])) for k, g in gathered.items()}
-        del gathered, centers
+        del gathered, shards, centers
         sums.gathered = None
+    scalars = [sums.buf_w, sums.sum_loss, sums.sum_w, sums.count, dropped_stale]
+    if sums.n_clip is not None:
+        scalars.append(sums.n_clip)
+    dense = [buf[k] for k in keys] if stack is None and not shard_update else []
+    reduced = collectives.psum(scalars + dense, group)
+    buf_w, sum_loss, sum_w, count, dropped_stale = reduced[:5]
+    n_clip = reduced[5] if sums.n_clip is not None else None
     if stack is None:
         denom = torch.clamp(buf_w, min=1e-8)
-        stack = {k: b / denom.reshape((W,) + (1,) * (b.dim() - 1)) for k, b in buf.items()}
+        if shard_update:
+            flat = collectives.psum_scatter(
+                [core._flat_rows(buf[k]) for k in keys],
+                group)
+            stack = {k: f / denom[:, None] for k, f in zip(keys, flat)}
+        else:
+            stack = {k: b / denom.reshape((W,) + (1,) * (b.dim() - 1))
+                     for k, b in zip(keys, reduced[len(scalars):])}
     del buf
 
     # The commits: W server-optimizer steps in window order on the
     # staleness-discounted pseudo-gradient, each kept only where its window
-    # holds weight and its discount is positive.
+    # holds weight and its discount is positive. Under the sharded update
+    # they run on this rank's coordinate shard.
     opt = core.algorithm.server_optimizer
     params = state.params
-    if cfg.shard_server_update:
-        p = core._flat(params)
-        stack = {k: core._flat_rows(v) for k, v in stack.items()}
-    else:
-        p = params
+    p = core._my_shard(core._flat(params)) if shard_update else params
     # Adam's step count becomes a device integer (int32, as optax keeps it):
     # whether a commit counts is decided on the device.
     op = {k: torch.tensor(v, dtype=torch.int32, device=dev) if isinstance(v, int) else v
@@ -484,18 +518,18 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
         p = {k: torch.where(gate, p[k] + updates[k], p[k]) for k in p}
         op = _tree_where(gate, new_op, op)
         gates.append(gate)
-    new_params = core._unflat(p, params) if cfg.shard_server_update else p
+    new_params = core._stitch(p, params) if shard_update else p
 
     zero = torch.zeros((), **f32)
     metrics = RoundMetrics(
-        mean_loss=sums.sum_loss / torch.clamp(sums.sum_w, min=1e-8),
-        weight_sum=sums.sum_w,
-        clients_trained=sums.count,
-        client_loss=torch.cat(sums.client_loss),
+        mean_loss=sum_loss / torch.clamp(sum_w, min=1e-8),
+        weight_sum=sum_w,
+        clients_trained=count,
+        client_loss=collectives.all_gather([torch.cat(sums.client_loss)], group)[0],
         personal_loss=zero,
         stragglers=zero,
         anomaly_score=anomaly_score if anomaly_score is not None else zero,
-        clipped=sums.n_clip if sums.n_clip is not None else zero,
+        clipped=n_clip if n_clip is not None else zero,
     )
     stats = AsyncStats(
         commits=torch.stack(gates).float().sum(),

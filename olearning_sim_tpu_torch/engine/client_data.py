@@ -26,12 +26,20 @@ import numpy as np
 import torch
 
 from olearning_sim_tpu_torch.device import resolve_device
+from olearning_sim_tpu_torch.parallel.mesh import pad_to_multiple, shard_clients
 
 Array = Union[np.ndarray, torch.Tensor]
 
 
-def pad_to_multiple(n: int, multiple: int) -> int:
-    return -(-n // multiple) * multiple
+def _shard_rows(n: int, plan) -> slice:
+    """Rank ``plan.dp_rank``'s contiguous rows of ``n`` clients over dp."""
+    padded, per = shard_clients(n, plan)
+    if padded != n:
+        raise ValueError(
+            f"{n} clients do not split over dp={plan.dp}; pad with "
+            f"pad_for(dp * block_clients) first"
+        )
+    return slice(plan.dp_rank * per, (plan.dp_rank + 1) * per)
 
 
 @dataclasses.dataclass
@@ -56,10 +64,36 @@ class ClientDataset:
     # fraction |S|/N sees the true N under partial participation. None:
     # num_real_clients.
     population_size: Optional[int] = None
+    # A rank's shard (:meth:`shard`): its rows start at ``offset`` of a
+    # padded population of ``total_clients`` (None: the whole population).
+    offset: int = 0
+    total_clients: Optional[int] = None
 
     @property
     def num_clients(self) -> int:
+        """Clients held here: this rank's rows of a shard."""
         return int(self.x.shape[0])
+
+    @property
+    def padded_clients(self) -> int:
+        """The whole padded population's size (a shard's included)."""
+        return self.num_clients if self.total_clients is None else int(self.total_clients)
+
+    def _whole(self, what: str) -> None:
+        if self.total_clients is not None:
+            raise ValueError(f"{what} needs the whole population, not a rank's shard")
+
+    def shard(self, plan) -> "ClientDataset":
+        """This rank's contiguous shard of the (padded) population over
+        ``plan``'s dp axis, as the JAX package's ``place(plan)`` lays
+        clients out (``P("dp")``); the whole population at dp 1. Every
+        rank builds the same full host arrays and keeps its own rows."""
+        self._whole("shard")
+        rows = _shard_rows(self.num_clients, plan)
+        return dataclasses.replace(
+            self, x=self.x[rows], y=self.y[rows], num_samples=self.num_samples[rows],
+            client_uid=self.client_uid[rows], weight=self.weight[rows],
+            offset=rows.start, total_clients=self.num_clients)
 
     @property
     def n_local(self) -> int:
@@ -74,6 +108,7 @@ class ClientDataset:
     def take(self, indices) -> "ClientDataset":
         """Host-side row selection (a cohort); the result keeps the
         parent's :attr:`population`."""
+        self._whole("take")
         idx = np.asarray(indices)
         return ClientDataset(
             x=np.asarray(self.x)[idx], y=np.asarray(self.y)[idx],
@@ -85,7 +120,10 @@ class ClientDataset:
 
     def pad_for(self, block: int) -> "ClientDataset":
         """Pad the client axis to a multiple of ``block`` with inert clients
-        (weight 0, ``num_samples`` 1)."""
+        (weight 0, ``num_samples`` 1). Over dp ranks pad to ``dp *
+        block_clients`` before :meth:`shard`, as the JAX package's
+        ``pad_for(plan, block)`` pads."""
+        self._whole("pad_for")
         extra = pad_to_multiple(self.num_clients, block) - self.num_clients
         if extra == 0:
             return self
@@ -125,6 +163,7 @@ class ClientDataset:
             weight=put(self.weight, torch.float32),
             num_real_clients=self.num_real_clients,
             population_size=self.population_size,
+            offset=self.offset, total_clients=self.total_clients,
         )
 
 
@@ -235,12 +274,12 @@ class HostClientStore:
         """Lazy Gaussian-blob population: chunk ``i`` is drawn from
         ``default_rng([seed, 0x57E4A, i])`` on demand (deterministic and
         row-range addressable; a ``cache_chunks``-deep LRU bounds host
-        memory at O(cache_chunks x chunk)). The streamed executor reads
-        dp interleaved segments per block, so align ``chunk_rows`` to the
-        per-device segment size (stream_rows / dp) — then every chunk is
-        generated exactly once per round regardless of dp; a misaligned
-        chunk is regenerated once per overlapping segment instead (the
-        port streams at dp 1: one segment per block). Same
+        memory at O(cache_chunks x chunk)). Each rank of the streamed
+        executor reads its own segment of each block, so align
+        ``chunk_rows`` to the per-rank segment size (stream_rows / dp) —
+        then a rank generates only its own chunks, each once per round; a
+        misaligned chunk is regenerated once per overlapping segment
+        instead. Same
         class-mean table as :func:`make_synthetic_dataset`
         (seed-derived), so central eval sets from
         :func:`make_central_eval_set` stay on-distribution."""

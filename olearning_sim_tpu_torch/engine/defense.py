@@ -25,17 +25,19 @@ code path.
 
 Memory: coordinate-wise statistics need every client's value for each
 coordinate, so a gathering defense (:attr:`DefenseConfig.gathers_deltas`)
-keeps the gated, clipped f32 deltas of all ``C`` clients in one ``[C, P]``
-buffer for the round (P the model's parameter count). The sort over the
-client axis runs in chunks of the coordinate axis (:func:`sort_chunk`), so
-its transient (the sorted values and torch's int64 indices) is ``C x
-chunk`` and not ``C x P``; every coordinate's column is independent, so the
-values are those of one whole sort. The JAX package's dp-sharded helpers
-(``pad_to_axis``, ``shard_client_deltas``, ``place_coordinate_shard``,
-``partial_distance_sq``), which re-lay the buffer so each device holds all
-clients for 1/dp of the coordinates, wait for multi-GPU dp (``ROADMAP.md``
-A9): at a world of one, the ``all_to_all`` is the identity and placing a
-coordinate shard is a reshape, which is what this module computes.
+keeps the gated, clipped f32 deltas of its clients for the round. Over dp
+ranks, one ``all_to_all`` (:func:`shard_client_deltas`) re-lays them so
+each rank holds every client for 1/dp of the coordinates, ``[C, P/dp]``
+per rank (P the model's parameter count, padded as ``pad_to_axis`` pads
+it): each coordinate's client column is whole, so the statistics are
+those of one gathered ``[C, P]`` matrix, bit for bit. The aggregate goes
+back to every rank through :func:`place_coordinate_shard` (or feeds the
+sharded server update as it is), and the anomaly scores are a ``psum`` of
+per-shard squared distances (:func:`distance_scores`). The sort over the
+client axis runs in chunks of the coordinate axis (:func:`sort_chunk`),
+so its transient (the sorted values and torch's int64 indices) is ``C x
+chunk`` and not ``C x P``; every coordinate's column is independent, so
+the values are those of one whole sort.
 """
 
 from __future__ import annotations
@@ -44,6 +46,10 @@ import dataclasses
 from typing import Any, Dict, Optional
 
 import torch
+import torch.nn.functional as F
+
+from olearning_sim_tpu_torch.parallel import collectives
+from olearning_sim_tpu_torch.parallel.mesh import pad_to_multiple
 
 AGGREGATORS = ("mean", "trimmed_mean", "median")
 
@@ -202,7 +208,11 @@ def robust_leaf_aggregate(leaf: torch.Tensor, mask: torch.Tensor, aggregator: st
     out = torch.empty(flat.shape[1], dtype=torch.float32, device=leaf.device)
     for s in range(0, flat.shape[1], step):
         srt = _masked_sorted(flat[:, s:s + step].float(), mask)
-        out[s:s + step] = torch.where(window, srt, 0.0).sum(dim=0) / denom
+        # The window's sum as the last row of a running sum down the client
+        # axis: each column adds its values in client order, however many
+        # columns the chunk or the rank's coordinate shard holds, so the
+        # aggregate's bits do not depend on either.
+        out[s:s + step] = torch.cumsum(torch.where(window, srt, 0.0), dim=0)[-1] / denom
     out = torch.where(n > 0, out, 0.0)
     return out.reshape(leaf.shape[1:])
 
@@ -214,19 +224,70 @@ def robust_aggregate(stacked: Dict[str, torch.Tensor], mask: torch.Tensor,
             for k, v in stacked.items()}
 
 
-def distance_scores(stacked: Dict[str, torch.Tensor], center: Dict[str, torch.Tensor],
-                    mask: torch.Tensor) -> torch.Tensor:
-    """Krum-style anomaly scores [C]: each participant's L2 distance from
-    ``center`` (the coordinate-wise median of participant deltas); 0 for
-    non-participants. The differences are taken :func:`sort_chunk`
-    coordinates at a time."""
-    total = torch.zeros(mask.shape[0], dtype=torch.float32, device=mask.device)
+def partial_distance_sq(stacked: Dict[str, torch.Tensor],
+                        center: Dict[str, torch.Tensor]) -> torch.Tensor:
+    """Every client's squared distance from ``center`` over the
+    coordinates held here ``[C]``: the whole distance at dp 1, this rank's
+    share of it on coordinate shards. The differences are taken
+    :func:`sort_chunk` coordinates at a time."""
+    total = None
     for k, leaf in stacked.items():
         c = leaf.shape[0]
         flat = leaf.reshape(c, -1)
         cen = center[k].reshape(1, -1).float()
         step = sort_chunk(c)
+        if total is None:
+            total = torch.zeros(c, dtype=torch.float32, device=leaf.device)
         for s in range(0, flat.shape[1], step):
             diff = flat[:, s:s + step].float() - cen[:, s:s + step]
             total = total + diff.square().sum(dim=1)
+    return total
+
+
+def distance_scores(stacked: Dict[str, torch.Tensor], center: Dict[str, torch.Tensor],
+                    mask: torch.Tensor, group=None) -> torch.Tensor:
+    """Krum-style anomaly scores [C]: each participant's L2 distance from
+    ``center`` (the coordinate-wise median of participant deltas); 0 for
+    non-participants. On coordinate shards the partial squared distances
+    are summed over ``group`` before the square root, which recovers the
+    gathered formulation's scores."""
+    total = partial_distance_sq(stacked, center)
+    if total is None:
+        total = torch.zeros(mask.shape[0], dtype=torch.float32, device=mask.device)
+    total = collectives.psum([total], group)[0]
     return torch.where(mask, torch.sqrt(total), 0.0)
+
+
+# ------------------------------------------------- sharded (all_to_all) path
+# The layout shared with the sharded server update: a leaf's flattened
+# coordinates are zero-padded to a multiple of dp and split into dp
+# contiguous blocks, rank i owning block i.
+
+def pad_to_axis(flat: torch.Tensor, axis_size: int) -> torch.Tensor:
+    """Zero-pad the last axis to ``pad_to_multiple`` of ``axis_size``: the
+    rule the sharded update's flat layout uses, which lets a robust
+    aggregate's coordinate shard feed that update directly."""
+    pad = pad_to_multiple(flat.shape[-1], axis_size) - flat.shape[-1]
+    return F.pad(flat, (0, pad)) if pad else flat
+
+
+def shard_client_deltas(stacked: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """This rank's per-client delta leaves ``[c_local, ...]`` -> coordinate
+    shards ``[C, P_pad/dp]`` holding every rank's clients (in rank order,
+    as a tiled all_gather orders them) for this rank's 1/dp of the
+    flattened, padded coordinates: one ``all_to_all`` for every leaf, no
+    replication. Over no group, the flat ``[C, P]`` views."""
+    n = collectives.size(group)
+    keys = list(stacked)
+    flat = [pad_to_axis(stacked[k].reshape(stacked[k].shape[0], -1).float(), n)
+            for k in keys]
+    return dict(zip(keys, collectives.all_to_all(flat, group)))
+
+
+def place_coordinate_shard(shards: Dict[str, torch.Tensor], group) -> Dict[str, torch.Tensor]:
+    """Invert the coordinate sharding: every rank's ``[..., P_pad/dp]``
+    shard of each leaf gathered in rank order into the flat padded
+    ``[..., P_pad]`` vector, on every rank. The supports are disjoint, so
+    the result is exact (the JAX engine's psum of zero-filled shards)."""
+    keys = list(shards)
+    return dict(zip(keys, collectives.all_gather([shards[k] for k in keys], group, dim=-1)))

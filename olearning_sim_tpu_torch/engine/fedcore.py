@@ -1,13 +1,29 @@
-"""FedCore — the federated round engine, synchronous variant on one device.
+"""FedCore — the federated round engine, data-parallel over ranks.
 
-The port of the round program of the JAX package's ``engine/fedcore.py``,
-with dp = 1 (the JAX package's ``psum`` over dp is the local sum here)::
+The port of the round program of the JAX package's ``engine/fedcore.py``::
 
-    round_step = for each block of ``block_clients`` clients:
+    round_step = for each block of ``block_clients`` of this rank's clients:
                      vmap over clients: masked local SGD, max_local_steps steps
                      finiteness gate, weighted delta sum
                      (SCAFFOLD: control refresh; Ditto: the personal branch)
+                 -> psum of the sums over dp (psum_scatter under the
+                    sharded server update)
                  -> server optimizer on the negative mean delta
+
+Data parallelism is the JAX engine's ``shard_map`` over ``dp`` with one
+process per rank (:class:`~olearning_sim_tpu_torch.parallel.mesh.MeshPlan`,
+one rank per card). Every rank builds the same full host arrays from the
+seed and places only its contiguous shard of clients
+(:meth:`ClientDataset.shard`, JAX's ``P("dp")`` layout); the round's sums
+meet once, at its close, in the collectives of
+:mod:`~olearning_sim_tpu_torch.parallel.collectives`. Every per-client
+argument of :meth:`FedCore.round_step` (participation, step counts,
+completion times, attack scales, minibatch indices) is over the whole
+padded population and is sliced here; per-client state (SCAFFOLD's c_i,
+Ditto's personal params) is held by rank, over the rank's clients only;
+the per-client metrics come back gathered, over the whole population, on
+every rank. A plan over an uninitialised ``torch.distributed`` is a world
+of one whose collectives are the identity.
 
 Heterogeneity is masking, as in the JAX engine: step ``i`` of a client is
 active iff ``i < num_steps[c]``; minibatch indices are drawn in
@@ -52,12 +68,14 @@ no host sync; each off path is the plain round, bitwise):
 instead (``engine/async_rounds.py``): the same block body, with each
 client's weighted delta summed into its commit window, then one server
 commit per window. ``FedCoreConfig.shard_server_update`` keeps the server
-optimizer's state over flat padded coordinates and runs the update on flat
-views, as the JAX engine's sharded update does at dp 1.
+optimizer's state over flat padded coordinates, 1/dp of them per rank, and
+runs the update on this rank's coordinate shard, as the JAX engine's
+sharded update does.
 
 A population too large for the device streams: :meth:`FedCore.stream_round`
-walks a host-resident ``HostClientStore`` in stream blocks, staged double
-buffered (``engine/staging.py``), through the same block body
+walks a host-resident ``HostClientStore`` in stream blocks (each rank its
+own rows of each block), staged double buffered (``engine/staging.py``),
+through the same block body
 (:meth:`FedCore._train_block`) and round close (:meth:`FedCore._finish_round`)
 as :meth:`FedCore.round_step`, so the two agree bit for bit at the same
 padded size.
@@ -70,13 +88,17 @@ indices=...)``). Ditto's personal branch draws from a second stream of the
 same round (JAX salts that stream away from the global one), or takes
 ``personal_indices=``. So the state is tensors and integers only, and a
 round resumed from a checkpoint or a model file draws what it drew before.
-The port does not reproduce JAX's threefry stream; the parity tests hand
-both engines the same indices instead.
+The draw is over the whole padded population on every rank, then sliced,
+so a client's stream does not depend on dp. The port does not reproduce
+JAX's threefry stream; the parity tests hand both engines the same
+indices instead.
 """
 
 from __future__ import annotations
 
+import copy
 import dataclasses
+import threading
 import time
 from typing import Callable, Dict, Optional, Tuple
 
@@ -88,9 +110,12 @@ from torch.func import functional_call, grad_and_value, vmap
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.engine import async_rounds
 from olearning_sim_tpu_torch.engine.algorithms import Algorithm
-from olearning_sim_tpu_torch.engine.client_data import ClientDataset, pad_to_multiple
+from olearning_sim_tpu_torch.engine import defense as defense_mod
+from olearning_sim_tpu_torch.engine.client_data import ClientDataset
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig, distance_scores, robust_aggregate
 from olearning_sim_tpu_torch.engine.staging import BlockStager
+from olearning_sim_tpu_torch.parallel import collectives
+from olearning_sim_tpu_torch.parallel.mesh import MeshPlan, make_mesh_plan, pad_to_multiple
 
 Params = Dict[str, torch.Tensor]
 
@@ -137,13 +162,14 @@ class FedCoreConfig:
     # Weight on a model's auxiliary loss (Switch-MoE load balancing); read
     # only for a model that returns one (``sows_aux_loss``).
     aux_loss_weight: float = 0.01
-    # The server update over flat padded coordinates (arXiv 2004.13336), as
-    # the JAX engine lays it out to shard it over dp: the server optimizer's
-    # state is one flat vector per parameter, padded to a multiple of
-    # dp * mp (1 here: the port's round runs at a world of one, ROADMAP.md
-    # A9), and the update runs on flat views. Every server optimizer is
-    # elementwise, so the params are the replicated update's, bit for bit;
-    # they keep their tree layout (eval, export and model files see it).
+    # The cross-replica sharded server update (arXiv 2004.13336), as the
+    # JAX engine lays it out: the server optimizer's state is one flat
+    # vector per parameter, padded to a multiple of dp * mp and split into
+    # dp contiguous shards, one per rank; the round's sums are
+    # reduce-scattered onto them and each rank updates its shard. Every
+    # server optimizer is elementwise, so the params are the replicated
+    # update's, bit for bit; they keep their tree layout on every rank
+    # (eval, export and model files see it).
     shard_server_update: bool = False
 
     def __post_init__(self):
@@ -351,6 +377,25 @@ def _tree_map(fn, tree):
     return fn(tree)
 
 
+def _map_paths(tree, fn, path=()):
+    if isinstance(tree, dict):
+        return {k: _map_paths(v, fn, path + (k,)) for k, v in tree.items()}
+    return fn(path, tree)
+
+
+def _map_client_state(tree, fn):
+    """``fn`` over the per-client leaves of a state dataclass or dict:
+    :class:`PersonalState`'s params, :class:`ControlState`'s client
+    controls (its server control is replicated and stays)."""
+    if isinstance(tree, PersonalState):
+        return PersonalState(_map_client_state(tree.params, fn))
+    if isinstance(tree, ControlState):
+        return ControlState(_map_client_state(tree.client_controls, fn),
+                            tree.server_control)
+    keys = list(tree)
+    return dict(zip(keys, fn([tree[k] for k in keys])))
+
+
 def _finite_client_mask(losses: torch.Tensor, deltas: Params) -> torch.Tensor:
     """[block] bool — clients whose local training stayed finite (finite
     loss AND every delta finite). A diverged client contributes nothing to
@@ -394,10 +439,13 @@ class _RoundSums:
 
 
 class FedCore:
-    """Owns one (model, algorithm, config) triple's round and eval steps."""
+    """Owns one (model, algorithm, config) triple's round and eval steps,
+    on this rank of ``plan`` (default: every rank of the default group, or
+    a world of one)."""
 
     def __init__(self, model: torch.nn.Module, algorithm: Algorithm,
-                 config: FedCoreConfig = FedCoreConfig()):
+                 config: FedCoreConfig = FedCoreConfig(),
+                 plan: Optional[MeshPlan] = None):
         # The module only supplies structure: every call passes its
         # parameters through functional_call, so it may live on "meta".
         if algorithm.personalized and algorithm.control_variates:
@@ -413,21 +461,46 @@ class FedCore:
         self.model = model
         self.algorithm = algorithm
         self.config = config
+        self.plan = plan if plan is not None else make_mesh_plan()
+        if self.plan.sp != 1:
+            raise ValueError(
+                f"the round runs over a dp-only plan; got sp={self.plan.sp} "
+                f"(sequence parallelism is the long-context path's)"
+            )
+        # The dp axis: its group (None: a world of one with no collective),
+        # its size and this rank's place on it.
+        self.group = self.plan.dp_group
+        self.dp = self.plan.dp
+        self.dp_rank = self.plan.dp_rank
         # A model with an auxiliary loss (moe_text) says so; its forward
         # then takes return_aux=True and returns (logits, aux).
         self.has_aux = bool(getattr(model, "sows_aux_loss", False))
+        # Module skeletons per thread (_module): functional_call swaps
+        # parameters into the module it is given, so two threads that share
+        # this core must not share one.
+        self._local = threading.local()
         # The sharded server update pads each flat parameter to a multiple
-        # of dp * mp, 1 at the port's world of one. Which leaves of its flat
-        # optimizer state are per coordinate (a world above one shards
-        # them) and which stay whole (Adam's count) is decided once, on the
-        # template, as the JAX engine decides it.
-        self._shard_pad = 1
+        # of dp * mp (mp is 1: ROADMAP.md A10). Which leaves of its flat
+        # optimizer state are per coordinate (sharded over dp) and which
+        # stay whole on every rank (Adam's count) is decided once, on the
+        # global template, as the JAX engine decides it.
+        self._shard_pad = self.dp
         self.opt_sharded = None
         if config.shard_server_update:
             template = algorithm.server_optimizer.init(
                 self._flat(dict(model.named_parameters())))
             self.opt_sharded = _tree_map(lambda leaf: _dp_shardable(leaf, self._shard_pad),
                                          template)
+
+    def _module(self) -> torch.nn.Module:
+        """This thread's skeleton of the model: ``functional_call`` swaps
+        the parameters it is given into the module for the call, so each
+        thread gets its own copy (made on first use) and a round on one
+        thread never sees another's parameters."""
+        m = getattr(self._local, "model", None)
+        if m is None:
+            m = self._local.model = copy.deepcopy(self.model)
+        return m
 
     # ------------------------------------------------------------------ init
     def init_state(self, seed: int = 0, device="cuda",
@@ -441,11 +514,13 @@ class FedCore:
             params = self.model.init_params(gen)
         params = {k: v.detach().to(dev, torch.float32).clone() for k, v in params.items()}
         # Under shard_server_update the optimizer state is initialised over
-        # the flat padded coordinates (zeros, as the replicated init's).
+        # this rank's shard of the flat padded coordinates (zeros, as the
+        # replicated init's).
         return ServerState(
             params=params,
             opt_state=self.algorithm.server_optimizer.init(
-                self._flat(params) if self.config.shard_server_update else params),
+                self._my_shard(self._flat(params)) if self.config.shard_server_update
+                else params),
             round_idx=0,
             seed=int(seed),
         )
@@ -480,18 +555,85 @@ class FedCore:
         """Flat padded tensors back in ``like``'s shapes."""
         return {k: flat[k][:v.numel()].reshape(v.shape) for k, v in like.items()}
 
+    def _my_shard(self, flat: Params) -> Params:
+        """This rank's contiguous 1/dp of each flat padded tensor's last
+        axis: the coordinate shard the sharded update owns."""
+        def one(f):
+            n = f.shape[-1] // self.dp
+            return f[..., self.dp_rank * n:(self.dp_rank + 1) * n]
+        return {k: one(f) for k, f in flat.items()}
+
+    def _stitch(self, shards: Params, like: Params) -> Params:
+        """Every rank's coordinate shards stitched into ``like``'s shapes
+        (the JAX engine's ``place_coordinate_shard``)."""
+        return self._unflat(defense_mod.place_coordinate_shard(shards, self.group), like)
+
     def _server_update(self, params: Params, pseudo_grad: Params, opt_state):
         """The server optimizer's step on a pseudo-gradient: ``(new_params,
         opt_state)``, ``params + updates`` as ``optax.apply_updates``. Under
-        ``shard_server_update`` it runs on the flat padded views that the
-        optimizer state is laid out over."""
+        ``shard_server_update`` the pseudo-gradient is this rank's
+        coordinate shard (:meth:`_my_shard` of the flat padded layout): the
+        step runs on the shard, with the optimizer state sharded alike, and
+        the new params are stitched from every rank's shard."""
         opt = self.algorithm.server_optimizer
         if not self.config.shard_server_update:
             updates, opt_state = opt.update(pseudo_grad, opt_state)
             return {k: p + updates[k] for k, p in params.items()}, opt_state
-        flat = self._flat(params)
-        updates, opt_state = opt.update(self._flat(pseudo_grad), opt_state)
-        return self._unflat({k: f + updates[k] for k, f in flat.items()}, params), opt_state
+        mine = self._my_shard(self._flat(params))
+        updates, opt_state = opt.update(pseudo_grad, opt_state)
+        new = {k: f + updates[k] for k, f in mine.items()}
+        return self._stitch(new, params), opt_state
+
+    def _is_sharded(self, path) -> bool:
+        node = self.opt_sharded
+        for k in path:
+            node = node[k]
+        return bool(node)
+
+    def full_opt_state(self, opt_state):
+        """The server optimizer state in its full layout: under the sharded
+        update every per-coordinate leaf gathered from its rank shards into
+        the flat padded vector (a collective: every rank calls it); the
+        state itself otherwise. What a checkpoint holds."""
+        if not self.config.shard_server_update or self.group is None:
+            return opt_state
+        shards = {}
+
+        def visit(path, leaf):
+            if self._is_sharded(path):
+                shards[path] = leaf
+            return leaf
+
+        _map_paths(opt_state, visit)
+        full = dict(zip(shards, collectives.all_gather(list(shards.values()), self.group,
+                                                       dim=-1)))
+        return _map_paths(opt_state, lambda path, leaf: full.get(path, leaf))
+
+    def local_opt_state(self, opt_state):
+        """The inverse of :meth:`full_opt_state`: this rank's shard of each
+        per-coordinate leaf of a full-layout state."""
+        if not self.config.shard_server_update or self.group is None:
+            return opt_state
+        return _map_paths(opt_state, lambda path, leaf: self._my_shard({"": leaf})[""].clone()
+                          if self._is_sharded(path) else leaf)
+
+    def client_rows(self, ds: ClientDataset) -> slice:
+        """The rows of the whole padded population that ``ds`` (this rank's
+        shard) holds."""
+        return slice(ds.offset, ds.offset + ds.num_clients)
+
+    def gather_clients(self, tree):
+        """Per-client state held by rank (``[clients of this rank, ...]``
+        tensors in a dict or a state dataclass) gathered over the whole
+        padded population, on every rank (a collective)."""
+        return _map_client_state(tree, lambda leaves: collectives.all_gather(
+            leaves, self.group))
+
+    def local_clients(self, tree, ds: ClientDataset):
+        """The inverse of :meth:`gather_clients`: this rank's rows of
+        whole-population per-client state."""
+        rows = self.client_rows(ds)
+        return _map_client_state(tree, lambda leaves: [v[rows].clone() for v in leaves])
 
     def round_generator(self, state: ServerState, stream: int = 0) -> torch.Generator:
         """The CPU generator of a round's minibatch indices: a function of
@@ -500,15 +642,20 @@ class FedCore:
         return torch.Generator().manual_seed(
             _seed_of(state.seed, 1, int(state.round_idx), stream))
 
-    def draw_indices(self, generator: torch.Generator,
-                     num_samples: torch.Tensor) -> torch.Tensor:
+    def draw_indices(self, generator: torch.Generator, num_samples: torch.Tensor,
+                     total: Optional[int] = None, offset: int = 0) -> torch.Tensor:
         """Minibatch indices ``[C, max_local_steps, batch_size]``, uniform
         in ``[0, max(num_samples[c], 1))``, drawn on the CPU from
-        ``generator``."""
+        ``generator``. ``num_samples`` are the counts of rows ``[offset,
+        offset + C)`` of a population of ``total`` (default ``C``) clients:
+        the draw is the whole population's, sliced, so a client's indices
+        do not depend on which rank holds it."""
         cfg = self.config
         n = torch.clamp(num_samples.cpu(), min=1)
-        u = torch.rand((n.shape[0], cfg.max_local_steps, cfg.batch_size),
+        total = n.shape[0] if total is None else int(total)
+        u = torch.rand((total, cfg.max_local_steps, cfg.batch_size),
                        generator=generator, dtype=torch.float64)
+        u = u[offset:offset + n.shape[0]]
         idx = torch.floor(u * n[:, None, None]).long()
         return torch.minimum(idx, n[:, None, None] - 1)
 
@@ -519,9 +666,9 @@ class FedCore:
         multiplicity mode the aux term sees the client's whole local set,
         as in the JAX engine."""
         if not self.has_aux:
-            logits = functional_call(self.model, p, (x,))
+            logits = functional_call(self._module(), p, (x,))
             return F.cross_entropy(logits.float(), y, reduction="none"), None
-        logits, aux = functional_call(self.model, p, (x,), {"return_aux": True})
+        logits, aux = functional_call(self._module(), p, (x,), {"return_aux": True})
         return (F.cross_entropy(logits.float(), y, reduction="none"),
                 self.config.aux_loss_weight * aux.float())
 
@@ -601,12 +748,37 @@ class FedCore:
 
     def _indices(self, indices, state: ServerState, stream: int, ds: ClientDataset,
                  dev) -> torch.Tensor:
+        """This rank's rows of the round's minibatch indices: drawn, or
+        sliced from the caller's whole-population ``indices``."""
         if indices is None:
-            indices = self.draw_indices(self.round_generator(state, stream), ds.num_samples)
-        want = (ds.num_clients, self.config.max_local_steps, self.config.batch_size)
+            return self.draw_indices(self.round_generator(state, stream), ds.num_samples,
+                                     total=ds.padded_clients,
+                                     offset=ds.offset).to(dev, torch.int64)
+        want = (ds.padded_clients, self.config.max_local_steps, self.config.batch_size)
         if tuple(indices.shape) != want:
             raise ValueError(f"indices must be {want}, got {tuple(indices.shape)}")
-        return indices.to(dev, torch.int64)
+        return indices[self.client_rows(ds)].to(dev, torch.int64)
+
+    def _check_shard(self, ds: ClientDataset) -> None:
+        """``ds`` must be this rank's shard of a population padded for the
+        plan (:meth:`ClientDataset.shard`)."""
+        C = ds.num_clients
+        if ds.padded_clients != C * self.dp or ds.offset != self.dp_rank * C:
+            raise ValueError(
+                f"dataset rows [{ds.offset}, {ds.offset + C}) of "
+                f"{ds.padded_clients} are not rank {self.dp_rank}'s shard over "
+                f"dp={self.dp}; pad with ClientDataset.pad_for(dp * block) and "
+                f"place ds.shard(plan)"
+            )
+
+    def _local_arg(self, name: str, arr, ds: ClientDataset, dev):
+        """This rank's rows of a whole-population per-client argument."""
+        if arr is None:
+            return None
+        if arr.shape[0] != ds.padded_clients:
+            raise ValueError(f"{name} must cover the {ds.padded_clients} padded "
+                             f"clients, got {tuple(arr.shape)}")
+        return torch.as_tensor(arr)[self.client_rows(ds)].to(dev)
 
     # ----------------------------------------------------------- round step
     def round_step(self, state: ServerState, ds: ClientDataset,
@@ -622,7 +794,13 @@ class FedCore:
                    defense: Optional[DefenseConfig] = None,
                    async_plan=None,
                    ):
-        """Advance one FL round over the placed, padded population.
+        """Advance one FL round over the placed, padded population: ``ds``
+        is this rank's shard (the whole population at dp 1). Every
+        per-client argument below is over the whole padded population
+        (``ds.padded_clients``, written C) and is sliced to this rank's
+        rows; the per-client state (``personal``, ``control``) is this
+        rank's rows only. The metrics' per-client tensors come back over
+        the whole population on every rank.
 
         ``participate`` — optional [C] 0/1 mask multiplying the base
         weights. ``num_steps`` — optional per-client local-step counts
@@ -667,6 +845,7 @@ class FedCore:
                 f"client count {C} must be a multiple of block_clients="
                 f"{cfg.block_clients}; pad with ClientDataset.pad_for(block)"
             )
+        self._check_shard(ds)
         if defense is not None and not defense.enabled:
             defense = None
         if async_plan is not None:
@@ -681,7 +860,8 @@ class FedCore:
                 "with control-variate algorithms (the SCAFFOLD server "
                 "control consumes the weighted mean); use clip_norm only"
             )
-        weight = ds.weight if participate is None else ds.weight * participate.to(dev)
+        participate = self._local_arg("participate", participate, ds, dev)
+        weight = ds.weight if participate is None else ds.weight * participate
         stragglers = None
         if deadline is not None:
             if completion_time is None:
@@ -691,20 +871,21 @@ class FedCore:
                 )
             # where(late, 0, w) selects the untouched weight for on-time
             # clients, so a non-binding deadline (inf) changes no bit.
-            late = completion_time.to(dev, torch.float32) > torch.full(
+            completion_time = self._local_arg("completion_time", completion_time, ds, dev)
+            late = completion_time.to(torch.float32) > torch.full(
                 (), deadline, dtype=torch.float32, device=dev)
             stragglers = ((weight > 0) & late).sum().float()
             weight = torch.where(late, 0.0, weight)
         elif completion_time is not None:
             raise ValueError("completion_time given without a deadline")
-        if attack_scale is not None:
-            attack_scale = attack_scale.to(dev)
+        attack_scale = self._local_arg("attack_scale", attack_scale, ds, dev)
         clip_norm = trim_fraction = None
         if defense is not None:
             clip_norm, trim_fraction = _defense_scalars(defense, dev)
+        num_steps = self._local_arg("num_steps", num_steps, ds, dev)
         if num_steps is None:
-            num_steps = torch.full((C,), cfg.max_local_steps, dtype=torch.int64)
-        steps_eff = torch.clamp(num_steps.to(dev), max=cfg.max_local_steps)
+            num_steps = torch.full((C,), cfg.max_local_steps, dtype=torch.int64, device=dev)
+        steps_eff = torch.clamp(num_steps, max=cfg.max_local_steps)
         indices = self._indices(indices, state, 0, ds, dev)
         if alg.personalized:
             personal_indices = self._indices(personal_indices, state, 1, ds, dev)
@@ -879,48 +1060,86 @@ class FedCore:
 
     def _finish_round(self, state: ServerState, sums: "_RoundSums", defense,
                       trim_fraction, stragglers, control, population: int):
-        """The round's close, shared by the resident and the streamed round:
-        the robust statistics of a gathering defense, the server update on
-        the negative mean delta, the metrics and the new per-client state."""
+        """The round's close, shared by the resident and the streamed round,
+        as the JAX engine's after its block scan: the sums meet over dp (a
+        psum, or a psum_scatter onto the coordinate shards under the
+        sharded update), the robust statistics of a gathering defense run
+        on coordinate shards re-laid by one all_to_all, the server update
+        runs on the negative mean delta, and the metrics and the new
+        per-client state are formed."""
         alg = self.algorithm
         params = state.params
-        denom = torch.clamp(sums.sum_w, min=1e-8)
-        mean_delta = None
+        shard_update = self.config.shard_server_update
+        gather = sums.gathered is not None
+        robust = gather and defense.aggregator in ("trimmed_mean", "median")
+        # One psum for the round's scalars and the replicated sums; the
+        # mean's collective is skipped when a robust aggregate replaces it.
+        scalars = [sums.sum_w, sums.sum_loss, sums.count, sums.sum_ploss]
+        if sums.n_clip is not None:
+            scalars.append(sums.n_clip)
+        if stragglers is not None:
+            scalars.append(stragglers)
+        keys = list(params)
+        dense = [] if robust or shard_update else [sums.sum_delta[k] for k in keys]
+        dcs = [sums.sum_dc[k] for k in keys] if alg.control_variates else []
+        reduced = collectives.psum(scalars + dense + dcs, self.group)
+        sum_w, sum_loss, count, sum_ploss = reduced[:4]
+        rest = reduced[4:len(scalars)]
+        n_clip = rest.pop(0) if sums.n_clip is not None else None
+        if stragglers is not None:
+            stragglers = rest.pop(0)
+        sum_dc = dict(zip(keys, reduced[len(scalars) + len(dense):]))
+        denom = torch.clamp(sum_w, min=1e-8)
+        mean_delta = delta_shards = None
+        if not robust:
+            if shard_update:
+                delta_shards = dict(zip(keys, collectives.psum_scatter(
+                    [_flat_pad_leaf(sums.sum_delta[k], self.dp) for k in keys], self.group)))
+                delta_shards = {k: d / denom for k, d in delta_shards.items()}
+            else:
+                mean_delta = {k: s / denom
+                              for k, s in zip(keys, reduced[len(scalars):len(scalars) + len(dense)])}
         anomaly_score = None
-        if sums.gathered is not None:
-            gathered = sums.gathered
-            participants = sums.gathered_w > 0
+        if gather:
+            # Each rank holds every client for 1/dp of the coordinates; each
+            # coordinate's client column is whole, so the statistics are
+            # those of the gathered formulation, bit for bit.
+            w_all = collectives.all_gather([sums.gathered_w], self.group)[0]
+            participants = w_all > 0
+            shards = defense_mod.shard_client_deltas(sums.gathered, self.group)
+            sums.gathered = None
             center = None
-            if defense.aggregator != "mean":
-                mean_delta = robust_aggregate(gathered, participants, defense.aggregator,
-                                              trim_fraction)
+            if robust:
+                agg = robust_aggregate(shards, participants, defense.aggregator, trim_fraction)
                 if defense.aggregator == "median":
-                    center = mean_delta
+                    center = agg
+                if shard_update:
+                    # The same coordinate partition as the sharded update:
+                    # the robust aggregate feeds it with no reconstruction.
+                    delta_shards = agg
+                else:
+                    mean_delta = self._stitch(agg, params)
             if defense.score_enabled:
                 if center is None:
-                    center = robust_aggregate(gathered, participants, "median",
-                                              trim_fraction)
-                anomaly_score = distance_scores(gathered, center, participants)
-            del gathered
-            sums.gathered = None
+                    center = robust_aggregate(shards, participants, "median", trim_fraction)
+                anomaly_score = distance_scores(shards, center, participants, self.group)
+            del shards
         # The server optimizer consumes the negative mean delta (or the
         # robust aggregate) as a pseudo-gradient (FedOpt formulation).
-        if mean_delta is None:
-            pseudo_grad = {k: -(s / denom) for k, s in sums.sum_delta.items()}
-        else:
-            pseudo_grad = {k: -d for k, d in mean_delta.items()}
+        grad = delta_shards if shard_update else mean_delta
+        pseudo_grad = {k: -d for k, d in grad.items()}
         new_params, opt_state = self._server_update(params, pseudo_grad, state.opt_state)
         metrics = RoundMetrics(
-            mean_loss=sums.sum_loss / denom,
-            weight_sum=sums.sum_w,
-            clients_trained=sums.count,
-            client_loss=torch.cat(sums.client_loss),
-            personal_loss=sums.sum_ploss / denom,
+            mean_loss=sum_loss / denom,
+            weight_sum=sum_w,
+            clients_trained=count,
+            client_loss=collectives.all_gather([torch.cat(sums.client_loss)], self.group)[0],
+            personal_loss=sum_ploss / denom,
         )
         if stragglers is not None:
             metrics.stragglers = stragglers
-        if sums.n_clip is not None:
-            metrics.clipped = sums.n_clip
+        if n_clip is not None:
+            metrics.clipped = n_clip
         if anomaly_score is not None:
             metrics.anomaly_score = anomaly_score
         new_state = ServerState(params=new_params, opt_state=opt_state,
@@ -930,14 +1149,13 @@ class FedCore:
         if alg.control_variates:
             # c <- c + (|S| / N) * weighted-mean refresh, N the true
             # population (survives padding and take()).
-            frac = sums.count / max(float(population), 1.0)
-            server_c = {k: c + frac * (sums.sum_dc[k] / denom)
+            frac = count / max(float(population), 1.0)
+            server_c = {k: c + frac * (sum_dc[k] / denom)
                         for k, c in control.server_control.items()}
             return new_state, metrics, ControlState(per_client, server_c)
         if alg.personalized:
             return new_state, metrics, PersonalState(per_client)
         return new_state, metrics
-
 
     # --------------------------------------------------------- streamed round
     def _stream_reject(self, defense) -> None:
@@ -978,10 +1196,10 @@ class FedCore:
             defense = None
         self._stream_reject(defense)
         R = int(stream_rows)
-        if R % cfg.block_clients != 0:
+        if R % (self.dp * cfg.block_clients) != 0:
             raise ValueError(
                 f"stream_block_rows={R} must be a multiple of "
-                f"dp*block_clients={cfg.block_clients}"
+                f"dp*block_clients={self.dp * cfg.block_clients}"
             )
         if deadline is None and completion_time is not None:
             raise ValueError("completion_time given without a deadline")
@@ -1006,8 +1224,14 @@ class FedCore:
             out[: a.shape[0]] = a.astype(dtype, copy=False)
             return out
 
+        # The JAX engine's dp layout: rank d holds clients [d * cpd, (d + 1)
+        # * cpd), the resident shard's, and stream block i carries rows [d *
+        # cpd + i * rpd, d * cpd + (i + 1) * rpd) of them, so each rank's
+        # accumulation chain is the resident round's.
+        cpd, rpd = c_pad // self.dp, R // self.dp
         return {
             "R": R, "c_pad": c_pad, "nb": c_pad // R, "defense": defense,
+            "cpd": cpd, "rpd": rpd, "lo": self.dp_rank * cpd,
             "participate": full(participate, 0.0, np.float32),
             "num_steps": full(num_steps, cfg.max_local_steps, np.int64),
             "completion_time": full(completion_time, np.inf, np.float32),
@@ -1025,7 +1249,8 @@ class FedCore:
         minibatch indices of the block's rows are drawn from ``generator``,
         so blocks drawn in order draw what one whole-population draw does."""
         cfg = self.config
-        lo, hi = i * prep["R"], (i + 1) * prep["R"]
+        lo = prep["lo"] + i * prep["rpd"]
+        hi = lo + prep["rpd"]
         rows = store.rows(lo, hi)
         x = torch.from_numpy(np.ascontiguousarray(rows["x"]))
         x_dtype = feature_dtype if feature_dtype is not None and x.is_floating_point() \
@@ -1090,7 +1315,10 @@ class FedCore:
         ``indices`` — optional minibatch indices ``[padded, max_local_steps,
         batch_size]``; by default each block's rows are drawn in order from
         :meth:`round_generator`, which draws what :meth:`round_step` draws
-        for the same rows.
+        for the same rows. Over dp ranks each rank stages and trains only
+        its rows of each stream block (``stream_rows / dp`` of them, from
+        its own store, which every rank builds alike), and the round closes
+        as the resident round does.
 
         Each block runs :meth:`_train_block` over its sub-blocks of
         ``block_clients`` in the resident round's order, and the round
@@ -1119,7 +1347,14 @@ class FedCore:
         if indices is not None and tuple(indices.shape) != want:
             raise ValueError(f"indices must be {want}, got {tuple(indices.shape)}")
         dev = next(iter(state.params.values())).device
-        generator = self.round_generator(state, 0) if indices is None else None
+        generator = None
+        if indices is None:
+            generator = self.round_generator(state, 0)
+            # The rows before this rank's are drawn and dropped, in blocks,
+            # so its clients draw what a whole-population draw gives them.
+            for _ in range(self.dp_rank * nb):
+                torch.rand((prep["rpd"], cfg.max_local_steps, cfg.batch_size),
+                           generator=generator, dtype=torch.float64)
         clip_norm = _defense_scalars(defense, dev)[0] if defense is not None else None
         sums = self._round_sums(state.params, prep["c_pad"], clipping=defense is not None,
                                 gathering=False)
@@ -1147,9 +1382,10 @@ class FedCore:
                     # launches.
                     handle = stager.submit(i + 1, gather(i + 1))
                 with tracer.span("stream_step", block=i):
-                    for s in range(0, R, cfg.block_clients):
+                    for s in range(0, prep["rpd"], cfg.block_clients):
                         sl = slice(s, s + cfg.block_clients)
-                        rows = slice(i * R + s, i * R + s + cfg.block_clients)
+                        rows = slice(i * prep["rpd"] + s,
+                                     i * prep["rpd"] + s + cfg.block_clients)
                         self._train_block(
                             sums, state.params, rows, blk["x"][sl], blk["y"][sl],
                             blk["steps"][sl], blk["indices"][sl], blk["weight"][sl],
@@ -1227,7 +1463,7 @@ class FedCore:
         for i in range(0, n, bs):
             xb = torch.as_tensor(x[i:i + bs]).to(dev)
             yb = torch.as_tensor(y[i:i + bs]).to(dev, torch.int64)
-            logits = functional_call(self.model, params, (xb,)).float()
+            logits = functional_call(self._module(), params, (xb,)).float()
             w = yb.shape[0]
             loss_sum += float(F.cross_entropy(logits, yb)) * w
             acc_sum += float((logits.argmax(-1) == yb).float().mean()) * w
@@ -1238,7 +1474,9 @@ class FedCore:
                           ) -> Tuple[float, float]:
         """Ditto's metric of record: each client's personal model scored in
         f32 on its own valid prefix, averaged over clients by
-        ``ds.weight``."""
+        ``ds.weight``. Each rank scores its own clients (``personal`` and
+        ``ds`` are its shard) and the weighted sums meet in one psum, so
+        every rank returns the population's numbers."""
         B = self.config.block_clients
         C = ds.num_clients
         if C % B:
@@ -1249,7 +1487,7 @@ class FedCore:
 
         def one(v, xc, yc, ns):
             v = {k: t.float() if t.is_floating_point() else t for k, t in v.items()}
-            logits = functional_call(self.model, v, (xc,)).float()
+            logits = functional_call(self._module(), v, (xc,)).float()
             losses = F.cross_entropy(logits, yc, reduction="none")
             valid = torch.arange(xc.shape[0], device=xc.device) < ns
             d = torch.clamp(ns, min=1).float()
@@ -1265,6 +1503,7 @@ class FedCore:
                                     ds.x[blk], ds.y[blk], ds.num_samples[blk])
             bw = ds.weight[blk]
             sums += torch.stack([(bw * loss_c).sum(), (bw * acc_c).sum(), bw.sum()])
+        sums = collectives.psum([sums], self.group)[0]
         w = torch.clamp(sums[2], min=1e-8)
         return float(sums[0] / w), float(sums[1] / w)
 
@@ -1273,16 +1512,17 @@ def build_fedcore(model_name: str, algorithm: Algorithm,
                   config: FedCoreConfig = FedCoreConfig(),
                   model_overrides: Optional[dict] = None,
                   input_shape: Optional[Tuple[int, ...]] = None,
-                  device="cuda") -> FedCore:
+                  device="cuda", plan: Optional[MeshPlan] = None) -> FedCore:
     """Convenience constructor from the model registry. ``input_shape`` is
     one example's shape (default the registry's ``example_input_shape``),
     from which the model takes its input widths. ``device`` is checked here
     (a CUDA request without CUDA raises); parameters are placed by
-    :meth:`FedCore.init_state`."""
+    :meth:`FedCore.init_state`. ``plan`` — the dp plan (default: every rank
+    of the default group, or a world of one)."""
     from olearning_sim_tpu_torch.models import get_model
 
     resolve_device(device)
     spec = get_model(model_name)
     with torch.device("meta"):
         model = spec.build(input_shape=input_shape, **(model_overrides or {}))
-    return FedCore(model, algorithm, config)
+    return FedCore(model, algorithm, config, plan=plan)

@@ -51,6 +51,13 @@ the operator over all virtual devices -> deviceflow NotifyComplete -> per-
   commits every ``buffer_size`` arrivals), with the commit, staleness,
   buffer-depth and idle accounting.
 
+Over dp ranks (the core's plan, one process per rank) every rank runs
+this loop alike: each holds its shard of every resident population
+(``DataPopulation.dataset``) and its rows of the per-client state, and the
+same host records, and takes every decision alike (a stop request is
+agreed between rounds). Only rank 0 writes: checkpoints (every rank hands
+it the gathered state), model files and the task row.
+
 Host state that later rounds depend on (quarantine, the adaptive deadline
 controller, the async commit clock, convergence clocks) rides the per-round
 history records, so a rollback or a resume restores it with the history
@@ -103,6 +110,7 @@ from olearning_sim_tpu_torch.engine.pacing import (
     RoundPacing,
 )
 from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig, ScenarioModel
+from olearning_sim_tpu_torch.parallel import collectives
 from olearning_sim_tpu_torch.resilience import (
     CLIENT_FLAGGED,
     DEADLINE_MISS,
@@ -153,8 +161,9 @@ class DataPopulation:
     ``taskService.proto:18-32``)."""
 
     name: str
-    # On the device, padded to whole blocks; a streamed population's stays
-    # on the host, unpadded.
+    # On the device, padded to whole blocks of every rank (this rank's
+    # shard, ClientDataset.shard); a streamed population's stays on the
+    # host, unpadded.
     dataset: ClientDataset
     device_classes: List[str]  # class names, e.g. ["high", "low"]
     class_of_client: np.ndarray  # [C] int index into device_classes (host)
@@ -268,7 +277,12 @@ class SimulationRunner:
         self.populations = populations
         self.operators = operators
         self.rounds = int(rounds)
-        self.task_repo = task_repo if task_repo is not None else TaskTableRepo()
+        # Over dp ranks every rank runs this loop alike and takes every
+        # decision alike; only rank 0 writes (checkpoints, model files, the
+        # task row), the others keep their task rows in a private repo.
+        self.writer = core.dp_rank == 0
+        self.task_repo = (task_repo if task_repo is not None and self.writer
+                          else TaskTableRepo())
         self.deviceflow = deviceflow
         self.operator_flow = operator_flow or OperatorFlowController(task_id, rounds)
         self.logger = Logger()
@@ -276,6 +290,9 @@ class SimulationRunner:
         self.perf = perf
         self.registry = registry
         self.checkpointer = checkpointer
+        if checkpointer is not None:
+            # The ranks of the core's dp group share its directory.
+            checkpointer.group = core.group
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.model_io = model_io
         self.warm_start_path = warm_start_path
@@ -336,7 +353,7 @@ class SimulationRunner:
                         f"of range (population has {ds.num_real_clients} "
                         f"clients)"
                     )
-                self._quarantine.preseed(pop, ids, ds.num_clients)
+                self._quarantine.preseed(pop, ids, ds.padded_clients)
         # Per-round attacks from ``runner.attack_clients``: population name
         # -> {"mode", "clients", "scale" [C] or None, "y" or None}, redrawn
         # (seeded by round) at every round begin, so a replay reproduces
@@ -617,7 +634,6 @@ class SimulationRunner:
     def _run_train(self, p: DataPopulation, round_idx: int,
                    operator: OperatorSpec) -> Dict[str, Any]:
         real = p.dataset.num_real_clients
-        dev = self._device(p)
         with self._phase(operator.name, "select", round_idx):
             # Compiled over real clients only: released slots must never be
             # spent on zero-weight padding clients.
@@ -638,7 +654,7 @@ class SimulationRunner:
                 # at the later of the two times (pacing sees that).
                 strace = self._scenario_model(p).round_trace(round_idx)
                 trace = combine_traces(trace, strace.as_client_trace())
-            mask = np.zeros(p.dataset.num_clients, trace.participate.dtype)
+            mask = np.zeros(p.dataset.padded_clients, trace.participate.dtype)
             mask[:real] = trace.participate
             if self._quarantine is not None:
                 # Quarantined clients are masked out like churned-out
@@ -656,7 +672,7 @@ class SimulationRunner:
                 async_completion = self._completion_times(
                     p, round_idx, operator, trace, self.async_config.pacing_config())
                 aplan = plan_async_round(self.async_config, async_completion,
-                                         mask[:real] > 0, p.dataset.num_clients)
+                                         mask[:real] > 0, p.dataset.padded_clients)
                 kwargs["async_plan"] = aplan
             pace: Optional[RoundPacing] = None
             if self.deadline is not None:
@@ -683,17 +699,17 @@ class SimulationRunner:
                 # sit this round out, like churned-out devices.
                 mask[:real] = np.where(pace.selected, mask[:real], 0)
                 if p.store is None:
-                    comp_full = np.full(p.dataset.num_clients, np.inf, np.float32)
+                    comp_full = np.full(p.dataset.padded_clients, np.inf, np.float32)
                     comp_full[:real] = pace.completion
-                    kwargs["completion_time"] = torch.from_numpy(comp_full).to(dev)
+                    kwargs["completion_time"] = torch.from_numpy(comp_full)
                 else:
                     kwargs["completion_time"] = pace.completion
                 kwargs["deadline"] = pace.deadline_s
             if p.store is None:
-                kwargs["participate"] = torch.from_numpy(mask).to(dev)
-                kwargs["num_steps"] = (
-                    torch.from_numpy(np.asarray(p.num_steps, np.int64)).to(dev)
-                    if p.num_steps is not None else None)
+                # Over the whole population: the core keeps this rank's rows.
+                kwargs["participate"] = torch.from_numpy(mask)
+                kwargs["num_steps"] = (torch.from_numpy(np.asarray(p.num_steps, np.int64))
+                                       if p.num_steps is not None else None)
             else:
                 # Streamed population: the per-client arrays stay on the
                 # host and FedCore.stream_round stages them block by block.
@@ -810,18 +826,17 @@ class SimulationRunner:
         label flip and label drift swapped in for this launch only.
         Returns ``(state, metrics, async_stats)``, the stats None for a
         synchronous round."""
-        dev = self._device(p)
         if atk is not None and atk["scale"] is not None:
             # Byzantine update attack (sign_flip / scale): a per-client
             # delta multiplier.
-            kwargs["attack_scale"] = torch.from_numpy(atk["scale"]).to(dev)
+            kwargs["attack_scale"] = torch.from_numpy(atk["scale"])
         y_swap = atk["y"] if atk is not None else None
         if shift is not None:
             # Label drift, scoped to this train launch like the label flip
             # and composing with it: drift rotates whatever labels the
             # round would otherwise train on.
             base = y_swap if y_swap is not None else p.dataset.y
-            y_swap = self._drift_labels(p, base, shift, p.dataset.num_real_clients)
+            y_swap = self._drift_labels(p, base, shift)
         clean_y = None
         if y_swap is not None:
             # The swap is scoped to this train launch: the finally puts the
@@ -898,21 +913,39 @@ class SimulationRunner:
             self._scenario_models[p.name] = m
         return m
 
-    @staticmethod
-    def _label_classes(p: DataPopulation, base) -> int:
+    def _label_classes(self, p: DataPopulation, base) -> int:
         """The label-drift modulus: the population's class count when the
-        bridge supplied it, else the observed max(y) + 1."""
-        return int(p.num_classes) if p.num_classes else int(base.max()) + 1
+        bridge supplied it, else the observed max(y) + 1 over every rank's
+        labels."""
+        if p.num_classes:
+            return int(p.num_classes)
+        return self._global_max(base) + 1
+
+    def _global_max(self, y) -> int:
+        """The largest label over the whole population (every rank's rows)."""
+        top = torch.as_tensor(y).max().reshape(1)
+        return int(collectives.pmax([top], self.core.group)[0].item())
+
+    def _local_rows(self, p: DataPopulation, clients) -> List[int]:
+        """This rank's rows of the real clients among ``clients`` (global
+        ids)."""
+        lo, n = p.dataset.offset, p.dataset.num_clients
+        real = p.dataset.num_real_clients
+        return [c - lo for c in clients if lo <= c < lo + n and c < real]
 
     def _drift_labels(self, p: DataPopulation, base: torch.Tensor,
-                      shift: np.ndarray, real: int) -> torch.Tensor:
-        """The labels with the first ``real`` clients' rotated by their drift
-        shift, modulo the class count (on the labels' device; the integers
-        numpy's rotation gives)."""
+                      shift: np.ndarray) -> torch.Tensor:
+        """The labels with the real clients' rotated by their drift shift,
+        modulo the class count (on the labels' device; the integers numpy's
+        rotation gives). ``base`` is this rank's rows, ``shift`` the real
+        population's."""
         n_cls = self._label_classes(p, base)
         y = base.clone()
-        sh = torch.from_numpy(np.asarray(shift[:real], np.int64)).to(y.device)
-        y[:real] = (base[:real] + sh[:, None]) % n_cls
+        lo = p.dataset.offset
+        rows = self._local_rows(p, range(lo, lo + p.dataset.num_clients))
+        if rows:
+            sh = torch.from_numpy(np.asarray(shift[lo:lo + len(rows)], np.int64)).to(y.device)
+            y[:len(rows)] = (base[:len(rows)] + sh[:, None]) % n_cls
         return y
 
     def _flag_anomalies(self, p: DataPopulation, round_idx: int, metrics,
@@ -1225,16 +1258,34 @@ class SimulationRunner:
                 slot[p.name] = init(self.states[p.name], p.dataset.num_clients)
         return slot
 
+    def _full_states(self) -> Dict[str, Any]:
+        """The server states as a checkpoint holds them: under the sharded
+        update, the optimizer state gathered from every rank's shard into
+        its full flat padded layout (a collective)."""
+        return {name: dataclasses.replace(st, opt_state=self.core.full_opt_state(st.opt_state))
+                for name, st in self.states.items()}
+
+    def _full_client_states(self) -> Dict[str, Any]:
+        """The per-client state as a checkpoint holds it: every rank's rows,
+        over the whole padded population (a collective)."""
+        return {name: self.core.gather_clients(st)
+                for name, st in self._materialized_client_states().items()}
+
     def _try_resume(self) -> int:
         """Restore the latest round checkpoint if one exists; returns the
-        round index to resume from (0 when starting fresh)."""
+        round index to resume from (0 when starting fresh). Every rank reads
+        the same step and keeps its own shard of it."""
         if self.checkpointer is None:
             return 0
-        template_client = dict(self._materialized_client_states())
-        restored = self.checkpointer.restore(self.states, template_client)
+        restored = self.checkpointer.restore(self._full_states(), self._full_client_states())
         if restored is None:
             return 0
         last_round, states, client_states, history = restored
+        states = {name: dataclasses.replace(st, opt_state=self.core.local_opt_state(st.opt_state))
+                  for name, st in states.items()}
+        by_name = {p.name: p.dataset for p in self.populations}
+        client_states = {name: self.core.local_clients(st, by_name[name])
+                         for name, st in client_states.items()}
         # The restore may have fallen back past an unreadable newer step; it
         # must not stay newest, or every restart would fall back, and lose
         # the replay, again.
@@ -1268,7 +1319,7 @@ class SimulationRunner:
         if round_idx <= self._force_checkpoint_until:
             kwargs["force"] = True
         self.checkpointer.save(
-            round_idx, self.states, self._materialized_client_states(),
+            round_idx, self._full_states(), self._full_client_states(),
             self.history, **kwargs
         )
 
@@ -1289,8 +1340,8 @@ class SimulationRunner:
             if latest is not None and latest >= last_round:
                 return
             self.checkpointer.save(
-                last_round, self.states,
-                self._materialized_client_states(), self.history,
+                last_round, self._full_states(),
+                self._full_client_states(), self.history,
             )
             self.checkpointer.wait()
         except Exception as e:  # noqa: BLE001 — fence best-effort
@@ -1457,7 +1508,7 @@ class SimulationRunner:
                             f"integer features; NaN poisoning skipped",
                 )
                 continue
-            idx = [c for c in clients if c < ds.num_real_clients]
+            idx = self._local_rows(p, clients)
             if not idx:
                 continue
             x = ds.x.clone()
@@ -1515,7 +1566,7 @@ class SimulationRunner:
                 factor = float(payload.get(
                     "factor", -1.0 if mode == "sign_flip" else 10.0
                 ))
-                scale = np.ones(p.dataset.num_clients, np.float32)
+                scale = np.ones(p.dataset.padded_clients, np.float32)
                 scale[clients] = np.float32(factor)
                 atk["scale"] = scale
             else:  # label_flip: class c -> (num_classes - 1 - c)
@@ -1523,8 +1574,10 @@ class SimulationRunner:
                     # A streamed population's labels are host arrays.
                     self._clean_y[p.name] = torch.as_tensor(p.dataset.y).clone()
                 y = self._clean_y[p.name].clone()
-                n_cls = int(y.max()) + 1
-                idx = torch.tensor(clients, device=y.device)
+                n_cls = self._global_max(y) + 1
+                # A resident shard's rows; a streamed population's are all.
+                rows = self._local_rows(p, clients) if p.store is None else clients
+                idx = torch.tensor(rows, dtype=torch.int64, device=y.device)
                 y[idx] = n_cls - 1 - y[idx]
                 atk["y"] = y
             self._attacks[p.name] = atk
@@ -1717,13 +1770,13 @@ class SimulationRunner:
                         with self._phase(operator.name, "eval", round_idx):
                             r = self._run_eval(p)
                         ok_by_population[p.name] = np.ones(
-                            p.dataset.num_clients, bool
+                            p.dataset.padded_clients, bool
                         )
                     elif operator.kind == "custom":
                         with self._phase(operator.name, "custom", round_idx):
                             r = self._call_custom(operator, round_idx, p) or {}
                         ok_by_population[p.name] = r.pop(
-                            "ok_mask", np.ones(p.dataset.num_clients, bool)
+                            "ok_mask", np.ones(p.dataset.padded_clients, bool)
                         )
                     else:
                         raise ValueError(f"unknown operator kind {operator.kind!r}")
@@ -1772,7 +1825,7 @@ class SimulationRunner:
                       round_idx=round_idx, task_id=self.task_id)
         with self._phase("round", "checkpoint", round_idx):
             self._checkpoint(round_idx)
-        if self.model_io is not None and not self._model_io_export_dead:
+        if self.writer and self.model_io is not None and not self._model_io_export_dead:
             # One global model per task (reference convention); multi-
             # population tasks export the first population's.
             try:
@@ -1851,7 +1904,11 @@ class SimulationRunner:
             lp["done"] = True
             return False
         round_idx = lp["round_idx"]
-        if self.stop_event is not None and self.stop_event.is_set():
+        stopping = self.stop_event is not None and self.stop_event.is_set()
+        if self.core.dp > 1:
+            # Every rank stops at the same round boundary.
+            stopping = collectives.agree(stopping, self.core.group)
+        if stopping:
             # Cooperative stop between rounds; the last completed round is
             # fenced into a checkpoint.
             self.stopped = True
@@ -1970,10 +2027,9 @@ class MultiTaskDispatcher:
       independent, and the order of turns enters no task's math.
     - ``interleave="thread"``: each task runs its whole loop on its own
       thread, so one task's host phases may overlap another's device work.
-      Every runner needs a core of its own: a round passes its parameters
-      through ``functional_call``, which swaps them into the core's module
-      for the call, so two threads on one core would train on each other's
-      weights.
+      Runners may share a core: a round passes its parameters through
+      ``functional_call`` into the module skeleton of its own thread
+      (``FedCore._module``), so no thread sees another's weights.
 
     Leases: with a ``task_repo`` (the port's or the JAX package's
     ``TaskTableRepo``, used duck-typed), the dispatcher claims each task's
@@ -2001,15 +2057,6 @@ class MultiTaskDispatcher:
         ids = [r.task_id for r in runners]
         if len(set(ids)) != len(ids):
             raise ValueError(f"duplicate task ids in dispatcher: {ids}")
-        if interleave == "thread":
-            cores = [id(getattr(r, "core", r)) for r in runners]
-            if len(set(cores)) != len(cores):
-                raise ValueError(
-                    "interleave='thread' needs one FedCore per runner: a round "
-                    "swaps its parameters into the core's module "
-                    "(functional_call), so threads sharing a core would train "
-                    "on each other's weights"
-                )
         self.runners = list(runners)
         self.task_repo = task_repo
         self.owner_id = owner_id or f"dispatcher-{os.getpid()}"

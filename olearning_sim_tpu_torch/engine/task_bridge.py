@@ -38,8 +38,18 @@ optional::
                     "stream_block_rows": 2048},
       "async":     {"buffer_size": 64, "max_staleness": 8,
                     "schedule": "polynomial", "staleness_alpha": 0.5,
-                    "speed_profiles": {"high": 0.05, "low": 0.4}}
+                    "speed_profiles": {"high": 0.05, "low": 0.4}},
+      "parallel":  {"mp": 2}                  # or {"pp": 2, "microbatches": 4}
     }
+
+Data parallelism is not a key: as the JAX bridge builds its plan over
+every device, this one builds it over every rank of ``torch.distributed``'s
+default group (one rank per card, e.g. under ``torchrun``; a world of one
+when no group is initialised), so dp is the world size. Each rank builds
+the same population from the seed, pads it to a multiple of ``dp *
+block_clients`` and places its own shard. A ``parallel`` block is parsed
+as the JAX bridge parses it (an unknown key such as ``dp`` is an error);
+``mp`` or ``pp`` above 1 is not ported (``ROADMAP.md`` A10) and refused.
 
 With ``scenario.stream_block_rows`` the population stays on the host (a
 ``HostClientStore``) and train rounds stream it through the device in
@@ -54,7 +64,7 @@ has ``{task_id}`` replaced, and a relative one is placed under
 ``tempfile.gettempdir()``, so a relaunch from another working directory
 resumes from the same steps.
 
-A task that asks for a part of the JAX bridge the port leaves out (dp or mp
+A task that asks for a part of the JAX bridge the port leaves out (mp or pp
 above 1, the websocket round provider, a real dataset) raises a
 ``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
 dropped block would run a different simulation than the one asked for.
@@ -93,6 +103,7 @@ from olearning_sim_tpu_torch.engine.runner import (
     SimulationRunner,
 )
 from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig
+from olearning_sim_tpu_torch.parallel.mesh import MeshPlan, ParallelConfig, make_mesh_plan
 from olearning_sim_tpu_torch.resilience import ResilienceConfig, parse_quarantine_params
 from olearning_sim_tpu_torch.storage import make_file_repo
 from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
@@ -131,12 +142,6 @@ def _refuse_left_out(task_id: str, params: Dict[str, Any], tc) -> None:
     if unknown:
         raise ValueError(f"task {task_id}: unknown engine params blocks {unknown} "
                          f"(known: {sorted(KNOWN)})")
-    par = params.get("parallel")
-    if par:
-        item = ("A10 (model parallelism)" if any(int(par.get(k, 1)) > 1 for k in ("mp", "pp"))
-                else "A9 (multi-GPU dp)")
-        raise ValueError(f"task {task_id}: engine params 'parallel' {par} are not "
-                         f"ported yet: ROADMAP.md {item}")
     if (params.get("operator_flow") or {}).get("selection_url"):
         raise ValueError(f"task {task_id}: the websocket round provider "
                          f"(operator_flow.selection_url) is not ported yet: ROADMAP.md A16")
@@ -218,6 +223,7 @@ def build_runner_from_taskconfig(
     cost_oracle=None,
     registry=None,
     device="cuda",
+    plan: Optional[MeshPlan] = None,
 ) -> SimulationRunner:
     """Build a ready-to-run runner from a task JSON (str or dict), the
     port's :class:`~olearning_sim_tpu_torch.taskmgr.codecs.TaskConfig`, or a
@@ -226,13 +232,24 @@ def build_runner_from_taskconfig(
     on ``device``, which defaults to CUDA and raises without it.
     ``task_repo`` / ``deviceflow`` / ``perf`` / ``cost_oracle`` /
     ``registry`` are handed to the runner, duck-typed; with a
-    ``cost_oracle`` the runner feeds it under :func:`cost_family`'s key."""
+    ``cost_oracle`` the runner feeds it under :func:`cost_family`'s key.
+    ``plan`` — the dp plan (default: every rank of the default group, or a
+    world of one)."""
     if isinstance(tc, (str, dict)):
         tc = json2taskconfig(tc)
     dev = resolve_device(device)
     task_id = tc.taskID.taskID
     params = _engine_params(tc)
     _refuse_left_out(task_id, params, tc)
+    # The block selects the mesh, so it is resolved before the plan, as
+    # the JAX bridge resolves it.
+    parallel = (ParallelConfig.from_dict(params["parallel"])
+                if params.get("parallel") else ParallelConfig())
+    if parallel.enabled:
+        raise ValueError(f"task {task_id}: engine params 'parallel' {params['parallel']} "
+                         f"are not ported yet: ROADMAP.md A10 (model parallelism)")
+    if plan is None:
+        plan = make_mesh_plan()
     operators = _operator_specs(task_id, tc)
     # Parsed before any data is made, so a bad block fails fast.
     model_io, warm_start_path = _model_io(task_id, tc, params)
@@ -258,14 +275,11 @@ def build_runner_from_taskconfig(
     from olearning_sim_tpu_torch.models import get_model
 
     model_name = model_cfg.get("name", "mlp2")
-    try:
-        spec = get_model(model_name)
-    except KeyError:
-        raise ValueError(f"task {task_id}: model {model_name!r} is not ported yet: "
-                         f"ROADMAP.md A10 (the remaining large families)") from None
+    # An unknown model raises get_model's KeyError, as in the JAX bridge.
+    spec = get_model(model_name)
     core = build_fedcore(model_name, algorithm, cfg,
                          model_overrides=model_cfg.get("overrides"),
-                         input_shape=input_shape, device=dev)
+                         input_shape=input_shape, device=dev, plan=plan)
 
     syn = data_cfg.get("synthetic", {})
     overrides = model_cfg.get("overrides") or {}
@@ -325,8 +339,9 @@ def build_runner_from_taskconfig(
             # from this host store.
             store = HostClientStore.from_dataset(ds)
         else:
-            ds = ds.pad_for(cfg.block_clients).to(dev)
-        cls = np.zeros(ds.num_clients, int)
+            # Every rank pads alike and keeps its own shard.
+            ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
+        cls = np.zeros(ds.padded_clients, int)
         start = 0
         for ci, n in enumerate(nums):
             cls[start:start + n] = ci
@@ -346,7 +361,7 @@ def build_runner_from_taskconfig(
         profiles = data_cfg.get("compute_profiles") or {}
         num_steps = None
         if profiles:
-            steps = np.full(ds.num_clients, cfg.max_local_steps, np.int32)
+            steps = np.full(ds.padded_clients, cfg.max_local_steps, np.int32)
             for ci, name in enumerate(devices):
                 if name in profiles:
                     steps[cls == ci] = int(profiles[name])

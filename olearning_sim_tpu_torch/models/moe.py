@@ -1,9 +1,9 @@
 """Mixture-of-Experts text family (``moe_text``): Switch-style top-1 routing
 with a static capacity, in every block of a post-LN text transformer.
 
-The JAX package's ``models/moe.py`` as ``torch.nn`` modules, at dp 1 (the
-expert-parallel layout of its weights waits for ROADMAP.md A10's second
-half). Routing is one-hot einsums, not scatters, as there:
+The JAX package's ``models/moe.py`` as ``torch.nn`` modules, every expert
+on every rank (the expert-parallel layout of its weights waits for
+ROADMAP.md A10's second half). Routing is one-hot einsums, not scatters, as there:
 
 - the router is an f32 Dense on ``x.float()``; each token goes to the
   ``argmax`` expert (the first maximum), weighted by its gate probability;

@@ -60,6 +60,9 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.engine import async_rounds\n"
         "from olearning_sim_tpu_torch.engine.runner import MultiTaskDispatcher\n"
         "from olearning_sim_tpu_torch.utils import durable\n"
+        "from olearning_sim_tpu_torch.parallel import collectives\n"
+        "from olearning_sim_tpu_torch.parallel.mesh import (ParallelConfig, pad_to_multiple,\n"
+        "    shard_clients)\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"
         "              'olearning_sim_tpu', 'triton'))\n"

@@ -298,8 +298,22 @@ def test_malformed_robust_blocks_are_refused_with_jax_messages(block, bad):
     assert str(got.value) == str(want.value)
 
 
+def test_unknown_model_raises_key_error():
+    """An unregistered model name lets the registry's KeyError through, as
+    the JAX bridge does (its get_model raises it)."""
+    from olearning_sim_tpu.models import get_model as jget_model
+
+    with pytest.raises(KeyError) as want:
+        jget_model("no_such_model")
+    with pytest.raises(KeyError) as got:
+        build_runner_from_taskconfig(_with_params(model={"name": "no_such_model"}),
+                                     device="cpu")
+    assert str(got.value) == str(want.value)
+
+
 @pytest.mark.parametrize("blocks,item", [
-    ({"parallel": {"dp": 2}}, "ROADMAP.md A9"),
+    # dp is the world size, not a key: JAX's ParallelConfig rejects it.
+    ({"parallel": {"dp": 2}}, r"unknown parallel config keys: \['dp'\]"),
     ({"operator_flow": {"selection_url": "ws://localhost:9"}}, "ROADMAP.md A16"),
     ({"streaming": {"x": 1}}, "unknown engine params"),
 ])

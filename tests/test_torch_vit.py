@@ -128,7 +128,18 @@ def test_weights_round_trip_exact():
         np.testing.assert_array_equal(a, b)
 
 
-def test_init_matches_flax():
+@pytest.fixture
+def one_thread():
+    """Elementwise work on one thread: the full-width init is 5x faster so
+    alone (0.29 s against 1.50 s on 8 threads) and far more under a loaded
+    test run, where every worker's threads contend for the cores."""
+    prev = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(prev)
+
+
+def test_init_matches_flax(one_thread):
     """Zero cls and biases, unit LayerNorm scales, normal(0.02) positions,
     lecun-normal kernels; reproducible from one seed."""
     tm = get_model("vit_tiny").build()
