@@ -225,6 +225,21 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        DP_PARAM_ATOL of dp 1's; 9b's peak memory per rank at dp 1 and 2,
        and the gloo rounds/sec (through the host: not a speed of the port).
 
+14. Model parallelism over two ranks on the one card, over gloo, spawned
+    as 13b, each against the same work at mp 1 (pp 1, ep 1) on the card:
+    14a ``fedadam_sent140_distilbert_mp2`` through the bridge (clients cut
+       to 32, block to 16, one round): the ranks' records and params
+       equal, the round's move within MP_MOVE_REL of mp 1's, the per-rank
+       peak device memory at mp 1 and mp 2 and the bytes handed to each
+       collective;
+    14b a flash evaluate at mp 2 (attention whole, FFN split): K1 launched
+       depth x batches times on each rank (counted from 0 on each), the
+       loss within EVAL_LOSS_TOL of mp 1's;
+    14c a pp-2 round of full-width DistilBERT (GPipe, M 2): the ranks
+       equal, the move within MP_MOVE_REL of the dense round's;
+    14d ``ep_train_step`` of ``moe_text`` at ep 2: the move within
+       MP_MOVE_REL of the dense step's.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -2600,6 +2615,303 @@ def dp_path(dev, shrink=None):
     log(f"phase 13 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# Phase 14: model parallelism. 14a runs fedadam_sent140_distilbert_mp2 with
+# its clients cut to MP_CLIENTS and its block (64, which does not fit one
+# card even at mp 1: A18) to MP_BLOCK.
+MP_CLIENTS = (32,)
+MP_BLOCK = 16
+# 14c: a pipelined round of full-width DistilBERT (pp 2, M 2).
+PP_CLIENTS, PP_BLOCK, PP_STEPS = 8, 4, 2
+# 14d: ep_train_step of moe_text at registry defaults (8 experts) on a batch
+# of EP_BATCH sequences.
+EP_BATCH = 64
+# 14a-14d against the same work at mp 1 (pp 1, ep 1) on the card: bf16
+# products split in two and summed over the ranks round once more than the
+# whole product, and bf16 activations round to the neighbouring value (2^-8
+# relative); a wrong shard, hop or sum moves a step's update by O(1).
+# Compared as in phase 7: what one round (step) moved, ||split - whole|| /
+# ||whole||.
+MP_MOVE_REL = CARD_CPU_REL
+MP_TIMEOUT_S = 600
+
+
+def _no_parallel_edit(task):
+    params = _engine_params(task)
+    old = params.pop("parallel")
+    _set_engine_params(task, params)
+    return f"parallel {old} -> none (the mp-1 reference)"
+
+
+def _moved_rel(label, got, want, p0, limit):
+    """How far ``got``'s move from ``p0`` is from ``want``'s, relative."""
+    rel = _rel_l2({k: got[k].float() - p0[k].float() for k in p0},
+                  {k: want[k].float() - p0[k].float() for k in p0})
+    log(f"{label}: move relative L2 {rel:.3e} (limit {limit:g})")
+    if not rel <= limit:
+        raise AssertionError(f"{label}: the move differs from the reference's")
+
+
+def _pp_setup(dev, plan, small):
+    """14c's pipelined (or dense, at pp 1) FedAdam core of full-width
+    DistilBERT and its clients, this rank's shard placed."""
+    from olearning_sim_tpu_torch.engine import (
+        FedCoreConfig,
+        build_fedcore,
+        fedadam,
+        make_synthetic_text_dataset,
+    )
+
+    cfg = FedCoreConfig(batch_size=16, max_local_steps=PP_STEPS, block_clients=PP_BLOCK)
+    over = small.get("distilbert")
+    ds = make_synthetic_text_dataset(0, PP_CLIENTS, 24, MAIN_SEQ_LEN, dirichlet_alpha=0.8,
+                                     vocab_size=(over or {}).get("vocab_size", 30522))
+    ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
+    core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, model_overrides=over,
+                         input_shape=(MAIN_SEQ_LEN,), device=dev, plan=plan,
+                         microbatches=2 if plan.pp > 1 else None)
+    return core, ds
+
+
+def _ep_setup(dev, small):
+    """14d's moe_text at registry defaults, its seed-0 params and a batch."""
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.models import get_model
+
+    model = get_model("moe_text").build(**small.get("moe_text", {})).to(dev)
+    params = {k: v.to(dev) for k, v in model.init_params(
+        torch.Generator().manual_seed(0)).items()}
+    rng = np.random.default_rng(0)
+    tokens = rng.integers(1, model.embed.weight.shape[0], (EP_BATCH, MAIN_SEQ_LEN)).astype(
+        np.int32)
+    tokens[::3, MAIN_SEQ_LEN // 2:] = 0
+    return model, params, tokens, (tokens[:, 0] % 2).astype(np.int64)
+
+
+def _mp_rank(rank, world, store_path, out_dir, dev_type, shrink, small):
+    """Phase 14 on one rank (a spawned process), over a gloo group of
+    ``world`` ranks on card 0 (or the CPU in a rehearsal): 14a-14d; results
+    as a torch file per rank. Rank 0 alone prints."""
+    import contextlib
+    import io
+    import os
+
+    import torch
+    import torch.distributed as dist
+
+    from olearning_sim_tpu_torch.engine.algorithms import SGD
+    from olearning_sim_tpu_torch.ops import flash_attention
+    from olearning_sim_tpu_torch.parallel import collectives
+    from olearning_sim_tpu_torch.parallel import expert_parallel as ep_mod
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
+
+    dev = torch.device("cpu")
+    if dev_type == "cuda":
+        torch.cuda.set_device(0)
+        dev = torch.device("cuda", 0)
+    quiet = contextlib.redirect_stdout(io.StringIO()) if rank else contextlib.nullcontext()
+    dist.init_process_group("gloo", store=dist.FileStore(store_path, world), rank=rank,
+                            world_size=world)
+    out = {}
+    try:
+        with quiet:
+            # 14a: the mp-2 config through the bridge.
+            collectives.reset_bytes()
+            t0 = time.perf_counter()
+            runner, hist = run_task("14a mp 2", "fedadam_sent140_distilbert_mp2", dev, 1,
+                                    clients=MP_CLIENTS, edit=block_edit(MP_BLOCK),
+                                    shrink=shrink)
+            if (runner.core.dp, runner.core.mp) != (1, 2):
+                raise AssertionError(f"14a: the bridge's plan is dp {runner.core.dp} x mp "
+                                     f"{runner.core.mp}, not 1 x 2")
+            out["14a"] = {"params": _host(runner.states["data_0"].params),
+                          "history": json.dumps(hist, sort_keys=True, default=float),
+                          "peak": _peak(dev), "bytes": dict(collectives.BYTES),
+                          "seconds": time.perf_counter() - t0,
+                          "sharded": runner.core.tp_sharded_ratio}
+            del runner
+            # 14b: a flash evaluate at mp 2, K1 on every rank.
+            plan = make_mesh_plan(mp=2)
+            core = _flash_core(dev, plan, small)
+            fstate = core.init_state(seed=0, device=dev)
+            x_eval, y_eval = _eval_set(small)
+            collectives.reset_bytes()
+            flash_attention.launches = 0
+            _sync(dev)
+            t0 = time.perf_counter()
+            loss, acc = core.evaluate(fstate.params, x_eval, y_eval)
+            _sync(dev)
+            out["14b"] = {"loss": loss, "acc": acc, "launches": flash_attention.launches,
+                          "seconds": time.perf_counter() - t0, "bytes": dict(collectives.BYTES),
+                          "depth": len(core.model.blocks),
+                          "batches": -(-len(y_eval) // core.config.eval_batch_size)}
+            del core, fstate
+            # 14c: a pipelined round.
+            if dev.type == "cuda":
+                torch.cuda.reset_peak_memory_stats(dev)
+            plan = make_mesh_plan(pp=2)
+            core, ds = _pp_setup(dev, plan, small)
+            state = core.init_state(seed=0, device=dev)
+            collectives.reset_bytes()
+            _sync(dev)
+            t0 = time.perf_counter()
+            state, m = core.round_step(state, ds)
+            _sync(dev)
+            out["14c"] = {"params": _host(state.params), "loss": float(m.mean_loss),
+                          "seconds": time.perf_counter() - t0, "bytes": dict(collectives.BYTES),
+                          "peak": _peak(dev)}
+            del core, ds, state, m
+            # 14d: an expert-parallel step.
+            plan = make_mesh_plan(ep=2)
+            model, params, tokens, labels = _ep_setup(dev, small)
+            mine, specs = ep_mod.ep_place_params(params, plan)
+            opt = SGD(0.1)
+            collectives.reset_bytes()
+            _sync(dev)
+            t0 = time.perf_counter()
+            new, _, loss = ep_mod.ep_train_step(model, mine, opt.init(mine), tokens, labels,
+                                                opt, plan)
+            _sync(dev)
+            out["14d"] = {"params": _host(new), "loss": loss,
+                          "seconds": time.perf_counter() - t0, "bytes": dict(collectives.BYTES),
+                          "split": sorted(k for k, d in specs.items() if d is not None)}
+        torch.save(out, os.path.join(out_dir, f"rank{rank}.pt"))
+    finally:
+        dist.destroy_process_group()
+
+
+def _eval_set(small):
+    from olearning_sim_tpu_torch.engine import make_central_text_eval_set
+
+    vocab = small.get("distilbert", {}).get("vocab_size", 30522)
+    return make_central_text_eval_set(0, small.get("eval_n", 2048), MAIN_SEQ_LEN,
+                                      vocab_size=vocab)
+
+
+def _flash_core(dev, plan, small):
+    from olearning_sim_tpu_torch.engine import FedCoreConfig, build_fedcore, fedadam
+
+    over = dict(small.get("distilbert", {}), attention_impl="flash")
+    return build_fedcore("distilbert", fedadam(0.01, 0.001), FedCoreConfig(**MAIN_CFG),
+                         model_overrides=over, input_shape=(MAIN_SEQ_LEN,), device=dev,
+                         plan=plan)
+
+
+def mp_path(dev, shrink=None, small=None):
+    """Phase 14: model parallelism over two ranks on the one card, over gloo
+    (NCCL refuses two ranks on one card), spawned as 13b. 14a runs
+    ``fedadam_sent140_distilbert_mp2`` through the bridge, 14b a flash
+    evaluate at mp 2 (K1 on every rank), 14c a pipelined round of
+    full-width DistilBERT, 14d an expert-parallel step of moe_text; each
+    against the same work at mp 1 (pp 1, ep 1) here on the card.
+    ``shrink`` narrows 14a's task and ``small`` the others' models
+    (``{"distilbert": overrides, "moe_text": overrides, "eval_n": n}``), for
+    rehearsals on the CPU only."""
+    import tempfile
+    import zlib
+
+    import torch
+    import torch.multiprocessing as tmp
+    import torch.nn.functional as F
+    from torch.func import functional_call
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.parallel.mesh import MeshPlan
+
+    t_phase = time.perf_counter()
+    card = card_line() if dev.type == "cuda" else "cpu"
+    one = MeshPlan(dp=1, sp=1, rank=0)
+    # The references at mp 1, on the card.
+    task, _ = load_task("fedadam_sent140_distilbert_mp2", 1, clients=MP_CLIENTS,
+                        edit=_edits(block_edit(MP_BLOCK), _no_parallel_edit), shrink=shrink)
+    probe = build_runner_from_taskconfig(task, device="cpu")
+    p0 = _host(probe.core.init_state(seed=zlib.crc32(probe.task_id.encode()) & 0x7FFFFFFF,
+                                     device="cpu").params)
+    del probe
+    ref, _ = run_task("14a mp 1", "fedadam_sent140_distilbert_mp2", dev, 1,
+                      clients=MP_CLIENTS, edit=_edits(block_edit(MP_BLOCK), _no_parallel_edit),
+                      shrink=shrink)
+    small = small or {}
+    a_ref = {"params": _host(ref.states["data_0"].params), "peak": _peak(dev)}
+    del ref
+    core = _flash_core(dev, one, small)
+    x_eval, y_eval = _eval_set(small)
+    b_ref = core.evaluate(core.init_state(seed=0, device=dev).params, x_eval, y_eval)
+    core, ds = _pp_setup(dev, one, small)
+    state = core.init_state(seed=0, device=dev)
+    c_p0 = _host(state.params)
+    state, m = core.round_step(state, ds)
+    c_ref = {"params": _host(state.params), "loss": float(m.mean_loss)}
+    del core, ds, state, m
+    model, params, tokens, labels = _ep_setup(dev, small)
+    leaves = {k: v.detach().requires_grad_(True) for k, v in params.items()}
+    logits, aux = functional_call(model, leaves, (torch.as_tensor(tokens, device=dev).long(),),
+                                  {"return_aux": True})
+    ce = F.cross_entropy(logits.float(), torch.as_tensor(labels, device=dev))
+    grads = torch.autograd.grad(ce + 0.01 * aux.float(), list(leaves.values()))
+    d_ref = {"params": {k: (v - 0.1 * g).detach().cpu() for (k, v), g in
+                        zip(leaves.items(), grads)}, "loss": float(ce.detach())}
+    d_p0 = _host(params)
+    del model, params, leaves, logits, aux, grads
+    if dev.type == "cuda":
+        torch.cuda.empty_cache()
+
+    world = 2
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_14_") as work:
+        t0 = time.perf_counter()
+        ctx = tmp.start_processes(_mp_rank, args=(world, f"{work}/store", work, dev.type,
+                                                  shrink, small),
+                                  nprocs=world, join=False, start_method="spawn")
+        try:
+            while not ctx.join(timeout=1):
+                if time.perf_counter() - t0 > MP_TIMEOUT_S:
+                    raise AssertionError(f"14: the ranks passed {MP_TIMEOUT_S} s")
+        finally:
+            for p in ctx.processes:
+                if p.is_alive():
+                    p.terminate()
+                p.join(timeout=30)
+        ranks = [torch.load(f"{work}/rank{r}.pt", weights_only=False) for r in range(world)]
+    log(f"14: {world} gloo ranks on one card ran in {time.perf_counter() - t0:.1f} s (the "
+        f"collectives go through the host: no speed of the port is read from them)")
+    r0 = ranks[0]
+    if ranks[1]["14a"]["history"] != r0["14a"]["history"]:
+        raise AssertionError("14a: the ranks' host records differ")
+    for label in ("14a", "14c"):
+        _held(f"{label} rank 1 vs rank 0", ranks[1][label]["params"], r0[label]["params"])
+    _moved_rel("14a mp 2 vs mp 1", r0["14a"]["params"], a_ref["params"], p0, MP_MOVE_REL)
+    gib = lambda v: "not measured (cpu)" if v is None else f"{v / 2**30:.4f} GiB"
+    log(f"14a peak device memory per rank: mp 1 {gib(a_ref['peak'])}, mp 2 "
+        + ", ".join(f"rank {r} {gib(res['14a']['peak'])}" for r, res in enumerate(ranks))
+        + f" | {card}")
+    log(f"14a: sharded fraction {r0['14a']['sharded']:.6f}; {r0['14a']['seconds']:.1f} s; "
+        f"bytes handed to gloo per round { {k: v for k, v in r0['14a']['bytes'].items() if v} }"
+        f" (rounds/sec {1.0 / r0['14a']['seconds']:.4f} through the host: not a speed of "
+        f"the port) | {card}")
+    for r, res in enumerate(ranks):
+        b = res["14b"]
+        want = b["depth"] * b["batches"]
+        log(f"14b rank {r}: flash evaluate at mp 2 loss={b['loss']:.6f} acc={b['acc']:.4f} "
+            f"(mp 1: {b_ref[0]:.6f} / {b_ref[1]:.4f}), K1 launches {b['launches']} "
+            f"(expected {want}), {b['seconds']:.2f} s, bytes { {k: v for k, v in b['bytes'].items() if v} }")
+        if dev.type == "cuda" and b["launches"] != want:
+            raise AssertionError(f"14b rank {r}: K1 launched {b['launches']} times")
+        if not abs(b["loss"] - b_ref[0]) <= EVAL_LOSS_TOL:
+            raise AssertionError(f"14b rank {r}: the mp-2 loss differs from mp 1's")
+    c = r0["14c"]
+    log(f"14c pp 2: mean_loss={c['loss']:.6f} (pp 1 {c_ref['loss']:.6f}), {c['seconds']:.1f} s, "
+        f"peak {gib(c['peak'])}, bytes { {k: v for k, v in c['bytes'].items() if v} }")
+    _moved_rel("14c pp 2 vs pp 1", c["params"], c_ref["params"], c_p0, MP_MOVE_REL)
+    d = {k: (torch.cat([res["14d"]["params"][k] for res in ranks]) if k in r0["14d"]["split"]
+             else r0["14d"]["params"][k]) for k in d_p0}
+    log(f"14d ep 2: {len(r0['14d']['split'])} expert leaves split; loss={r0['14d']['loss']:.6f} "
+        f"(dense {d_ref['loss']:.6f}), {r0['14d']['seconds']:.2f} s, bytes "
+        f"{ {k: v for k, v in r0['14d']['bytes'].items() if v} }")
+    _moved_rel("14d ep 2 vs dense", d, d_ref["params"], d_p0, MP_MOVE_REL)
+    log(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -2627,6 +2939,7 @@ def main() -> int:
     stream_path(dev)
     async_path(dev)
     dp_path(dev)
+    mp_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

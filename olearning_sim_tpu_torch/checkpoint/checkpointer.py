@@ -29,10 +29,11 @@ and skipped if unreadable, each skip logged as ``checkpoint_fallback``.
 A port checkpoint is not an orbax step: neither package reads the other's.
 Model files (:class:`ModelUpdateExporter`) are the interchange format.
 
-Over dp ranks (:attr:`RoundCheckpointer.group`, the runner's dp group) the
-runner hands every rank's save the same full tree (sharded optimizer state
-gathered to its flat padded layout, per-client state over the whole
-population); rank 0 writes it, and every rank meets the others at each
+Over the mesh's ranks (:attr:`RoundCheckpointer.group`, the runner's world
+group: dp, and mp or pp) the runner hands every rank's save the same full
+tree (sharded optimizer state gathered to its flat padded layout,
+per-client state over the whole population and, under mp, whole); rank 0
+writes it, and every rank meets the others at each
 commit (:meth:`RoundCheckpointer.wait` agrees on the commit's outcome, so
 a failed write raises on every rank) and reads the same step on restore.
 As in the JAX package, a step whose leaves do not match the template (a
@@ -154,8 +155,8 @@ class RoundCheckpointer:
         self._commit_thread: Optional[threading.Thread] = None
         self._commit_error: Optional[BaseException] = None
         self._streams: Dict[torch.device, Any] = {}
-        # The dp group of the ranks that share this directory (set by the
-        # runner); None: one process.
+        # The group of the ranks that share this directory (set by the
+        # runner: every rank of the mesh); None: one process.
         self.group = None
 
     @property

@@ -329,9 +329,16 @@ class AsyncStats:
 
 def check_round(core, ds, plan: AsyncRoundPlan, *, personal=None, control=None,
                 personal_indices=None, completion_time=None, deadline=None) -> None:
-    """What an async round refuses, with the JAX engine's messages (its
-    mp > 1 refusal cannot reach a port core: ``make_mesh_plan`` refuses mp,
-    ROADMAP.md A10)."""
+    """What an async round refuses, with the JAX engine's messages: a
+    model-parallel plan (mp > 1) first, as the JAX engine checks it."""
+    if core.plan.mp > 1:
+        raise ValueError(
+            "buffered asynchronous rounds do not compose with a "
+            "model-parallel mesh (mp > 1): the async commit scan is a "
+            "manual-dp shard_map program, which XLA 0.4.x cannot "
+            "partition with a >1 auto mp axis — run the async family "
+            "at mp=1 (docs/performance.md has the composition matrix)"
+        )
     if deadline is not None or completion_time is not None:
         raise ValueError(
             "async rounds and deadline masking are mutually exclusive "

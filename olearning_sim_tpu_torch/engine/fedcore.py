@@ -25,6 +25,23 @@ the per-client metrics come back gathered, over the whole population, on
 every rank. A plan over an uninitialised ``torch.distributed`` is a world
 of one whose collectives are the identity.
 
+Model parallelism (the plan's ``mp`` or ``pp`` axis; the JAX engine's
+GSPMD-auto round at mp > 1 and its pipelined round at pp > 1): each client's
+model is split over the model group's ranks, every rank of which trains
+the same clients. Under mp the per-client carry (and SCAFFOLD's c_i,
+Ditto's personal params) is this rank's tensor-parallel shards
+(:mod:`~olearning_sim_tpu_torch.parallel.tp`), the blocks run on them
+with Megatron's collectives, the finiteness verdict, the clip's norm and
+FedProx's pull are taken over the whole model, and the round's sums meet
+over dp in the shard layout and are gathered over mp; under pp the carry
+is this stage's layout (:mod:`~olearning_sim_tpu_torch.engine.pp_rounds`).
+The server state keeps the model's layout on every rank (the update runs
+on the whole mean delta, or on 1/(dp * mp) of its flat coordinates under
+the sharded update), so checkpoints, export and warm starts do not see
+the model axes. mp refuses what the JAX engine's refuses (gathering
+defenses, async and streamed rounds), pp everything but the plain FedOpt
+round.
+
 Heterogeneity is masking, as in the JAX engine: step ``i`` of a client is
 active iff ``i < num_steps[c]``; minibatch indices are drawn in
 ``[0, num_samples[c])``; aggregation weights are 0 for padded or
@@ -68,7 +85,7 @@ no host sync; each off path is the plain round, bitwise):
 instead (``engine/async_rounds.py``): the same block body, with each
 client's weighted delta summed into its commit window, then one server
 commit per window. ``FedCoreConfig.shard_server_update`` keeps the server
-optimizer's state over flat padded coordinates, 1/dp of them per rank, and
+optimizer's state over flat padded coordinates, 1/(dp * mp) of them per rank, and
 runs the update on this rank's coordinate shard, as the JAX engine's
 sharded update does.
 
@@ -108,14 +125,21 @@ import torch.nn.functional as F
 from torch.func import functional_call, grad_and_value, vmap
 
 from olearning_sim_tpu_torch.device import resolve_device
-from olearning_sim_tpu_torch.engine import async_rounds
+from olearning_sim_tpu_torch.engine import async_rounds, pp_rounds
 from olearning_sim_tpu_torch.engine.algorithms import Algorithm
 from olearning_sim_tpu_torch.engine import defense as defense_mod
 from olearning_sim_tpu_torch.engine.client_data import ClientDataset
 from olearning_sim_tpu_torch.engine.defense import DefenseConfig, distance_scores, robust_aggregate
 from olearning_sim_tpu_torch.engine.staging import BlockStager
-from olearning_sim_tpu_torch.parallel import collectives
+from olearning_sim_tpu_torch.parallel import collectives, pipeline
 from olearning_sim_tpu_torch.parallel.mesh import MeshPlan, make_mesh_plan, pad_to_multiple
+from olearning_sim_tpu_torch.parallel.tp import (
+    shard_params,
+    tp_param_specs,
+    unshard_params,
+    warn_if_unsharded,
+)
+from olearning_sim_tpu_torch.telemetry import instrument
 
 Params = Dict[str, torch.Tensor]
 
@@ -335,16 +359,24 @@ def _attack_deltas(deltas: Params, batk: torch.Tensor) -> Params:
     return {k: d * _bcast(batk.to(d.dtype), d) for k, d in deltas.items()}
 
 
-def _clip_client_deltas(d32: Params, clip_norm: torch.Tensor):
+def _clip_client_deltas(d32: Params, clip_norm: torch.Tensor, split=(), group=None):
     """Per-client L2 norm clip over a block of f32 deltas: a delta beyond
     the clip sphere is rescaled onto it. A where-select (not a multiply by
     1), so an unclipped delta, and the whole round under
-    :data:`CLIP_DISABLED`, stays bitwise untouched. Returns
-    ``(clipped_d32, too_big)``."""
-    norm2 = None
-    for v in d32.values():
+    :data:`CLIP_DISABLED`, stays bitwise untouched. The leaves named in
+    ``split`` are this rank's shards over ``group`` (tensor parallelism):
+    their squares are summed over it, so the norm is the whole delta's.
+    Returns ``(clipped_d32, too_big)``."""
+    norm2 = part = None
+    for k, v in d32.items():
         sq = v.reshape(v.shape[0], -1).square().sum(dim=1)
-        norm2 = sq if norm2 is None else norm2 + sq
+        if k in split:
+            part = sq if part is None else part + sq
+        else:
+            norm2 = sq if norm2 is None else norm2 + sq
+    if part is not None:
+        part = collectives.psum([part], group)[0]
+        norm2 = part if norm2 is None else norm2 + part
     too_big = norm2 > clip_norm * clip_norm
     scale = torch.where(too_big, clip_norm / torch.sqrt(norm2), 1.0)
     clipped = {k: torch.where(_bcast(too_big, d), d * _bcast(scale, d), d)
@@ -393,7 +425,7 @@ def _map_client_state(tree, fn):
         return ControlState(_map_client_state(tree.client_controls, fn),
                             tree.server_control)
     keys = list(tree)
-    return dict(zip(keys, fn([tree[k] for k in keys])))
+    return dict(zip(keys, fn(keys, [tree[k] for k in keys])))
 
 
 def _finite_client_mask(losses: torch.Tensor, deltas: Params) -> torch.Tensor:
@@ -441,11 +473,13 @@ class _RoundSums:
 class FedCore:
     """Owns one (model, algorithm, config) triple's round and eval steps,
     on this rank of ``plan`` (default: every rank of the default group, or
-    a world of one)."""
+    a world of one). ``microbatches`` — the GPipe microbatch count of a
+    pipelined plan (``plan.pp > 1``; default pp)."""
 
     def __init__(self, model: torch.nn.Module, algorithm: Algorithm,
                  config: FedCoreConfig = FedCoreConfig(),
-                 plan: Optional[MeshPlan] = None):
+                 plan: Optional[MeshPlan] = None,
+                 microbatches: Optional[int] = None):
         # The module only supplies structure: every call passes its
         # parameters through functional_call, so it may live on "meta".
         if algorithm.personalized and algorithm.control_variates:
@@ -462,16 +496,44 @@ class FedCore:
         self.algorithm = algorithm
         self.config = config
         self.plan = plan if plan is not None else make_mesh_plan()
-        if self.plan.sp != 1:
+        if self.plan.sp != 1 or self.plan.ep != 1:
             raise ValueError(
-                f"the round runs over a dp-only plan; got sp={self.plan.sp} "
-                f"(sequence parallelism is the long-context path's)"
+                f"the round runs over a dp x mp or dp x pp plan; got "
+                f"sp={self.plan.sp} ep={self.plan.ep} (sequence and expert "
+                f"parallelism are the long-context and ep_train_step paths')"
+            )
+        if microbatches is not None and self.plan.pp <= 1:
+            raise ValueError(
+                "microbatches only applies to pipeline parallelism — build "
+                "the plan with make_mesh_plan(pp=...) (or the engine-params "
+                "{'parallel': {'pp': N}} block)"
             )
         # The dp axis: its group (None: a world of one with no collective),
         # its size and this rank's place on it.
         self.group = self.plan.dp_group
         self.dp = self.plan.dp
         self.dp_rank = self.plan.dp_rank
+        # The model axes. Under mp the per-client carry is this rank's
+        # tensor-parallel shards (tp_specs: the split dimension per leaf,
+        # None when no leaf splits and every rank computes whole); under pp
+        # it is this stage's layout (engine/pp_rounds.py).
+        self.mp, self.mp_group, self.mp_rank = self.plan.mp, self.plan.mp_group, self.plan.mp_rank
+        self.tp_specs = None
+        self.tp_sharded_ratio = 0.0
+        if self.mp > 1:
+            shapes = {k: v.shape for k, v in model.named_parameters()}
+            specs = tp_param_specs(shapes, self.mp, getattr(model, "heads", None))
+            self.tp_sharded_ratio = warn_if_unsharded(shapes, specs, self.mp)
+            if any(d is not None for d in specs.values()):
+                self.tp_specs = specs
+        self._split = frozenset(k for k, d in (self.tp_specs or {}).items() if d is not None)
+        self._pp = None
+        if self.plan.pp > 1:
+            M = pp_rounds.validate_pp_build(model, self.plan, config, algorithm, microbatches)
+            self._pp = pipeline.PipelinedBody(model, self.plan, M)
+        # The group whose ranks hold one client's model between them.
+        self.model_group = (self.mp_group if self.tp_specs is not None
+                            else self.plan.pp_group if self._pp is not None else None)
         # A model with an auxiliary loss (moe_text) says so; its forward
         # then takes return_aux=True and returns (logits, aux).
         self.has_aux = bool(getattr(model, "sows_aux_loss", False))
@@ -480,11 +542,15 @@ class FedCore:
         # this core must not share one.
         self._local = threading.local()
         # The sharded server update pads each flat parameter to a multiple
-        # of dp * mp (mp is 1: ROADMAP.md A10). Which leaves of its flat
-        # optimizer state are per coordinate (sharded over dp) and which
-        # stay whole on every rank (Adam's count) is decided once, on the
-        # global template, as the JAX engine decides it.
-        self._shard_pad = self.dp
+        # of dp * mp and keeps 1/(dp * mp) of the coordinates per rank, the
+        # JAX engine's P(("dp", "mp")): shard dp_rank * mp + mp_rank, over
+        # the world (ranks are dp-major). Which leaves of its flat optimizer
+        # state are per coordinate (sharded) and which stay whole on every
+        # rank (Adam's count) is decided once, on the global template, as
+        # the JAX engine decides it.
+        self._shard_pad = self.dp * self.mp
+        self._coord_index = self.dp_rank * self.mp + self.mp_rank
+        self._coord_group = self.group if self.mp == 1 else self.plan.world_group
         self.opt_sharded = None
         if config.shard_server_update:
             template = algorithm.server_optimizer.init(
@@ -527,21 +593,53 @@ class FedCore:
 
     def init_personal(self, state: ServerState, num_clients: int) -> PersonalState:
         """Ditto personal params for ``num_clients`` (padded) clients, each
-        starting at the current global model, in ``config.personal_dtype``."""
+        starting at the current global model, in ``config.personal_dtype``
+        (under mp, this rank's shards of the split leaves, as the JAX
+        engine shards them over mp)."""
         dt = self.config.personal_dtype
         return PersonalState({
             k: p.to(dt or p.dtype).unsqueeze(0).expand((num_clients,) + p.shape).contiguous()
-            for k, p in state.params.items()})
+            for k, p in self._to_carry(state.params).items()})
 
     def init_control(self, state: ServerState, num_clients: int) -> ControlState:
-        """Zero SCAFFOLD controls: c_i ``[num_clients, ...]`` and c, f32."""
+        """Zero SCAFFOLD controls: c_i ``[num_clients, ...]`` (under mp,
+        this rank's shards) and c (whole), f32."""
         return ControlState(
             client_controls={k: torch.zeros((num_clients,) + p.shape, dtype=torch.float32,
                                             device=p.device)
-                             for k, p in state.params.items()},
+                             for k, p in self._to_carry(state.params).items()},
             server_control={k: torch.zeros_like(p, dtype=torch.float32)
                             for k, p in state.params.items()},
         )
+
+    def _to_carry(self, params: Params) -> Params:
+        """The model's params in this rank's carry layout: its tensor-parallel
+        shards (views) under mp, its stage layout under pp, else themselves."""
+        if self._pp is not None:
+            return self._pp.to_local(params)
+        if self.tp_specs is not None:
+            return shard_params(params, self.tp_specs, self.mp, self.mp_rank)
+        return params
+
+    def _from_carry(self, local: Params) -> Params:
+        """The inverse of :meth:`_to_carry` (a collective over the model group):
+        carry-layout tensors back in the model's layout on every rank."""
+        if self._pp is not None:
+            return self._pp.to_full(local)
+        if self.tp_specs is not None:
+            return unshard_params(local, self.tp_specs, self.mp_group)
+        return local
+
+    def _agree_ok(self, ok: torch.Tensor) -> torch.Tensor:
+        """A finiteness verdict ``[block]`` taken over every rank holding a
+        piece of each client's model: a non-finite value in one rank's shard
+        or stage fails the client on all of them."""
+        if self.model_group is None:
+            return ok
+        return collectives.pmax([(~ok).to(torch.int32)], self.model_group)[0] == 0
+
+    def _forward_kwargs(self) -> dict:
+        return {"mp_group": self.mp_group} if self.tp_specs is not None else {}
 
     def _flat(self, tree: Params) -> Params:
         """Each tensor flattened and padded to the sharded update's layout."""
@@ -556,17 +654,18 @@ class FedCore:
         return {k: flat[k][:v.numel()].reshape(v.shape) for k, v in like.items()}
 
     def _my_shard(self, flat: Params) -> Params:
-        """This rank's contiguous 1/dp of each flat padded tensor's last
+        """This rank's contiguous 1/(dp * mp) of each flat padded tensor's last
         axis: the coordinate shard the sharded update owns."""
         def one(f):
-            n = f.shape[-1] // self.dp
-            return f[..., self.dp_rank * n:(self.dp_rank + 1) * n]
+            n = f.shape[-1] // self._shard_pad
+            return f[..., self._coord_index * n:(self._coord_index + 1) * n]
         return {k: one(f) for k, f in flat.items()}
 
     def _stitch(self, shards: Params, like: Params) -> Params:
         """Every rank's coordinate shards stitched into ``like``'s shapes
         (the JAX engine's ``place_coordinate_shard``)."""
-        return self._unflat(defense_mod.place_coordinate_shard(shards, self.group), like)
+        return self._unflat(defense_mod.place_coordinate_shard(shards, self._coord_group),
+                            like)
 
     def _server_update(self, params: Params, pseudo_grad: Params, opt_state):
         """The server optimizer's step on a pseudo-gradient: ``(new_params,
@@ -595,7 +694,7 @@ class FedCore:
         update every per-coordinate leaf gathered from its rank shards into
         the flat padded vector (a collective: every rank calls it); the
         state itself otherwise. What a checkpoint holds."""
-        if not self.config.shard_server_update or self.group is None:
+        if not self.config.shard_server_update or self._coord_group is None:
             return opt_state
         shards = {}
 
@@ -605,14 +704,14 @@ class FedCore:
             return leaf
 
         _map_paths(opt_state, visit)
-        full = dict(zip(shards, collectives.all_gather(list(shards.values()), self.group,
-                                                       dim=-1)))
+        full = dict(zip(shards, collectives.all_gather(list(shards.values()),
+                                                       self._coord_group, dim=-1)))
         return _map_paths(opt_state, lambda path, leaf: full.get(path, leaf))
 
     def local_opt_state(self, opt_state):
         """The inverse of :meth:`full_opt_state`: this rank's shard of each
         per-coordinate leaf of a full-layout state."""
-        if not self.config.shard_server_update or self.group is None:
+        if not self.config.shard_server_update or self._coord_group is None:
             return opt_state
         return _map_paths(opt_state, lambda path, leaf: self._my_shard({"": leaf})[""].clone()
                           if self._is_sharded(path) else leaf)
@@ -624,16 +723,28 @@ class FedCore:
 
     def gather_clients(self, tree):
         """Per-client state held by rank (``[clients of this rank, ...]``
-        tensors in a dict or a state dataclass) gathered over the whole
-        padded population, on every rank (a collective)."""
-        return _map_client_state(tree, lambda leaves: collectives.all_gather(
-            leaves, self.group))
+        tensors in a dict or a state dataclass; under mp, this rank's
+        shards) gathered over the whole padded population, whole, on every
+        rank (a collective)."""
+        def whole(keys, leaves):
+            leaves = collectives.all_gather(leaves, self.group)
+            if self.tp_specs is None:
+                return leaves
+            full = unshard_params(dict(zip(keys, leaves)), self.tp_specs, self.mp_group, lead=1)
+            return [full[k] for k in keys]
+        return _map_client_state(tree, whole)
 
     def local_clients(self, tree, ds: ClientDataset):
-        """The inverse of :meth:`gather_clients`: this rank's rows of
-        whole-population per-client state."""
+        """The inverse of :meth:`gather_clients`: this rank's rows (and
+        shards) of whole-population per-client state."""
         rows = self.client_rows(ds)
-        return _map_client_state(tree, lambda leaves: [v[rows].clone() for v in leaves])
+
+        def mine(keys, leaves):
+            local = {k: v[rows] for k, v in zip(keys, leaves)}
+            if self.tp_specs is not None:
+                local = shard_params(local, self.tp_specs, self.mp, self.mp_rank, lead=1)
+            return [local[k].clone() for k in keys]
+        return _map_client_state(tree, mine)
 
     def round_generator(self, state: ServerState, stream: int = 0) -> torch.Generator:
         """The CPU generator of a round's minibatch indices: a function of
@@ -665,10 +776,14 @@ class FedCore:
         auxiliary loss, ``aux_loss_weight * aux`` (else None). In
         multiplicity mode the aux term sees the client's whole local set,
         as in the JAX engine."""
-        if not self.has_aux:
-            logits = functional_call(self._module(), p, (x,))
+        if self._pp is not None:
+            logits = self._pp.logits(p, x)
             return F.cross_entropy(logits.float(), y, reduction="none"), None
-        logits, aux = functional_call(self._module(), p, (x,), {"return_aux": True})
+        kw = self._forward_kwargs()
+        if not self.has_aux:
+            logits = functional_call(self._module(), p, (x,), kw)
+            return F.cross_entropy(logits.float(), y, reduction="none"), None
+        logits, aux = functional_call(self._module(), p, (x,), {"return_aux": True, **kw})
         return (F.cross_entropy(logits.float(), y, reduction="none"),
                 self.config.aux_loss_weight * aux.float())
 
@@ -710,8 +825,7 @@ class FedCore:
             base = loss_fn
 
             def loss_fn(q, *args):
-                l2 = sum((q[k] - prox_anchor[k]).square().sum() for k in q)
-                return base(q, *args) + 0.5 * alg.prox_mu * l2
+                return base(q, *args) + 0.5 * alg.prox_mu * self._prox_sq(q, prox_anchor)
 
         step_fn = vmap(grad_and_value(loss_fn))
         total = torch.zeros(cb, dtype=torch.float32, device=x.device)
@@ -723,6 +837,8 @@ class FedCore:
                 grads, loss = step_fn(p, x, y, sw / cfg.batch_size)
             else:
                 grads, loss = step_fn(p, x[rows, bi], y[rows, bi])
+            if self._pp is not None:
+                grads = self._pp.fix_grads(grads)
             if grad_transform is not None:
                 grads = {k: grad_transform(k, g, p[k]).to(p[k].dtype) for k, g in grads.items()}
             active = i < steps_eff
@@ -737,6 +853,18 @@ class FedCore:
             torch.full_like(total, float("nan")),
         )
         return {k: v.to(orig[k]) for k, v in p.items()}, mean_loss
+
+    def _prox_sq(self, q: Params, anchor: Params) -> torch.Tensor:
+        """FedProx's ``||q - anchor||^2`` over the whole model: the split
+        leaves' part summed over the model group (an identity gradient),
+        so every rank holds the same value and each leaf's pull once."""
+        if self._pp is not None:
+            return self._pp.prox_sq(q, anchor)
+        if not self._split:
+            return sum((q[k] - anchor[k]).square().sum() for k in q)
+        whole = sum((q[k] - anchor[k]).square().sum() for k in q if k not in self._split)
+        part = sum((q[k] - anchor[k]).square().sum() for k in q if k in self._split)
+        return whole + collectives.reduce_from(part, self.mp_group)
 
     def _check_client_state(self, what: str, tree: Params, C: int, dev) -> None:
         for k, v in tree.items():
@@ -848,6 +976,8 @@ class FedCore:
         self._check_shard(ds)
         if defense is not None and not defense.enabled:
             defense = None
+        if self._pp is not None:
+            pp_rounds.check_launch(deadline, completion_time, attack_scale, defense, async_plan)
         if async_plan is not None:
             async_rounds.check_round(self, ds, async_plan, personal=personal, control=control,
                                      personal_indices=personal_indices,
@@ -859,6 +989,15 @@ class FedCore:
                 "robust aggregators / anomaly scoring are not supported "
                 "with control-variate algorithms (the SCAFFOLD server "
                 "control consumes the weighted mean); use clip_norm only"
+            )
+        if defense is not None and defense.gathers_deltas and self.mp > 1:
+            raise ValueError(
+                "robust aggregators / anomaly scoring do not compose with "
+                "a model-parallel mesh (mp > 1): their coordinate-sharded "
+                "layout is built on manual dp collectives the mp>1 "
+                "GSPMD-auto round program cannot host — run mp=1 or use "
+                "clip_norm only (docs/performance.md has the composition "
+                "matrix)"
             )
         participate = self._local_arg("participate", participate, ds, dev)
         weight = ds.weight if participate is None else ds.weight * participate
@@ -894,15 +1033,22 @@ class FedCore:
             return async_rounds.async_round(self, state, ds, async_plan, weight, steps_eff,
                                             indices, attack_scale, defense, clip_norm,
                                             trim_fraction)
-        sums = self._round_sums(state.params, C, clipping=defense is not None,
+        # The carry's layout: this rank's shards or stage (the whole model
+        # at mp 1 and pp 1); SCAFFOLD's server control alike.
+        local = self._to_carry(state.params)
+        local_control = control
+        if control is not None and self.tp_specs is not None:
+            local_control = ControlState(control.client_controls,
+                                         self._to_carry(control.server_control))
+        sums = self._round_sums(local, C, clipping=defense is not None,
                                 gathering=defense is not None and defense.gathers_deltas)
         for s in range(0, C, cfg.block_clients):
             blk = slice(s, s + cfg.block_clients)
             self._train_block(
-                sums, state.params, blk, ds.x[blk], ds.y[blk], steps_eff[blk],
+                sums, local, blk, ds.x[blk], ds.y[blk], steps_eff[blk],
                 indices[blk], weight[blk],
                 None if attack_scale is None else attack_scale[blk],
-                clip_norm=clip_norm, control=control, personal=personal,
+                clip_norm=clip_norm, control=local_control, personal=personal,
                 personal_idx=personal_indices[blk] if alg.personalized else None,
             )
         return self._finish_round(state, sums, defense, trim_fraction, stragglers,
@@ -1004,7 +1150,7 @@ class FedCore:
             # The shipped delta; SCAFFOLD's refresh below reads the
             # trained one, as the JAX engine's local training returns it.
             deltas = _attack_deltas(trained, batk)
-        ok = _finite_client_mask(losses, deltas)
+        ok = self._agree_ok(_finite_client_mask(losses, deltas))
         bw_eff = torch.where(ok, bw, 0.0)
         if clip_norm is None and window is None:
             for k, d in deltas.items():
@@ -1014,7 +1160,8 @@ class FedCore:
             d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
                    for k, d in deltas.items()}
             if clip_norm is not None:
-                d32, too_big = _clip_client_deltas(d32, clip_norm)
+                split = {"split": self._split, "group": self.mp_group} if self._split else {}
+                d32, too_big = _clip_client_deltas(d32, clip_norm, **split)
                 sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
             if window is None:
                 for k, d in d32.items():
@@ -1072,6 +1219,11 @@ class FedCore:
         shard_update = self.config.shard_server_update
         gather = sums.gathered is not None
         robust = gather and defense.aggregator in ("trimmed_mean", "median")
+        # Under mp or pp the sums are in the carry's layout (this rank's
+        # shards or stage): they meet over dp in that layout, then the
+        # model group puts them back together (and under mp the sharded
+        # update takes its 1/(dp * mp) of the coordinates from the whole).
+        model_axes = self.model_group is not None or self.mp > 1
         # One psum for the round's scalars and the replicated sums; the
         # mean's collective is skipped when a robust aggregate replaces it.
         scalars = [sums.sum_w, sums.sum_loss, sums.count, sums.sum_ploss]
@@ -1079,8 +1231,9 @@ class FedCore:
             scalars.append(sums.n_clip)
         if stragglers is not None:
             scalars.append(stragglers)
-        keys = list(params)
-        dense = [] if robust or shard_update else [sums.sum_delta[k] for k in keys]
+        keys = list(sums.sum_delta)
+        dense = ([] if robust or (shard_update and not model_axes)
+                 else [sums.sum_delta[k] for k in keys])
         dcs = [sums.sum_dc[k] for k in keys] if alg.control_variates else []
         reduced = collectives.psum(scalars + dense + dcs, self.group)
         sum_w, sum_loss, count, sum_ploss = reduced[:4]
@@ -1091,7 +1244,15 @@ class FedCore:
         sum_dc = dict(zip(keys, reduced[len(scalars) + len(dense):]))
         denom = torch.clamp(sum_w, min=1e-8)
         mean_delta = delta_shards = None
-        if not robust:
+        if model_axes:
+            mean_delta = self._from_carry({k: s / denom for k, s in
+                                     zip(keys, reduced[len(scalars):len(scalars) + len(dense)])})
+            if alg.control_variates:
+                sum_dc = self._from_carry(sum_dc)
+            if shard_update:
+                # This rank's 1/(dp * mp) of the flat coordinates.
+                delta_shards = self._my_shard(self._flat(mean_delta))
+        elif not robust:
             if shard_update:
                 delta_shards = dict(zip(keys, collectives.psum_scatter(
                     [_flat_pad_leaf(sums.sum_delta[k], self.dp) for k in keys], self.group)))
@@ -1159,9 +1320,14 @@ class FedCore:
 
     # --------------------------------------------------------- streamed round
     def _stream_reject(self, defense) -> None:
-        """What a streamed round refuses, with the JAX engine's messages.
-        Its refusal of mp or pp above 1 cannot reach a port core:
-        ``make_mesh_plan`` refuses both (ROADMAP.md A10)."""
+        """What a streamed round refuses, with the JAX engine's messages."""
+        if self.plan.pp > 1 or self.mp > 1:
+            raise ValueError(
+                "streamed rounds run on dp-only meshes: the partial-"
+                "aggregate carry is a manual-dp program (mp>1 runs "
+                "GSPMD-auto end-to-end, pp>1 pipelines the train body; "
+                "docs/performance.md has the composition matrix)"
+            )
         if self.algorithm.personalized or self.algorithm.control_variates:
             raise ValueError(
                 f"streamed rounds do not support the personalized/"
@@ -1445,7 +1611,7 @@ class FedCore:
 
         v, plosses = self._masked_sgd(v0, x, y, steps, idx, grad_transform=pull)
         v = {k: t.to(v_old[k].dtype) for k, t in v.items()}
-        okp = _finite_client_mask(plosses, v)
+        okp = self._agree_ok(_finite_client_mask(plosses, v))
         keep = okp | ~participating
         v = {k: torch.where(_bcast(keep, t), t, v_old[k]) for k, t in v.items()}
         return v, torch.where(participating & okp, bw * plosses, 0.0).sum()
@@ -1455,15 +1621,19 @@ class FedCore:
     def evaluate(self, params: Params, x, y) -> Tuple[float, float]:
         """Centralized eval of the global model in batches of
         ``eval_batch_size``; host arrays are moved to the params' device
-        batch by batch."""
+        batch by batch. Under mp each rank runs its shards; under pp every
+        rank runs the dense model on the whole params, as the JAX engine
+        does."""
         dev = next(iter(params.values())).device
         bs = self.config.eval_batch_size
         n = x.shape[0]
         loss_sum = acc_sum = 0.0
+        local = params if self._pp is not None else self._to_carry(params)
+        kw = self._forward_kwargs()
         for i in range(0, n, bs):
             xb = torch.as_tensor(x[i:i + bs]).to(dev)
             yb = torch.as_tensor(y[i:i + bs]).to(dev, torch.int64)
-            logits = functional_call(self._module(), params, (xb,)).float()
+            logits = functional_call(self._module(), local, (xb,), kw).float()
             w = yb.shape[0]
             loss_sum += float(F.cross_entropy(logits, yb)) * w
             acc_sum += float((logits.argmax(-1) == yb).float().mean()) * w
@@ -1485,9 +1655,11 @@ class FedCore:
                 f"pad with ClientDataset.pad_for(block)"
             )
 
+        kw = self._forward_kwargs()
+
         def one(v, xc, yc, ns):
             v = {k: t.float() if t.is_floating_point() else t for k, t in v.items()}
-            logits = functional_call(self._module(), v, (xc,)).float()
+            logits = functional_call(self._module(), v, (xc,), kw).float()
             losses = F.cross_entropy(logits, yc, reduction="none")
             valid = torch.arange(xc.shape[0], device=xc.device) < ns
             d = torch.clamp(ns, min=1).float()
@@ -1512,17 +1684,25 @@ def build_fedcore(model_name: str, algorithm: Algorithm,
                   config: FedCoreConfig = FedCoreConfig(),
                   model_overrides: Optional[dict] = None,
                   input_shape: Optional[Tuple[int, ...]] = None,
-                  device="cuda", plan: Optional[MeshPlan] = None) -> FedCore:
+                  device="cuda", plan: Optional[MeshPlan] = None,
+                  microbatches: Optional[int] = None) -> FedCore:
     """Convenience constructor from the model registry. ``input_shape`` is
     one example's shape (default the registry's ``example_input_shape``),
     from which the model takes its input widths. ``device`` is checked here
     (a CUDA request without CUDA raises); parameters are placed by
-    :meth:`FedCore.init_state`. ``plan`` — the dp plan (default: every rank
-    of the default group, or a world of one)."""
+    :meth:`FedCore.init_state`. ``plan`` — the mesh plan (default: dp over
+    every rank of the default group, or a world of one); at mp > 1 the
+    ``ols_engine_tp_sharded_ratio`` gauge is set for the model.
+    ``microbatches`` — the GPipe microbatch count of a pp plan (default
+    pp); refused on other plans."""
     from olearning_sim_tpu_torch.models import get_model
 
     resolve_device(device)
     spec = get_model(model_name)
     with torch.device("meta"):
         model = spec.build(input_shape=input_shape, **(model_overrides or {}))
-    return FedCore(model, algorithm, config, plan=plan)
+    core = FedCore(model, algorithm, config, plan=plan, microbatches=microbatches)
+    if core.mp > 1:
+        instrument("ols_engine_tp_sharded_ratio").labels(model=model_name).set(
+            core.tp_sharded_ratio)
+    return core

@@ -277,10 +277,11 @@ class SimulationRunner:
         self.populations = populations
         self.operators = operators
         self.rounds = int(rounds)
-        # Over dp ranks every rank runs this loop alike and takes every
-        # decision alike; only rank 0 writes (checkpoints, model files, the
-        # task row), the others keep their task rows in a private repo.
-        self.writer = core.dp_rank == 0
+        # Over the mesh's ranks (dp, and mp or pp) every rank runs this loop
+        # alike and takes every decision alike; only rank 0 of the world
+        # writes (checkpoints, model files, the task row), the others keep
+        # their task rows in a private repo.
+        self.writer = core.plan.rank == 0
         self.task_repo = (task_repo if task_repo is not None and self.writer
                           else TaskTableRepo())
         self.deviceflow = deviceflow
@@ -291,8 +292,8 @@ class SimulationRunner:
         self.registry = registry
         self.checkpointer = checkpointer
         if checkpointer is not None:
-            # The ranks of the core's dp group share its directory.
-            checkpointer.group = core.group
+            # Every rank of the mesh shares its directory.
+            checkpointer.group = core.plan.world_group
         self.checkpoint_every = max(1, int(checkpoint_every))
         self.model_io = model_io
         self.warm_start_path = warm_start_path
@@ -1905,9 +1906,9 @@ class SimulationRunner:
             return False
         round_idx = lp["round_idx"]
         stopping = self.stop_event is not None and self.stop_event.is_set()
-        if self.core.dp > 1:
+        if self.core.plan.n_devices > 1:
             # Every rank stops at the same round boundary.
-            stopping = collectives.agree(stopping, self.core.group)
+            stopping = collectives.agree(stopping, self.core.plan.world_group)
         if stopping:
             # Cooperative stop between rounds; the last completed round is
             # fenced into a checkpoint.

@@ -48,8 +48,10 @@ default group (one rank per card, e.g. under ``torchrun``; a world of one
 when no group is initialised), so dp is the world size. Each rank builds
 the same population from the seed, pads it to a multiple of ``dp *
 block_clients`` and places its own shard. A ``parallel`` block is parsed
-as the JAX bridge parses it (an unknown key such as ``dp`` is an error);
-``mp`` or ``pp`` above 1 is not ported (``ROADMAP.md`` A10) and refused.
+as the JAX bridge parses it (an unknown key such as ``dp`` is an error)
+and selects the mesh: ``mp`` runs the tensor-parallel round and ``pp`` the
+pipelined one over ``world // (mp * pp)`` dp ranks; a plan handed in must
+realize the block, or the task is refused in the JAX bridge's words.
 
 With ``scenario.stream_block_rows`` the population stays on the host (a
 ``HostClientStore``) and train rounds stream it through the device in
@@ -64,8 +66,8 @@ has ``{task_id}`` replaced, and a relative one is placed under
 ``tempfile.gettempdir()``, so a relaunch from another working directory
 resumes from the same steps.
 
-A task that asks for a part of the JAX bridge the port leaves out (mp or pp
-above 1, the websocket round provider, a real dataset) raises a
+A task that asks for a part of the JAX bridge the port leaves out (the
+websocket round provider, a real dataset) raises a
 ``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
 dropped block would run a different simulation than the one asked for.
 The JAX bridge's persistent compile-cache switch has no counterpart in
@@ -233,8 +235,9 @@ def build_runner_from_taskconfig(
     ``task_repo`` / ``deviceflow`` / ``perf`` / ``cost_oracle`` /
     ``registry`` are handed to the runner, duck-typed; with a
     ``cost_oracle`` the runner feeds it under :func:`cost_family`'s key.
-    ``plan`` — the dp plan (default: every rank of the default group, or a
-    world of one)."""
+    ``plan`` — the mesh plan (default: the ``parallel`` block's over every
+    rank of the default group, or a world of one); one handed in must
+    realize the block."""
     if isinstance(tc, (str, dict)):
         tc = json2taskconfig(tc)
     dev = resolve_device(device)
@@ -245,11 +248,14 @@ def build_runner_from_taskconfig(
     # the JAX bridge resolves it.
     parallel = (ParallelConfig.from_dict(params["parallel"])
                 if params.get("parallel") else ParallelConfig())
-    if parallel.enabled:
-        raise ValueError(f"task {task_id}: engine params 'parallel' {params['parallel']} "
-                         f"are not ported yet: ROADMAP.md A10 (model parallelism)")
     if plan is None:
-        plan = make_mesh_plan()
+        plan = parallel.make_plan() if parallel.enabled else make_mesh_plan()
+    elif parallel.enabled and not parallel.matches(plan):
+        raise ValueError(
+            f"task {task_id}: engine params ask for "
+            f"parallel mp={parallel.mp} pp={parallel.pp} but the supplied "
+            f"mesh plan has mp={plan.mp} pp={plan.pp}"
+        )
     operators = _operator_specs(task_id, tc)
     # Parsed before any data is made, so a bad block fails fast.
     model_io, warm_start_path = _model_io(task_id, tc, params)
@@ -279,7 +285,8 @@ def build_runner_from_taskconfig(
     spec = get_model(model_name)
     core = build_fedcore(model_name, algorithm, cfg,
                          model_overrides=model_cfg.get("overrides"),
-                         input_shape=input_shape, device=dev, plan=plan)
+                         input_shape=input_shape, device=dev, plan=plan,
+                         microbatches=parallel.microbatches)
 
     syn = data_cfg.get("synthetic", {})
     overrides = model_cfg.get("overrides") or {}

@@ -24,6 +24,8 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
+from olearning_sim_tpu_torch.parallel import collectives
+
 # Standard deviation of a unit normal truncated at +-2 sigma: flax's
 # lecun_normal divides by it so the truncated draw has unit variance.
 _TRUNC_STD = 0.87962566103423978
@@ -33,6 +35,28 @@ def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, kernel and bias are all cast to
     ``dtype`` (so an f32 head computes in f32 from bf16 parameters too)."""
     return F.linear(x.to(dtype), lin.weight.to(dtype), lin.bias.to(dtype))
+
+
+def row_dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype, group) -> torch.Tensor:
+    """A row-parallel :func:`dense`: ``lin`` holds this rank's input rows
+    and ``x`` its columns; the partial products are summed over ``group``
+    (Megatron's *g*) and the replicated bias is added once, after."""
+    y = F.linear(x.to(dtype), lin.weight.to(dtype))
+    return collectives.reduce_from(y, group) + lin.bias.to(dtype)
+
+
+def ffn(x: torch.Tensor, up: nn.Linear, down: nn.Linear, mlp_dim: int,
+        dtype: torch.dtype, mp_group=None) -> torch.Tensor:
+    """The blocks' FFN, ``down(gelu_tanh(up(x)))``. When ``up`` holds fewer
+    than ``mlp_dim`` columns (its shard over ``mp_group``), the up
+    projection runs column-parallel (``x``, replicated, enters through
+    Megatron's *f*, so its gradient sums over the group) and the down
+    projection row-parallel."""
+    if mp_group is not None and up.weight.shape[0] != mlp_dim:
+        y = dense(collectives.copy_to(x, mp_group), up, dtype)
+        return row_dense(F.gelu(y, approximate="tanh"), down, dtype, mp_group)
+    y = F.gelu(dense(x, up, dtype), approximate="tanh")
+    return dense(y, down, dtype)
 
 
 def same_pads(x: torch.Tensor, k: int, stride: int) -> list:

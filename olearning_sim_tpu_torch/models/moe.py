@@ -1,9 +1,8 @@
 """Mixture-of-Experts text family (``moe_text``): Switch-style top-1 routing
 with a static capacity, in every block of a post-LN text transformer.
 
-The JAX package's ``models/moe.py`` as ``torch.nn`` modules, every expert
-on every rank (the expert-parallel layout of its weights waits for
-ROADMAP.md A10's second half). Routing is one-hot einsums, not scatters, as there:
+The JAX package's ``models/moe.py`` as ``torch.nn`` modules. Routing is
+one-hot einsums, not scatters, as there:
 
 - the router is an f32 Dense on ``x.float()``; each token goes to the
   ``argmax`` expert (the first maximum), weighted by its gate probability;
@@ -26,6 +25,18 @@ The expert weights keep flax's layout (``expert_w1 [E, W, M]``,
 Layers are ``embed``, ``norm.i`` / ``dense.i`` / ``blocks.i`` in flax's
 ``LayerNorm_i`` / ``Dense_i`` / ``MoEBlock_i`` order, and a block's
 ``switch`` is its ``SwitchFFN_0``.
+
+Model parallelism, through ``forward``'s groups:
+
+- ``ep_group`` (expert parallelism,
+  :mod:`~olearning_sim_tpu_torch.parallel.expert_parallel`): a switch
+  handed its ranks' slice of the ``expert_*`` leaves routes every token as
+  before (the router is replicated), runs its own experts on the tokens
+  routed to them, and the combine is summed over the group; the tokens and
+  gate values enter through Megatron's *f*, so their gradients sum too;
+- ``mp_group`` (tensor parallelism): the blocks' attention runs on its
+  local heads, as the text family's; the switch stays whole, as JAX's
+  rules leave it.
 """
 
 from __future__ import annotations
@@ -45,6 +56,7 @@ from olearning_sim_tpu_torch.models.common import (
 )
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.models.transformer import dense_attention, layer_norm
+from olearning_sim_tpu_torch.parallel import collectives
 
 
 def _one_hot(idx: torch.Tensor, n: int, dtype: torch.dtype) -> torch.Tensor:
@@ -87,10 +99,12 @@ class SwitchFFN(nn.Module):
         keep = (pos_in_expert >= 0) & (pos_in_expert < cap)
         return probs, expert, onehot, pos_in_expert, keep, vf, cap
 
-    def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
+    def forward(self, x: torch.Tensor, valid: Optional[torch.Tensor] = None,
+                ep_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
         # x: [B, T, W]; valid: [B, T] bool, True = real token. Returns the
         # expert mixture [B, T, W] in x's dtype and the aux loss (f32).
+        # Under ep_group the expert_* leaves are this rank's contiguous
+        # slice of the experts.
         B, T, W = x.shape
         E, dt = self.num_experts, self.dtype
         probs, expert, onehot, pos_in_expert, keep, vf, cap = self.route(x, valid)
@@ -98,12 +112,22 @@ class SwitchFFN(nn.Module):
         dispatch = (_one_hot(expert, E, dt)[:, :, None]
                     * _one_hot(pos_in_expert, cap, dt)[:, None, :]
                     * keep[:, None, None].to(dt))                     # [S, E, C]
+        xs = x.reshape(B * T, W).to(dt)
+        split = ep_group is not None and self.expert_w1.shape[0] != E
+        if split:
+            n = self.expert_w1.shape[0]
+            lo = collectives.rank(ep_group) * n
+            dispatch = dispatch[:, lo:lo + n]
+            xs = collectives.copy_to(xs, ep_group, "ep_psum")
+            gate_val = collectives.copy_to(gate_val, ep_group, "ep_psum")
         combine = dispatch * gate_val[:, None, None].to(dt)
-        xe = torch.einsum("sec,sd->ecd", dispatch, x.reshape(B * T, W).to(dt))
+        xe = torch.einsum("sec,sd->ecd", dispatch, xs)
         h = F.gelu(torch.einsum("ecd,edm->ecm", xe, self.expert_w1.to(dt))
                    + self.expert_b1.to(dt), approximate="tanh")
         ye = torch.einsum("ecm,emd->ecd", h, self.expert_w2.to(dt)) + self.expert_b2.to(dt)
         y = torch.einsum("sec,ecd->sd", combine, ye)
+        if split:
+            y = collectives.reduce_from(y, ep_group, "ep_psum")
         n_valid = torch.clamp(vf.sum().float(), min=1.0)
         f = onehot.float().sum(dim=0) / n_valid
         p = (probs * vf[:, None].float()).sum(dim=0) / n_valid
@@ -128,11 +152,11 @@ class MoEBlock(nn.Module):
         self.norm = nn.ModuleList([nn.LayerNorm(width), nn.LayerNorm(width)])
         self.switch = SwitchFFN(num_experts, width, mlp_dim, capacity_factor, dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor
-                ) -> Tuple[torch.Tensor, torch.Tensor]:
-        y = dense_attention(self, x, pad_mask, self.heads, self.dtype)
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, mp_group=None,
+                ep_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
+        y = dense_attention(self, x, pad_mask, self.heads, self.dtype, mp_group)
         x = layer_norm(x + y, self.norm[0], self.dtype)
-        y, aux = self.switch(x, pad_mask)
+        y, aux = self.switch(x, pad_mask, ep_group)
         return layer_norm(x + y, self.norm[1], self.dtype), aux
 
 
@@ -159,7 +183,8 @@ class MoETextTransformer(nn.Module):
             for _ in range(depth))
         self.dense = nn.ModuleList([nn.Linear(width, num_classes)])
 
-    def forward(self, tokens: torch.Tensor, return_aux: bool = False):
+    def forward(self, tokens: torch.Tensor, return_aux: bool = False, mp_group=None,
+                ep_group=None):
         # tokens: [B, L] integer ids; returns [B, num_classes] f32 logits,
         # and with return_aux the mean of the blocks' aux losses.
         L = tokens.shape[1]
@@ -170,7 +195,7 @@ class MoETextTransformer(nn.Module):
         x = layer_norm(x, self.norm[0], self.dtype)
         auxes = []
         for block in self.blocks:
-            x, aux = block(x, pad_mask)
+            x, aux = block(x, pad_mask, mp_group, ep_group)
             auxes.append(aux)
         m = pad_mask[..., None].float()
         pooled = (x.float() * m).sum(1) / torch.clamp(m.sum(1), min=1.0)

@@ -28,6 +28,14 @@ written, since the parity tests hold the two against each other:
   ``ring_use_flash`` takes each ring step through the stats kernel
   (trainable) instead of plain torch ops.
 
+Tensor parallelism (``mp_group`` passed to ``forward``): a block handed
+its shards (:func:`~olearning_sim_tpu_torch.parallel.tp.shard_params`)
+runs the dense attention on its local heads and the FFN on its local
+columns, each closed by a sum over the group; a leaf left whole (heads
+that do not divide mp, the flash branch's ``qkv``/``attn_out``) computes
+whole on every rank, so a flash forward at mp 2 runs the kernel on every
+rank with all heads.
+
 Linear layers keep PyTorch's ``[out, in]`` weight layout;
 :mod:`olearning_sim_tpu_torch.weights` converts from and to the flax
 parameter tree.
@@ -44,9 +52,14 @@ import torch.nn as nn
 import torch.nn.functional as F
 
 from olearning_sim_tpu_torch.models.common import dense as _dense
-from olearning_sim_tpu_torch.models.common import default_init_params
+from olearning_sim_tpu_torch.models.common import (
+    default_init_params,
+    ffn,
+    row_dense,
+)
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.ops import flash_attention
+from olearning_sim_tpu_torch.parallel import collectives
 from olearning_sim_tpu_torch.parallel.ring_attention import (
     all_reduce_sum,
     group_rank,
@@ -65,25 +78,30 @@ def layer_norm(x: torch.Tensor, ln: nn.LayerNorm, dtype: torch.dtype) -> torch.T
 
 
 def dense_attention(attn: nn.Module, x: torch.Tensor, pad_mask, heads: int,
-                    dtype: torch.dtype) -> torch.Tensor:
+                    dtype: torch.dtype, mp_group=None) -> torch.Tensor:
     """flax's ``MultiHeadDotProductAttention`` self-attention on ``x [B, L,
     W]`` with ``attn``'s ``query``/``key``/``value``/``out`` Linears: the
     query scaled by 1/sqrt(D), the softmax in ``dtype``; ``pad_mask [B, L]``
     (True = real token) masks both ends of a score to ``finfo(dtype).min``,
-    and ``None`` masks nothing."""
+    and ``None`` masks nothing. When ``attn`` holds this rank's heads of an
+    ``mp_group`` split (fewer than ``heads``), the projections run
+    column-parallel on them and ``out`` row-parallel."""
     B, L, W = x.shape
     D = W // heads
-    q = _dense(x, attn.query, dtype).view(B, L, heads, D)
-    k = _dense(x, attn.key, dtype).view(B, L, heads, D)
-    v = _dense(x, attn.value, dtype).view(B, L, heads, D)
+    h = attn.query.weight.shape[0] // D
+    split = mp_group is not None and h != heads
+    # One f for the three column-parallel projections (the identity whole).
+    xin = collectives.copy_to(x, mp_group) if split else x
+    q, k, v = (_dense(xin, lin, dtype).view(B, L, h, D)
+               for lin in (attn.query, attn.key, attn.value))
     q = q / torch.tensor(math.sqrt(D), dtype=dtype)
     s = torch.einsum("bqhd,bkhd->bhqk", q, k)
     if pad_mask is not None:
         mask = pad_mask[:, None, :, None] & pad_mask[:, None, None, :]
         s = torch.where(mask, s, torch.finfo(dtype).min)
     w = torch.softmax(s, dim=-1).to(dtype)
-    o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, W)
-    return _dense(o, attn.out, dtype)
+    o = torch.einsum("bhqk,bkhd->bqhd", w, v).reshape(B, L, h * D)
+    return row_dense(o, attn.out, dtype, mp_group) if split else _dense(o, attn.out, dtype)
 
 
 class TransformerBlock(nn.Module):
@@ -95,7 +113,7 @@ class TransformerBlock(nn.Module):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.dtype, self.mlp_dim = heads, dtype, mlp_dim
         self.attention_impl = attention_impl
         self.ring_use_flash = ring_use_flash
         if attention_impl == "flash":
@@ -120,7 +138,8 @@ class TransformerBlock(nn.Module):
         o = o.transpose(1, 2).reshape(B, L, W)
         return _dense(o, self.attn_out, self.dtype)
 
-    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, sp_group=None) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, sp_group=None,
+                mp_group=None) -> torch.Tensor:
         # pad_mask: [B, L] bool, True = real token.
         if self.attention_impl == "flash":
             y = self._flash_attention(x, pad_mask)
@@ -128,11 +147,9 @@ class TransformerBlock(nn.Module):
             y = ring_self_attention(self, x, pad_mask, sp_group, self.heads, self.dtype,
                                     self.ring_use_flash)
         else:
-            y = dense_attention(self, x, pad_mask, self.heads, self.dtype)
+            y = dense_attention(self, x, pad_mask, self.heads, self.dtype, mp_group)
         x = layer_norm(x + y, self.ln_1, self.dtype)  # post-LN, BERT-style
-        y = _dense(x, self.mlp_in, self.dtype)
-        y = F.gelu(y, approximate="tanh")
-        y = _dense(y, self.mlp_out, self.dtype)
+        y = ffn(x, self.mlp_in, self.mlp_out, self.mlp_dim, self.dtype, mp_group)
         return layer_norm(x + y, self.ln_2, self.dtype)
 
 
@@ -145,6 +162,8 @@ class TextTransformer(nn.Module):
         super().__init__()
         self.pad_id, self.dtype, self.heads = pad_id, dtype, heads
         self.max_len, self.attention_impl = max_len, attention_impl
+        self.vocab_size, self.width, self.depth = vocab_size, width, depth
+        self.mlp_dim, self.num_classes = mlp_dim, num_classes
         self.embed = nn.Embedding(vocab_size, width)
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))
         self.ln_emb = nn.LayerNorm(width)
@@ -154,13 +173,16 @@ class TextTransformer(nn.Module):
         )
         self.head = nn.Linear(width, num_classes)
 
-    def forward(self, tokens: torch.Tensor, sp_group=None) -> torch.Tensor:
+    def forward(self, tokens: torch.Tensor, sp_group=None, mp_group=None) -> torch.Tensor:
         # tokens: [B, L] integer ids; returns [B, num_classes] f32 logits.
         # Under attention_impl="ring", tokens is this rank's chunk of the
         # sequence over sp_group (None: the whole sequence, a ring of one).
+        # With mp_group the blocks run on their tensor-parallel shards.
         ring = self.attention_impl == "ring"
         if sp_group is not None and not ring:
             raise ValueError("sp_group needs attention_impl='ring'")
+        if mp_group is not None and ring:
+            raise ValueError("mp_group does not compose with attention_impl='ring'")
         pad_mask = tokens != self.pad_id
         L = tokens.shape[1]
         offset = group_rank(sp_group) * L if ring else 0
@@ -171,7 +193,7 @@ class TextTransformer(nn.Module):
         x = (emb + self.pos_embedding[:, offset:offset + L]).to(self.dtype)
         x = layer_norm(x, self.ln_emb, self.dtype)
         for block in self.blocks:
-            x = block(x, pad_mask, sp_group)
+            x = block(x, pad_mask, sp_group, mp_group)
         # Mean-pool over real tokens (of the global sequence under ring).
         m = pad_mask[..., None].float()
         s = all_reduce_sum((x.float() * m).sum(1), sp_group)

@@ -17,6 +17,9 @@ patch 4 for 32x32 inputs, width 192, depth 12, 3 heads, MLP 768.
   tanh GELU, Dense, residual. LayerNorm has epsilon 1e-6 and f32
   statistics; every Dense computes in ``dtype``.
 - A final LayerNorm, then an f32 Dense head on the ``cls`` token.
+- With ``mp_group`` the blocks run on their tensor-parallel shards
+  (:mod:`~olearning_sim_tpu_torch.parallel.tp`): at mp 2 ViT-Tiny's 3
+  heads stay whole and its FFN columns split.
 
 Layers are ``conv.0`` / ``norm.i`` / ``dense.i`` / ``blocks.i`` in flax's
 ``Conv_0`` / ``LayerNorm_i`` / ``Dense_i`` / ``EncoderBlock_i`` order; a
@@ -32,7 +35,7 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from olearning_sim_tpu_torch.models.common import default_init_params, dense, flax_special
+from olearning_sim_tpu_torch.models.common import default_init_params, dense, ffn, flax_special
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.models.transformer import dense_attention, layer_norm
 
@@ -43,7 +46,7 @@ class EncoderBlock(nn.Module):
         super().__init__()
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.dtype, self.mlp_dim = heads, dtype, mlp_dim
         self.norm = nn.ModuleList([nn.LayerNorm(width), nn.LayerNorm(width)])
         self.query = nn.Linear(width, width)
         self.key = nn.Linear(width, width)
@@ -51,13 +54,12 @@ class EncoderBlock(nn.Module):
         self.out = nn.Linear(width, width)
         self.dense = nn.ModuleList([nn.Linear(width, mlp_dim), nn.Linear(mlp_dim, width)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mp_group=None) -> torch.Tensor:
         dt = self.dtype
         y = layer_norm(x, self.norm[0], dt)
-        x = x + dense_attention(self, y, None, self.heads, dt)
+        x = x + dense_attention(self, y, None, self.heads, dt, mp_group)
         y = layer_norm(x, self.norm[1], dt)
-        y = F.gelu(dense(y, self.dense[0], dt), approximate="tanh")
-        return x + dense(y, self.dense[1], dt)
+        return x + ffn(y, self.dense[0], self.dense[1], self.mlp_dim, dt, mp_group)
 
 
 class ViT(nn.Module):
@@ -77,7 +79,7 @@ class ViT(nn.Module):
         self.norm = nn.ModuleList([nn.LayerNorm(width)])
         self.dense = nn.ModuleList([nn.Linear(width, num_classes)])
 
-    def forward(self, x: torch.Tensor) -> torch.Tensor:
+    def forward(self, x: torch.Tensor, mp_group=None) -> torch.Tensor:
         # x: [B, H, W, C]; returns [B, num_classes] f32 logits.
         dt = self.dtype
         b = x.shape[0]
@@ -88,7 +90,7 @@ class ViT(nn.Module):
         x = torch.cat([self.cls.to(dt).expand(b, 1, self.width), x], dim=1)
         x = x + self.pos_embedding.to(dt)
         for block in self.blocks:
-            x = block(x)
+            x = block(x, mp_group)
         x = layer_norm(x, self.norm[0], dt)
         return dense(x[:, 0], self.dense[0], torch.float32)
 

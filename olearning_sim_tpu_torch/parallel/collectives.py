@@ -17,9 +17,22 @@ A ``None`` group is a group of one (``torch.distributed`` not
 initialised): every call returns its inputs and launches nothing. A group
 of one initialised rank launches every collective, with the same results.
 
+The model-parallel paths need collectives inside the client's local step,
+which the round trains under ``vmap(grad_and_value(loss))``: a plain
+``dist.all_reduce`` neither differentiates nor accepts a functorch
+``BatchedTensor``. :func:`copy_to` and :func:`reduce_from` are Megatron's
+*f* and *g* (identity forward and all-reduce backward; all-reduce forward
+and identity backward), and :func:`hop` is JAX's ``ppermute`` one stage on
+along a pipeline; each is a ``torch.autograd.Function`` whose backward
+calls another of them and whose ``vmap`` rule runs the collective once on
+the physical batched tensor, so the backward is vmappable too. Every rank
+of the group must reach each of them in the same order, forward and
+backward.
+
 :data:`BYTES` counts, per collective, the bytes each call hands to the
 backend on this rank (the flat buffer's size): the per-round traffic that
-``chip_smoke.py`` prints.
+``chip_smoke.py`` prints. The model-parallel ops count under their axis
+(``mp_psum``, ``ep_psum``, ``pp_psum``, ``pp_hop``).
 """
 
 from __future__ import annotations
@@ -32,7 +45,7 @@ import torch
 import torch.distributed as dist
 
 BYTES: Dict[str, int] = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "all_to_all": 0,
-                         "pmax": 0}
+                         "pmax": 0, "mp_psum": 0, "ep_psum": 0, "pp_psum": 0, "pp_hop": 0}
 
 
 def reset_bytes() -> None:
@@ -210,3 +223,130 @@ def all_to_all(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
             out[i] = res[:, off:off + m].reshape(n * c, d // n).to(tensors[i].device)
             off += m
     return out
+
+
+# ------------------------------------------------- differentiable, vmappable
+def active(group) -> bool:
+    """Whether ``group`` has more than one rank: an axis of size 1 launches
+    no collective of its own."""
+    return group is not None and dist.get_world_size(group) > 1
+
+
+def _physical(info, in_dim, x: torch.Tensor) -> torch.Tensor:
+    """The batched tensor of a ``vmap`` rule with its batch axis first (an
+    unbatched input expanded to the batch), so every rank hands the
+    collective the same shape."""
+    if in_dim is None:
+        return x.unsqueeze(0).expand((info.batch_size,) + x.shape)
+    return x.movedim(in_dim, 0)
+
+
+def _sum_raw(x: torch.Tensor, group, name: str) -> torch.Tensor:
+    return _all_reduce([x.contiguous()], group, name, dist.ReduceOp.SUM)[0]
+
+
+class _ReduceFrom(torch.autograd.Function):
+    """Megatron's *g*: the sum over the group forward, identity backward."""
+
+    @staticmethod
+    def forward(x, group, name):
+        return _sum_raw(x, group, name)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        pass
+
+    @staticmethod
+    def backward(ctx, grad):
+        return grad, None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, name):
+        return _ReduceFrom.apply(_physical(info, in_dims[0], x), group, name), 0
+
+
+class _CopyTo(torch.autograd.Function):
+    """Megatron's *f*: identity forward, the sum over the group backward."""
+
+    @staticmethod
+    def forward(x, group, name):
+        return x.view_as(x)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.name = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _ReduceFrom.apply(grad, ctx.group, ctx.name), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, name):
+        return _CopyTo.apply(x, group, name), in_dims[0]
+
+
+def reduce_from(x: torch.Tensor, group, name: str = "mp_psum") -> torch.Tensor:
+    """The sum of ``x`` over ``group``, differentiable as identity: the
+    close of a row-parallel product, whose every rank then holds the whole
+    (replicated) value and differentiates its own copy of the loss. ``x``
+    itself over a group of one."""
+    return _ReduceFrom.apply(x, group, name) if active(group) else x
+
+
+def copy_to(x: torch.Tensor, group, name: str = "mp_psum") -> torch.Tensor:
+    """``x`` itself, whose gradient is summed over ``group``: a replicated
+    value entering a computation split over the group's ranks (a
+    column-parallel product), so each rank's partial gradient of it
+    becomes the whole."""
+    return _CopyTo.apply(x, group, name) if active(group) else x
+
+
+def _shift_raw(x: torch.Tensor, group, step: int) -> torch.Tensor:
+    """Send ``x`` to the rank ``step`` places on in ``group`` (none past
+    either end) and receive from the rank ``step`` places back (zeros at
+    the first end): the pipeline's ``ppermute`` with ``perm = [(i, i +
+    step)]``."""
+    n, r = dist.get_world_size(group), dist.get_rank(group)
+    dev = _comm_device(group, x)
+    src = x.contiguous().to(dev)
+    out = torch.zeros_like(src)
+    ops = []
+    if 0 <= r + step < n:
+        ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, r + step), group))
+        BYTES["pp_hop"] += src.numel() * src.element_size()
+    if 0 <= r - step < n:
+        ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, r - step), group))
+    if ops:
+        for req in dist.batch_isend_irecv(ops):
+            req.wait()
+    return out.to(x.device)
+
+
+class _Hop(torch.autograd.Function):
+    """One pipeline hop (stage p to p + 1); its backward is the hop back
+    (stage p + 1 to p), so each activation's gradient reaches its sender."""
+
+    @staticmethod
+    def forward(x, group, step):
+        return _shift_raw(x, group, step)
+
+    @staticmethod
+    def setup_context(ctx, inputs, output):
+        ctx.group, ctx.step = inputs[1], inputs[2]
+
+    @staticmethod
+    def backward(ctx, grad):
+        return _Hop.apply(grad, ctx.group, -ctx.step), None, None
+
+    @staticmethod
+    def vmap(info, in_dims, x, group, step):
+        return _Hop.apply(_physical(info, in_dims[0], x), group, step), 0
+
+
+def hop(x: torch.Tensor, group) -> torch.Tensor:
+    """``ppermute`` of ``x`` one stage on along ``group`` (the pipeline):
+    stage p receives stage p - 1's ``x``, stage 0 zeros, and the last
+    stage's ``x`` goes nowhere. Differentiable (the backward hops back) and
+    vmappable. Every stage must call it, and its result must reach every
+    stage's loss, or the backward hops of the stages do not pair up."""
+    return _Hop.apply(x, group, 1) if active(group) else torch.zeros_like(x)

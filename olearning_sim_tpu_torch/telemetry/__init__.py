@@ -197,6 +197,14 @@ CATALOG = {
         "figure BENCH_convergence.json banks). Unset until reached",
         ("task_id",),
     ),
+    "ols_engine_tp_sharded_ratio": (
+        GAUGE,
+        "Fraction of parameter elements the mesh mp axis actually shards "
+        "for a tensor-parallel build, per model (parallel/tp "
+        "sharded_fraction; 0 means the model axis is pure replication — "
+        "the tp_coverage analyzer fails mp>1 configs below 50%)",
+        ("model",),
+    ),
     # The port's checkpointer saves off the round's critical path too: the
     # save series times the dispatch (the device-to-host copy is queued on
     # a side stream, the write runs on the commit thread).

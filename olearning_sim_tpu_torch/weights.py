@@ -19,6 +19,11 @@ returns the port's parameter dict (``state_dict`` names, f32 CPU tensors);
 
 Every conversion is a reshape or transpose, so the round trip is exact.
 
+:func:`stack_block_params` / :func:`unstack_block_params` convert a
+block-structured model's per-block names (``blocks.i.<leaf>``) to one
+``[depth, ...]`` tensor per leaf and back, exactly: the layout whose depth
+axis the pipeline splits over its stages.
+
 Layouts: a flax ``Dense`` kernel is ``[in, out]`` and a torch ``Linear``
 weight ``[out, in]``; a flax ``Conv`` kernel is ``[kh, kw, c_in, c_out]``
 and a torch ``Conv2d`` weight ``[c_out, c_in, kh, kw]``. The dense
@@ -257,3 +262,36 @@ def params_to_jax(params: Dict[str, torch.Tensor], heads: Optional[int] = None) 
                                             (w.shape[1],), (w.shape[0],))
         tree[f"TransformerBlock_{i}"] = blk
     return tree
+
+
+def stack_block_params(params: Dict[str, torch.Tensor]):
+    """Split a block-structured model's params into ``(rest, stacked)``:
+    ``stacked[leaf]`` is ``[depth, ...]``, block ``i``'s
+    ``blocks.i.<leaf>`` at index ``i``; ``rest`` holds every other name."""
+    blocks: Dict[int, Dict[str, torch.Tensor]] = {}
+    rest = {}
+    for name, t in params.items():
+        parts = name.split(".", 2)
+        if parts[0] == "blocks" and len(parts) == 3 and parts[1].isdigit():
+            blocks.setdefault(int(parts[1]), {})[parts[2]] = t
+        else:
+            rest[name] = t
+    if not blocks:
+        raise ValueError("no blocks.i entries in params")
+    depth = len(blocks)
+    if sorted(blocks) != list(range(depth)):
+        raise ValueError(f"block indices {sorted(blocks)} are not 0..{depth - 1}")
+    leaves = list(blocks[0])
+    stacked = {leaf: torch.stack([blocks[i][leaf] for i in range(depth)]) for leaf in leaves}
+    return rest, stacked
+
+
+def unstack_block_params(rest: Dict[str, torch.Tensor],
+                         stacked: Dict[str, torch.Tensor]) -> Dict[str, torch.Tensor]:
+    """The inverse of :func:`stack_block_params`."""
+    out = dict(rest)
+    depth = next(iter(stacked.values())).shape[0]
+    for i in range(depth):
+        for leaf, t in stacked.items():
+            out[f"blocks.{i}.{leaf}"] = t[i]
+    return out

@@ -15,6 +15,8 @@ import torch
 from olearning_sim_tpu.engine import algorithms as jalg
 from olearning_sim_tpu_torch.engine import algorithms as talg
 
+import torch_threads  # noqa: F401
+
 # f32 elementwise formulas in optax's order; XLA's fused sqrt, rsqrt, pow
 # and division differ from torch's by a few ulps of the update per step.
 RTOL, ATOL = 1e-5, 2e-6

@@ -40,6 +40,7 @@ from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskcon
 from olearning_sim_tpu_torch.resilience import HostPreemption
 from olearning_sim_tpu_torch.resilience import faults as tfaults
 
+import torch_threads  # noqa: F401
 from test_torch_defense import ATTACK, PART, STEPS, _clip_between, _norms
 from test_torch_fedcore_families import (
     PARAM_ATOL,

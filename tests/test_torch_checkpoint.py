@@ -15,6 +15,7 @@ import time
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from test_torch_runner import task_json
 
 from olearning_sim_tpu_torch.checkpoint import RoundCheckpointer

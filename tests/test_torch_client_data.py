@@ -13,6 +13,8 @@ from olearning_sim_tpu.engine import client_data as jcd
 from olearning_sim_tpu.parallel.mesh import make_mesh_plan
 from olearning_sim_tpu_torch.engine import client_data as tcd
 
+import torch_threads  # noqa: F401
+
 FIELDS = ("x", "y", "num_samples", "client_uid", "weight")
 
 

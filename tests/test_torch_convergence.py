@@ -12,6 +12,7 @@ import threading
 
 import pytest
 
+import torch_threads  # noqa: F401
 from test_torch_runner import EVAL_N, _run_jax, _run_port, _series
 from test_torch_task_bridge import engine_params, load, set_engine_params, shrink
 

@@ -23,6 +23,7 @@ import jax
 import numpy as np
 import pytest
 
+import torch_threads  # noqa: F401
 from test_torch_checkpoint import _assert_same_state
 from test_torch_runner import (
     ACC_ATOL,

@@ -26,6 +26,7 @@ from olearning_sim_tpu_torch.engine import algorithms as talg
 from olearning_sim_tpu_torch.engine import defense as tdef
 from olearning_sim_tpu_torch.engine import fedcore as tfc
 
+import torch_threads  # noqa: F401
 from test_torch_fedcore_families import (
     PARAM_ATOL,
     _compare_metrics,

@@ -26,6 +26,8 @@ from olearning_sim_tpu_torch.engine.runner import (
 from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo, make_owner_id
 from olearning_sim_tpu_torch.telemetry import MetricsRegistry
 
+import torch_threads  # noqa: F401
+
 NUM_CLIENTS = 16
 INPUT_SHAPE = (8,)
 ASYNC_CFG = AsyncConfig(buffer_size=4, schedule="polynomial", staleness_alpha=0.5,

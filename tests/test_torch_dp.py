@@ -40,6 +40,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as tmp
 
+import torch_threads  # noqa: F401
+
 DEADLINE_S = 150
 DP = 2
 

@@ -5,7 +5,10 @@ devices):
 - the bridge builds its plan over every rank (dp = the world size) and
   runs one round of ``fedavg_mnist_mlp`` and ``fedavg_mnist_mlp_bf16``
   (cut as tests/test_torch_task_bridge.py cuts them) as JAX's bridge does
-  at dp 2; it refuses ``fedadam_sent140_distilbert_mp2`` naming A10 and
+  at dp 2; over the same two ranks it runs ``fedadam_sent140_distilbert_mp2``
+  at dp 1 x mp 2 (bf16, as the config computes), held by its distance from
+  JAX's bridge at mp 2 in f32 against the distance of JAX's own bf16 run,
+  at most BF16_NOISE_RATIO times it (tests/test_torch_vit.py's rule), and
   rejects ``{"parallel": {"dp": 2}}`` with JAX's message;
 - a runner with a dispatch strategy and eval, a deadline runner under
   ``skip_round``, and an attacked runner under the defense and its
@@ -32,12 +35,14 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from test_torch_dp import DP, run_ranks
 
 ROUNDS = {"clean": 2, "deadline": 3, "attack": 3, "bridge_mlp": 1, "bridge_bf16": 1,
           "resume_sharded": 4, "resume_ditto": 3}
 PREEMPT_AT = 2
 PERSONAL_SALT = 0x0D1770
+BF16_NOISE_RATIO = 1.3
 
 
 # ------------------------------------------------------------ tasks (parent)
@@ -81,9 +86,10 @@ def _tasks(tmp):
     }
 
 
-def _jax_run(task, chaos):
-    """The JAX runner (or bridge) at dp 2; its init params and key, and the
-    minibatch draws of every round for the whole padded population."""
+def _jax_run(task, chaos, mp=1):
+    """The JAX runner (or bridge) on two devices, at dp 2 (or dp 1 x mp 2);
+    its init params and key, and the minibatch draws of every round for the
+    whole padded population."""
     import zlib
 
     import jax
@@ -102,7 +108,8 @@ def _jax_run(task, chaos):
     task["operatorflow"]["operators"][0]["logical_simulation"]["operator_params"] = \
         json.dumps(params)
     repo = JRepo()
-    runner = jbuild(task, plan=make_mesh_plan(devices=jax.devices()[:DP]), task_repo=repo)
+    runner = jbuild(task, plan=make_mesh_plan(devices=jax.devices()[:DP], mp=mp),
+                    task_repo=repo)
     state = runner.core.init_state(
         jax.random.key(zlib.crc32(task["task_id"].encode()) & 0x7FFFFFFF))
     runner.states["data_0"] = state
@@ -243,19 +250,22 @@ def _runner_job(rank, world, inp):
         out.update(_dump(runner, case, history))
     runner = build_runner_from_taskconfig(json.loads(str(inp["rescale/task"])), device="cpu")
     out["rescale/begin"] = np.array(_begin_round(runner, CHECKPOINT_FALLBACK, global_log()))
-    for name in ("mp2", "dp_key"):
-        try:
-            build_runner_from_taskconfig(json.loads(str(inp[f"refuse/{name}"])), device="cpu")
-            out[f"refuse/{name}"] = np.array("")
-        except ValueError as e:
-            out[f"refuse/{name}"] = np.array(str(e))
+    mp2 = _port_runner(json.loads(str(inp["mp2/task"])), inp, "mp2")
+    out["mp2/plan"] = np.array([mp2.core.dp, mp2.core.mp, mp2.core.mp_rank])
+    out["mp2/history"] = np.array(json.dumps(mp2.run(), sort_keys=True, default=float))
+    out.update({f"mp2/p/{k}": v.numpy() for k, v in mp2.states["data_0"].params.items()})
+    try:
+        build_runner_from_taskconfig(json.loads(str(inp["refuse/dp_key"])), device="cpu")
+        out["refuse/dp_key"] = np.array("")
+    except ValueError as e:
+        out["refuse/dp_key"] = np.array(str(e))
     return out
 
 
 # ---------------------------------------------------------------- fixtures
 @pytest.fixture(scope="module")
 def setup(tmp_path_factory):
-    from test_torch_task_bridge import _with_params, load, shrink
+    from test_torch_task_bridge import _with_params, engine_params, load, set_engine_params, shrink
 
     tasks = _tasks(tmp_path_factory.mktemp("dp_ckpt"))
     inp, ref = {}, {}
@@ -273,7 +283,18 @@ def setup(tmp_path_factory):
         inp.update({f"{case}/p0/{k}": v for k, v in r["p0"].items()})
         for i, (a, b) in enumerate(zip(r["idx"], r["pidx"])):
             inp[f"{case}/idx/{i}"], inp[f"{case}/pidx/{i}"] = a, b
-    inp["refuse/mp2"] = np.array(json.dumps(shrink(load("fedadam_sent140_distilbert_mp2"))))
+    # The mp-2 config as it computes (bf16) and in f32, both on JAX's bridge
+    # at mp 2 from the same init; the port runs the bf16 one.
+    mp2 = shrink(load("fedadam_sent140_distilbert_mp2"))
+    f32 = json.loads(json.dumps(mp2))
+    params = engine_params(f32)
+    params["model"]["overrides"]["dtype"] = "float32"
+    ref["mp2"], ref["mp2_f32"] = _jax_run(mp2, None, mp=2), _jax_run(
+        set_engine_params(f32, params), None, mp=2)
+    inp["mp2/task"] = np.array(json.dumps(mp2))
+    inp.update({f"mp2/p0/{k}": v for k, v in ref["mp2"]["p0"].items()})
+    for i, a in enumerate(ref["mp2"]["idx"]):
+        inp[f"mp2/idx/{i}"] = a
     inp["refuse/dp_key"] = np.array(json.dumps(_with_params(parallel={"dp": 2})))
     ranks = run_ranks("test_torch_dp_runner", "_runner_job", DP, inp,
                       tmp_path_factory.mktemp("dp_runner"))
@@ -421,13 +442,47 @@ def test_checkpoint_from_another_dp_falls_back_as_jax(setup):
 
 
 def test_bridge_refusals_at_dp2(setup):
-    """At two ranks the bridge refuses the mp-2 config naming A10 and
-    rejects a dp key with the JAX package's ParallelConfig message."""
+    """At two ranks the bridge runs the mp-2 config over them (dp 1 x mp 2:
+    one rank per half of the model, the same history and params on both),
+    and rejects a dp key with the JAX package's ParallelConfig message. The
+    name stays from when the bridge refused the mp-2 config."""
     from olearning_sim_tpu.parallel.mesh import ParallelConfig as JParallel
 
     ranks, _ = setup
     with pytest.raises(ValueError) as want:
         JParallel.from_dict({"dp": 2})
-    for res in ranks:
-        assert "ROADMAP.md A10 (model parallelism)" in str(res["refuse/mp2"])
+    for rank, res in enumerate(ranks):
+        assert res["mp2/plan"].tolist() == [1, 2, rank]
+        assert str(res["mp2/history"]) == str(ranks[0]["mp2/history"])
+        for k in ranks[0]:
+            if k.startswith("mp2/p/"):
+                assert np.array_equal(res[k], ranks[0][k]), k
+        rec = json.loads(str(res["mp2/history"]))[0]["train"]["data_0"]
+        assert np.isfinite(rec["mean_loss"]) and rec["clients_trained"] > 0
         assert str(res["refuse/dp_key"]) == str(want.value)
+
+
+def test_mp2_bridge_bf16_within_jax_bf16_noise(setup):
+    """The mp-2 config through the bridge at dp 1 x mp 2, from JAX's init and
+    with its draws: its records' host fields equal JAX's bridge run at mp 2,
+    and its params' distance from JAX's f32 run at most BF16_NOISE_RATIO
+    times that of JAX's own bf16 run, each relative to JAX's f32 move."""
+    import jax
+
+    from olearning_sim_tpu_torch.weights import params_from_jax
+    from test_torch_fedcore_families import _moved_gap
+
+    ranks, ref = setup
+    init = {k: torch.from_numpy(v) for k, v in ref["mp2"]["p0"].items()}
+    j16, j32 = (params_from_jax(jax.tree.map(np.asarray, ref[c]["runner"].states["data_0"]
+                                             .params)) for c in ("mp2", "mp2_f32"))
+    t16 = {k[len("mp2/p/"):]: torch.from_numpy(v) for k, v in ranks[0].items()
+           if k.startswith("mp2/p/")}
+    g_jax, g_port = _moved_gap(j16, init, j32, init), _moved_gap(t16, init, j32, init)
+    print(f"mp2 bridge bf16 gap to JAX f32: jax {g_jax:.3e} port {g_port:.3e} "
+          f"ratio {g_port / g_jax:.3f}")
+    assert 0 < g_port <= BF16_NOISE_RATIO * g_jax, (g_port, g_jax)
+    t = json.loads(str(ranks[0]["mp2/history"]))[0]["train"]["data_0"]
+    j = json.loads(json.dumps(ref["mp2"]["history"], default=float))[0]["train"]["data_0"]
+    for k in ("released", "dropped", "clients_trained"):
+        assert t[k] == j[k], k

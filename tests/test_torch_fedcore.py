@@ -24,6 +24,8 @@ from olearning_sim_tpu_torch.engine import client_data as tcd
 from olearning_sim_tpu_torch.engine import fedcore as tfc
 from olearning_sim_tpu_torch.weights import params_from_jax
 
+import torch_threads  # noqa: F401
+
 SMALL = dict(depth=2, width=32, heads=4, mlp_dim=64, vocab_size=97, max_len=16)
 SEQ = 16
 # f32 on both sides; two rounds of local SGD plus server Adam accumulate

@@ -29,6 +29,8 @@ from olearning_sim_tpu_torch.engine import client_data as tcd
 from olearning_sim_tpu_torch.engine import fedcore as tfc
 from olearning_sim_tpu_torch.weights import params_from_jax
 
+import torch_threads  # noqa: F401
+
 # bf16 compute on both sides over 2 rounds of 3 local steps: the two differ
 # where a bf16 activation or gradient rounds the other way (XLA may also
 # keep excess precision across fused bf16 ops), which moves a parameter by

@@ -14,6 +14,8 @@ from olearning_sim_tpu.ops import flash_attention as jax_flash_attention
 from olearning_sim_tpu_torch.device import resolve_device
 from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_reference
 
+import torch_threads  # noqa: F401
+
 # f32: both compute f32 scores and softmax; they differ in summation order only.
 F32_ATOL = 2e-5
 # bf16: both round p to bf16 before P.V; a differently-ordered f32 sum can

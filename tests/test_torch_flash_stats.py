@@ -20,6 +20,8 @@ from olearning_sim_tpu_torch.ops import (
 )
 from olearning_sim_tpu_torch.parallel.ring_attention import NEG_INF, combine_flash
 
+import torch_threads  # noqa: F401
+
 # f32: both compute f32 scores and softmax; they differ in summation order only.
 F32_ATOL = 2e-5
 # bf16: o as in test_torch_flash_attention.py (p rounded to bf16 before P.V,

@@ -31,6 +31,8 @@ from olearning_sim_tpu_torch.ops.flash_attention import (
     plan_launch,
 )
 
+import torch_threads  # noqa: F401
+
 # The module itself (the package's attribute of that name is the function).
 port_flash = importlib.import_module("olearning_sim_tpu_torch.ops.flash_attention")
 

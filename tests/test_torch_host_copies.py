@@ -27,6 +27,8 @@ from olearning_sim_tpu_torch.taskmgr import codecs as tcodecs
 from olearning_sim_tpu_torch.taskmgr import operator_flow as tflow
 from olearning_sim_tpu_torch import telemetry as ttel
 
+import torch_threads  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 CONFIGS = sorted((REPO / "configs").glob("*.json"))
 

@@ -14,6 +14,8 @@ from olearning_sim_tpu.models import get_model as jax_get_model
 from olearning_sim_tpu_torch.models import get_model
 from olearning_sim_tpu_torch.weights import params_from_jax, params_to_jax
 
+import torch_threads  # noqa: F401
+
 # Both sides compute in bf16 as the families hard-code (bf16 layers, f32
 # head); they differ in bf16 rounding of the convolution/matmul
 # accumulations. Measured at full width: 7.2e-7 (mlp2) and 5.1e-5 (cnn4)

@@ -9,6 +9,8 @@ import pytest
 from olearning_sim_tpu.engine import pacing as jp
 from olearning_sim_tpu_torch.engine import pacing as tp
 
+import torch_threads  # noqa: F401
+
 CLASSES = ["high", "low", "mid"]  # "mid" is listed in no speed profile
 
 

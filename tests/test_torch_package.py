@@ -10,6 +10,8 @@ import shutil
 import subprocess
 import sys
 
+import torch_threads  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "olearning_sim_tpu_torch"
 FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack)\b|"

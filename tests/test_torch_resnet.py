@@ -23,6 +23,7 @@ import numpy as np
 import pytest
 import torch
 
+import torch_threads  # noqa: F401
 from test_torch_fedcore_families import (
     _moved_gap,
     family_rounds,

@@ -23,6 +23,8 @@ import torch
 import torch.distributed as dist
 import torch.multiprocessing as tmp
 
+import torch_threads  # noqa: F401
+
 DEADLINE_S = 120
 ATTN_ATOL, GRAD_ATOL = 2e-5, 1e-4
 LOGITS_ATOL = 1e-5
@@ -469,9 +471,10 @@ def test_make_mesh_plan_single_process():
 
     plan = make_mesh_plan()
     assert (plan.dp, plan.sp, plan.rank, plan.sp_group) == (1, 1, 0, None)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    # mp > 1 is ported: one rank cannot hold an mp-2 mesh (JAX's words).
+    with pytest.raises(ValueError, match=r"needs at least mp\*sp\*ep\*pp devices"):
         make_mesh_plan(mp=2)
-    with pytest.raises(ValueError, match="needs 4 ranks"):
+    with pytest.raises(ValueError, match="needs 4 devices, have 1"):
         make_mesh_plan(dp=1, sp=4)
     with pytest.raises(ValueError, match="positive"):
         make_mesh_plan(sp=0)

@@ -35,6 +35,8 @@ from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
 from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
 from olearning_sim_tpu_torch.weights import params_from_jax
 
+import torch_threads  # noqa: F401
+
 INPUT_SHAPE = (12,)
 NUM_CLASSES = 3
 # mlp2 computes in bf16 on both sides (tests/test_torch_fedcore_families.py).

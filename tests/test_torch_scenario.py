@@ -15,6 +15,8 @@ from olearning_sim_tpu.engine import scenario as jsc
 from olearning_sim_tpu_torch.deviceflow import trace_compiler as ttc
 from olearning_sim_tpu_torch.engine import scenario as tsc
 
+import torch_threads  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 FIELDS = ("participate", "arrival_time", "alive", "online", "charging_ok", "label_shift")
 

@@ -30,6 +30,7 @@ from olearning_sim_tpu_torch.resilience import HostPreemption
 from olearning_sim_tpu_torch.resilience import faults as tfaults
 from olearning_sim_tpu_torch.weights import params_from_jax
 
+import torch_threads  # noqa: F401
 from test_torch_fedcore_families import (
     PARAM_ATOL,
     _compare_tree,

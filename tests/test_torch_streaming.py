@@ -41,6 +41,7 @@ from olearning_sim_tpu_torch.resilience import faults as tfaults
 from olearning_sim_tpu_torch.telemetry import default_tracer
 from olearning_sim_tpu_torch.weights import params_from_jax
 
+import torch_threads  # noqa: F401
 from test_torch_checkpoint import _assert_same_state
 from test_torch_defense import ATTACK, COMPLETION, DEADLINE, PART, STEPS
 from test_torch_fedcore_families import (

@@ -1,6 +1,7 @@
-"""The port's task bridge: every input form builds the same runner, the
-supported configs/*.json build and run one tiny round on the CPU (cut by
-editing the loaded JSON only), every other config and every left-out
+"""The port's task bridge: every input form builds the same runner, every
+configs/*.json builds and runs one tiny round on the CPU (cut by editing
+the loaded JSON only; the mp-2 config on two gloo ranks, and refused at a
+world of one as JAX's mesh refuses one device), every left-out
 engine-params block is refused with its ROADMAP.md item, the checkpoint
 and model blocks build and run, the JAX control plane drives a port runner
 through its runner_factory, and the repaired FedCoreConfig.from_dict
@@ -21,15 +22,18 @@ from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskcon
 from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
 from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
 
+import torch_threads  # noqa: F401
+
 REPO = pathlib.Path(__file__).resolve().parent.parent
 SUPPORTED = ["fedavg_mnist_mlp", "fedavg_cifar10_cnn", "scaffold_mnist_mlp",
              "fedadam_sent140_distilbert", "fedavg_mnist_mlp_convergence",
              "fedavg_mnist_mlp_deadline", "fedavg_mnist_mlp_defense",
              "fedprox_femnist_resnet18", "ditto_cifar100_vit", "fedavg_mnist_mlp_trace",
-             "fedavg_mnist_mlp_async", "fedavg_mnist_mlp_bf16"]
-REFUSED = {
-    "fedadam_sent140_distilbert_mp2": "A10 \\(model parallelism\\)",
-}
+             "fedavg_mnist_mlp_async", "fedavg_mnist_mlp_bf16",
+             "fedadam_sent140_distilbert_mp2"]
+# Configs the bridge refuses at a world of one, as JAX's make_mesh_plan
+# refuses them over one device: the mp-2 config needs two ranks.
+REFUSED = {"fedadam_sent140_distilbert_mp2": {"mp": 2}}
 # Narrow widths per family for the CPU (the configs' own shapes otherwise).
 SHRINK = {
     "mlp2": ({"hidden": [16]}, None),
@@ -84,9 +88,30 @@ def shrink(task, clients=8, rounds=1):
     return set_engine_params(task, params)
 
 
+def _mp2_tiny_round(task, tmp_path):
+    """The mp-2 config on two gloo ranks (tests/test_torch_tp.py's job):
+    both ranks keep the same history and params."""
+    from test_torch_dp import run_ranks
+
+    ranks = run_ranks("test_torch_tp", "_bridge_job", 2, {"task": np.array(json.dumps(task))},
+                      tmp_path)
+    for r in ranks:
+        assert r["plan"].tolist() == [1, 2]  # dp 1 x mp 2
+        assert str(r["history"]) == str(ranks[0]["history"])
+        assert all(np.array_equal(r[k], ranks[0][k]) for k in ranks[0] if k.startswith("p/"))
+    assert int(ranks[0]["logical_round"]) == 1
+    return json.loads(str(ranks[0]["history"]))
+
+
 @pytest.mark.parametrize("name", SUPPORTED)
-def test_supported_config_runs_a_tiny_round(name):
+def test_supported_config_runs_a_tiny_round(name, tmp_path):
     task = shrink(load(name))
+    if name == "fedadam_sent140_distilbert_mp2":
+        history = _mp2_tiny_round(task, tmp_path)
+        rec = history[0]["train"]["data_0"]
+        assert np.isfinite(rec["mean_loss"]) and rec["clients_trained"] > 0
+        assert np.isfinite(history[0]["evaluate"]["data_0"]["eval_loss"])
+        return
     repo = TaskTableRepo()
     runner = build_runner_from_taskconfig(task, task_repo=repo, device="cpu")
     history = runner.run()
@@ -248,8 +273,17 @@ def test_trace_config_matches_jax_runner():
 
 @pytest.mark.parametrize("name", sorted(REFUSED))
 def test_unsupported_config_names_its_roadmap_item(name):
-    with pytest.raises(ValueError, match=f"ROADMAP.md {REFUSED[name]}"):
+    # Since the port runs model parallelism, the mp-2 config is refused only
+    # where it cannot run: at a world of one, with the words of JAX's
+    # make_mesh_plan over one device. The name stays from when the bridge
+    # refused it naming ROADMAP.md A10.
+    from olearning_sim_tpu.parallel.mesh import make_mesh_plan
+
+    with pytest.raises(ValueError) as want:
+        make_mesh_plan(devices=jax.devices()[:1], **REFUSED[name])
+    with pytest.raises(ValueError) as got:
         build_runner_from_taskconfig(load(name), device="cpu")
+    assert str(got.value) == str(want.value)
 
 
 def _with_params(**blocks):

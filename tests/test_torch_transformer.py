@@ -13,6 +13,8 @@ from olearning_sim_tpu.models import get_model as jax_get_model
 from olearning_sim_tpu_torch.models import get_model
 from olearning_sim_tpu_torch.weights import params_from_jax, params_to_jax
 
+import torch_threads  # noqa: F401
+
 SMALL = dict(depth=2, width=32, heads=4, mlp_dim=64, vocab_size=97, max_len=16)
 # f32 on both sides: the two differ in matmul and reduction order only.
 LOGITS_ATOL = 1e-5
