@@ -240,6 +240,43 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     14d ``ep_train_step`` of ``moe_text`` at ep 2: the move within
        MP_MOVE_REL of the dense step's.
 
+15. The port's control plane (no kernel of the repo is on this path; K1
+    and K2 stay held by the earlier phases), its modules only:
+    15a a ``TaskManager`` over a ``SqliteTableRepo`` task table in a
+       temporary directory, a ``SqliteQueueRepo`` intake, a
+       ``ResourceManager`` over ``DeviceTopology.detect(dev,
+       units_per_core=U)`` and a ``PerformanceManager``, driven by hand
+       (``drain_intake_once`` / ``schedule_once`` / ``release_once``):
+       ``fedavg_mnist_mlp`` (3 rounds, priority 1) and
+       ``fedadam_sent140_distilbert`` at full width cut as 8d is (64
+       clients, block DISTILBERT_BLOCK, 2 rounds, priority 9), pushed on the
+       intake in that order; U is the phase's total request, so both are
+       admitted and run at once on the manager's threads. Held: both rows
+       SUCCEEDED with ``logical_round`` their rounds, the higher priority
+       scheduled first, and each task's final params bitwise the same task
+       built with ``build_runner_from_taskconfig(..., device=dev)`` and run
+       directly. Printed: each task's queue wait, its job's seconds from
+       launch to end, and runner rounds/sec through the manager beside the
+       direct run's (both from a performance manager's rows);
+    15b before the release: ``PerformanceManager.render_metrics()`` holds
+       both tasks' ``ols_engine_round_phase_duration_seconds`` series and
+       the ``ols_taskmgr_*`` series; a ``MetricsHTTPServer`` on
+       127.0.0.1:0, scraped once with ``urllib``, returns the render byte
+       for byte; ``start_trace`` / ``stop_trace`` around the second round of
+       a 2-round mlp2 task leave a Chrome trace holding CUDA kernel events
+       (counted) and ``runner_spans.trace.json``;
+    15c an mlp2 task of 6 rounds with a checkpoint every round under a
+       manager over a SQLite file, whose runner dies after round 2 (no
+       fence, no release, the lease left to expire, as a crash would); a
+       ``TaskSupervisor`` over the same file scans past the lease's expiry
+       (``now=``), reclaims the task, resumes it from its checkpoint on the
+       card and finishes it. Held: the final params bitwise the
+       uninterrupted run's, ``ols_supervisor_resumes_total`` 1. Printed:
+       the seconds from the reclaim to the first resumed round.
+    The phase's series go to a fresh process-default registry (the
+    manager's ``ols_taskmgr_*`` series are the default registry's, as in
+    the JAX package), the previous one restored after.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -2912,6 +2949,294 @@ def mp_path(dev, shrink=None, small=None):
     log(f"phase 14 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+CONTROL_TASKS = (("fedadam_sent140_distilbert", 2, 9), ("fedavg_mnist_mlp", 3, 1))
+CONTROL_RESUME_ROUNDS = 6
+CONTROL_DIE_AFTER = 2
+
+
+def priority_edit(priority):
+    """An ``edit`` that sets the task's priority."""
+    def edit(task):
+        old = task["target"].get("priority", 0)
+        task["target"]["priority"] = priority
+        return f"priority {old} -> {priority}"
+    return edit
+
+
+def _control_task(name, rounds, priority, shrink):
+    big = name == "fedadam_sent140_distilbert" and shrink is None
+    return load_task(name, rounds, clients=[64] if big else None,
+                     edit=_edits(block_edit(DISTILBERT_BLOCK) if big else None,
+                                 priority_edit(priority)),
+                     shrink=shrink)
+
+
+def _perf_rates(perf, task_id):
+    """Rounds/sec from a performance manager's rows: over all rounds, and
+    after the first (the median of the later rounds' summed operator
+    times)."""
+    import statistics
+
+    by_round = {}
+    for t in perf._timings.get(task_id, []):
+        by_round[t.round_idx] = by_round.get(t.round_idx, 0.0) + t.duration_s
+    steady = [by_round[r] for r in sorted(by_round)[1:]]
+    return (perf.get_performance(task_id)["rounds_per_sec"],
+            1.0 / statistics.median(steady) if steady else float("nan"))
+
+
+def control_path(dev, shrink=None):
+    """Phase 15: the port's control plane drives port runners on the card."""
+    import os
+    import tempfile
+    import threading
+    import urllib.request
+
+    import torch
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.performancemgr import PerformanceManager
+    from olearning_sim_tpu_torch.resilience import ResilienceLog
+    from olearning_sim_tpu_torch.resourcemgr import DeviceTopology, ResourceManager
+    from olearning_sim_tpu_torch.supervisor import TaskSupervisor
+    from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+    from olearning_sim_tpu_torch.taskmgr.queue_repo import SqliteQueueRepo
+    from olearning_sim_tpu_torch.taskmgr.scheduler import get_task_request_resource
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
+    from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.telemetry import (
+        MetricsHTTPServer,
+        MetricsRegistry,
+        render_prometheus,
+        set_default_registry,
+    )
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_15_")
+    registry = MetricsRegistry()
+    previous = set_default_registry(registry)
+    card = card_line() if dev.type == "cuda" else "cpu"
+
+    def same(label, a, b):
+        diff = max(float((a[k] - b[k]).abs().max()) for k in b)
+        log(f"{label}: params max abs diff {diff:g} (tol 0)")
+        if diff != 0 or not all(bool(torch.equal(a[k], b[k])) for k in b):
+            raise AssertionError(f"{label}: not bitwise equal")
+
+    # 15a: two tasks through one manager.
+    tasks = {}  # task id -> (config name, task JSON, rounds)
+    for name, rounds, priority in CONTROL_TASKS:
+        task, cuts = _control_task(name, rounds, priority, shrink)
+        tasks[task["task_id"]] = (name, task, rounds)
+        log(f"15a {name} (task {task['task_id']}): " + "; ".join(cuts))
+    requests = {t: get_task_request_resource(json2taskconfig(task))["logical_simulation"]
+                for t, (_, task, _) in tasks.items()}
+    largest = max(max(r["cpu"], r["mem"]) for r in requests.values())
+    units = sum(max(r["cpu"], r["mem"]) for r in requests.values())
+    log(f"15a units per card U={units:g}: the scheduler admits a task whose "
+        f"num_cpus x num_request units are free, and these ask for "
+        f"{ {t: r['cpu'] for t, r in requests.items()} }; at one unit per card the "
+        f"largest request ({largest:g}) would never be admitted, so U is at least that, "
+        f"and at the sum of the requests both tasks run at once")
+    repo = TaskTableRepo(sqlite_path=os.path.join(tmp.name, "tasks.db"))
+    intake = SqliteQueueRepo(os.path.join(tmp.name, "intake.db"))
+    topo = DeviceTopology.detect(dev, units_per_core=units, mem_per_core=units)
+    rm = ResourceManager(topology=topo)
+    perf = PerformanceManager()
+    mgr = TaskManager(task_repo=repo, resource_manager=rm, perf=perf, intake_queue=intake,
+                      schedule_interval=3600, device=dev)
+    log(f"15a topology: {topo}")
+    want = sorted(tasks, key=lambda t: -tasks[t][1]["target"]["priority"])
+    for t in reversed(want):  # the lower priority first on the intake
+        intake.push(json.dumps(tasks[t][1]))
+    t_submit = time.perf_counter()
+    if mgr.drain_intake_once() != 2:
+        raise AssertionError("15a: the intake did not yield both tasks")
+    order, launched = [], {}
+    while len(order) < len(tasks):
+        task_id = mgr.schedule_once()
+        if task_id is None:
+            raise AssertionError(f"15a: scheduling stalled after {order}; "
+                                 f"free {rm.get_resource()['logical_simulation']}")
+        order.append(task_id)
+        launched[task_id] = time.perf_counter()
+    log(f"15a scheduled {order} (intake order {list(reversed(want))}, by priority {want}); "
+        f"free after both {rm.get_resource()['logical_simulation']}")
+    if order != want:
+        raise AssertionError("15a: the scheduling order does not follow priority")
+    ended, jobs = {}, {t: mgr._launcher.get_job(repo.get_item_value(t, "job_id"))
+                        for t in order}
+    while len(ended) < len(jobs):
+        for t, job in jobs.items():
+            if t not in ended and job.status not in (TaskStatus.PENDING, TaskStatus.RUNNING):
+                ended[t] = time.perf_counter()
+        time.sleep(0.02)
+    for t, job in jobs.items():
+        if job.status != TaskStatus.SUCCEEDED:
+            raise AssertionError(f"15a {t}: job {job.status.name}: {job.error}")
+
+    # 15b: the exporters, before the release retires the tasks' series.
+    text = perf.render_metrics()
+    for t, (_, _, rounds) in tasks.items():
+        series = registry.get("ols_engine_round_phase_duration_seconds")
+        counts = {key[1:]: child.count for key, child in series.children() if key[0] == t}
+        log(f"15b {t}: ols_engine_round_phase_duration_seconds (operator, phase) counts "
+            f"{counts}")
+        if counts.get(("train", "train")) != rounds or \
+                f'ols_engine_round_phase_duration_seconds_count{{task_id="{t}"' not in text:
+            raise AssertionError(f"15b {t}: the render lacks the task's round-phase series")
+    taskmgr_lines = [ln for ln in text.splitlines()
+                     if ln.startswith("ols_taskmgr_") and not ln.startswith("ols_taskmgr_task_wait_seconds_bucket")]
+    log("15b ols_taskmgr_* series: " + "; ".join(taskmgr_lines))
+    for name in ("ols_taskmgr_queue_depth", "ols_taskmgr_state_transitions_total",
+                 "ols_taskmgr_task_wait_seconds_count"):
+        if not any(ln.startswith(name) for ln in taskmgr_lines):
+            raise AssertionError(f"15b: the render lacks {name}")
+    with MetricsHTTPServer(host="127.0.0.1", port=0) as srv:
+        with urllib.request.urlopen(f"http://127.0.0.1:{srv.port}/metrics", timeout=30) as r:
+            scraped = r.read().decode()
+        rendered = render_prometheus()
+    log(f"15b scrape of 127.0.0.1:{srv.port}/metrics: {len(scraped)} bytes, "
+        f"{len(scraped.splitlines())} lines, equal to the render: {scraped == rendered}")
+    if scraped != rendered:
+        raise AssertionError("15b: the scrape differs from the render")
+
+    mgr.release_once()
+    for t in order:
+        status, rnd = repo.get_item_value(t, "task_status"), repo.get_item_value(t, "logical_round")
+        rounds = tasks[t][2]
+        direct_perf = PerformanceManager(registry=MetricsRegistry())
+        direct = build_runner_from_taskconfig(tasks[t][1], perf=direct_perf,
+                                              registry=MetricsRegistry(), device=dev)
+        direct.run()
+        wait = launched[t] - t_submit
+        all_m, steady_m = _perf_rates(perf, t)
+        all_d, steady_d = _perf_rates(direct_perf, t)
+        log(f"15a {t}: {status}, logical_round {rnd}; queue wait {wait:.4f} s, launch to end "
+            f"{ended[t] - launched[t]:.3f} s; runner rounds/sec through the manager "
+            f"{all_m:.4f} (after the first {steady_m:.4f}), direct {all_d:.4f} (after the "
+            f"first {steady_d:.4f}) | {card}")
+        if status != TaskStatus.SUCCEEDED.name or int(rnd) != rounds:
+            raise AssertionError(f"15a {t}: row {status}, logical_round {rnd}")
+        same(f"15a {t} through the manager vs direct", jobs[t].runner.states["data_0"].params,
+             direct.states["data_0"].params)
+        del direct
+    waits = dict(registry.get("ols_taskmgr_task_wait_seconds").children())[()]
+    log(f"15a ols_taskmgr_task_wait_seconds: count {waits.count}, sum {waits.sum:.4f} s")
+    del jobs
+    mgr.stop()
+
+    # 15b: the profiler around one round.
+    trace_dir = os.path.join(tmp.name, "trace")
+    task, _ = load_task("fedavg_mnist_mlp", 2, shrink=shrink)
+    task["task_id"] += "_traced"
+    tperf = PerformanceManager()
+    runner = build_runner_from_taskconfig(task, perf=tperf, device=dev)
+    runner.begin()
+    runner.step()
+    if torch.autograd._profiler_enabled():
+        raise AssertionError("15b: a torch.profiler session is already open")
+    _sync(dev)
+    if not tperf.start_trace(trace_dir):
+        raise AssertionError("15b: start_trace refused")
+    runner.step()
+    _sync(dev)
+    out = tperf.stop_trace()
+    runner.finish()
+    with open(os.path.join(out, PerformanceManager.TRACE_FILE)) as f:
+        events = json.load(f)["traceEvents"]
+    with open(os.path.join(out, PerformanceManager.RUNNER_SPAN_FILE)) as f:
+        spans = json.load(f)["traceEvents"]
+    kernels = [e for e in events if e.get("cat") == "kernel"]
+    log(f"15b torch.profiler around round 1: {len(events)} events, {len(kernels)} CUDA "
+        f"kernel events ({sum(e.get('dur', 0) for e in kernels):.1f} us), trace "
+        f"{os.path.getsize(os.path.join(out, PerformanceManager.TRACE_FILE))} bytes; "
+        f"runner spans {sorted({e['name'] for e in spans})}")
+    if (dev.type == "cuda" and not kernels) or not any(e["name"] == "round.train" for e in spans):
+        raise AssertionError("15b: the trace lacks CUDA kernel events or the runner spans")
+
+    # 15c: the supervisor reclaims and resumes a task whose owner died.
+    db = os.path.join(tmp.name, "resume.db")
+    ckpt = {"directory": os.path.join(tmp.name, "ckpt", "{task_id}"), "every": 1}
+    task, cuts = load_task("fedavg_mnist_mlp", CONTROL_RESUME_ROUNDS, shrink=shrink,
+                           edit=params_edit(checkpoint=ckpt))
+    task["task_id"] += "_supervised"
+    log(f"15c {task['task_id']}: " + "; ".join(cuts))
+    plain = json.loads(json.dumps(task))
+    params = _engine_params(plain)
+    params.pop("checkpoint")
+    _set_engine_params(plain, params)
+    straight = build_runner_from_taskconfig(plain, registry=MetricsRegistry(), device=dev)
+    straight.run()
+    owner_repo = TaskTableRepo(sqlite_path=db)
+    died = threading.Event()
+
+    def dying_runner(tc, stop_event):
+        runner = build_runner_from_taskconfig(tc, task_repo=owner_repo, stop_event=stop_event,
+                                              device=dev)
+        step, done = runner.step, []
+
+        def step_then_die():
+            more = step()
+            done.append(1)
+            if len(done) == CONTROL_DIE_AFTER:
+                runner.checkpointer.wait()
+                died.set()
+                raise RuntimeError("the owner process died")
+            return more
+        runner.step = step_then_die
+        return runner
+
+    owner = TaskManager(task_repo=owner_repo, schedule_interval=3600, supervise_orphans=True,
+                        runner_factory=dying_runner, device=dev)
+    if not owner.submit_task(task) or owner.schedule_once() != task["task_id"]:
+        raise AssertionError("15c: the task did not launch")
+    owner._launcher.get_job(f"job-{task['task_id']}").join()
+    owner.stop()  # the dead manager: no release, no heartbeat
+    if not died.is_set():
+        raise AssertionError("15c: the owner's runner did not reach its death")
+    sup_repo = TaskTableRepo(sqlite_path=db)
+    _, expires = sup_repo.lease_info(task["task_id"])
+    row = {k: sup_repo.get_item_value(task["task_id"], k)
+           for k in ("task_status", "resource_occupied", "logical_round")}
+    log(f"15c after the owner died: row {row}, lease expires at {expires:.3f}")
+    sup = TaskSupervisor(task_repo=sup_repo, backoff_base_s=0.0, log=ResilienceLog(),
+                         device=dev)
+    if sup.scan_once(now=expires - 1.0)["resumed"]:
+        raise AssertionError("15c: a live lease was reclaimed")
+    t_reclaim = time.perf_counter()
+    digest = sup.scan_once(now=expires + 1.0)
+    if digest["resumed"] != [task["task_id"]]:
+        raise AssertionError(f"15c: the supervisor did not resume the task: {digest}")
+    first = None
+    job = sup.launcher.get_job(sup_repo.get_item_value(task["task_id"], "job_id"))
+    while job.status in (TaskStatus.PENDING, TaskStatus.RUNNING):
+        if first is None and int(sup_repo.get_item_value(task["task_id"], "logical_round")
+                                 or 0) > CONTROL_DIE_AFTER:
+            first = time.perf_counter() - t_reclaim
+        time.sleep(0.01)
+    if job.status != TaskStatus.SUCCEEDED:
+        raise AssertionError(f"15c: resumed job {job.status.name}: {job.error}")
+    if first is None:
+        first = float("nan")
+    digest = sup.scan_once(now=expires + 2.0)
+    resumes = registry.get("ols_supervisor_resumes_total").labels(task_id=task["task_id"]).value
+    status = sup_repo.get_item_value(task["task_id"], "task_status")
+    log(f"15c reclaimed and resumed: {first:.3f} s from the reclaim to the first resumed "
+        f"round; rounds run by the resumed job "
+        f"{[h['round'] for h in job.runner.history[CONTROL_DIE_AFTER:]]}; finalized "
+        f"{digest['finalized']}, row {status}; ols_supervisor_resumes_total {resumes:g} | {card}")
+    if digest["finalized"] != [task["task_id"]] or status != TaskStatus.SUCCEEDED.name \
+            or resumes != 1:
+        raise AssertionError("15c: the resumed task was not finalized once as SUCCEEDED")
+    same("15c supervised resume vs uninterrupted", job.runner.states["data_0"].params,
+         straight.states["data_0"].params)
+    set_default_registry(previous)
+    tmp.cleanup()
+    log(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -2940,6 +3265,7 @@ def main() -> int:
     async_path(dev)
     dp_path(dev)
     mp_path(dev)
+    control_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

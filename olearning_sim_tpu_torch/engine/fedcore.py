@@ -233,7 +233,9 @@ class FedCoreConfig:
             v = obj.pop(k, None)
             if v is not None and int(v) < 1:
                 raise ValueError(f"FedCoreConfig.{k} must be an int >= 1, got {v!r}")
-        known = {f.name for f in dataclasses.fields(cls)}
+        # The refusal names JAX's keys, the unroll hints among them, so that
+        # both packages' submit validation answers a typo alike.
+        known = {f.name for f in dataclasses.fields(cls)} | {"step_unroll", "block_unroll"}
         unknown = sorted(set(obj) - known)
         if unknown:
             raise ValueError(

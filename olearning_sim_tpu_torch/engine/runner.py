@@ -74,9 +74,6 @@ land in the port's log. The digest reaches a control plane through the
 task row (``_persist_resilience`` writes the ``resilience`` column), which
 is the interface between the two. A ``registry`` passed in is used
 duck-typed, so a control plane's registry receives the round series.
-
-The convergence eval's timing row in a performance manager waits for the
-port of ``performancemgr/`` (A17).
 """
 
 from __future__ import annotations
@@ -1110,6 +1107,7 @@ class SimulationRunner:
                     break
             if eval_acc is not None:
                 break
+        t_eval0 = time.perf_counter()
         if eval_acc is None:
             for p in self.populations:
                 if p.eval_data is not None:
@@ -1155,6 +1153,36 @@ class SimulationRunner:
             instrument(
                 "ols_engine_rounds_to_target", self.registry
             ).labels(task_id=self.task_id).set(tracker.rounds_to_target)
+        if self.perf is not None:
+            # A distinct convergence_eval timing row per eval point: the
+            # quality series then rides the performance manager's rows, so
+            # get_performance()["convergence"] answers like every
+            # throughput number.
+            from olearning_sim_tpu_torch.performancemgr.performance_manager import (
+                RoundTiming,
+            )
+
+            extra = {
+                "eval_acc": float(eval_acc),
+                "sim_s": tracker.sim_seconds_total,
+                "wall_s": tracker.wall_seconds_total,
+                "reached": 1.0 if tracker.reached else 0.0,
+            }
+            if eval_loss is not None:
+                extra["eval_loss"] = float(eval_loss)
+            if tracker.config.target_accuracy is not None:
+                extra["target"] = float(tracker.config.target_accuracy)
+            if tracker.rounds_to_target is not None:
+                extra["rounds_to_target"] = float(tracker.rounds_to_target)
+                if tracker.sim_seconds_to_target is not None:
+                    extra["sim_s_to_target"] = float(tracker.sim_seconds_to_target)
+                extra["wall_s_to_target"] = float(tracker.wall_seconds_to_target)
+            self.perf.record_round(RoundTiming(
+                task_id=self.task_id, round_idx=round_idx,
+                operator="convergence_eval",
+                duration_s=time.perf_counter() - t_eval0,
+                extra=extra,
+            ))
 
     def convergence_record(self) -> Optional[Dict[str, Any]]:
         """The task's convergence record (engine/convergence.py), or None
@@ -2041,7 +2069,12 @@ class MultiTaskDispatcher:
     fenced task's checkpointed rounds stay durable; the reclaimer resumes
     from them. A task whose ``begin``, ``step`` or ``finish`` raises is
     isolated: the other tasks run to their end, its lease is left to expire
-    for the supervisor, and the first error is raised after.
+    for the supervisor, and the first error is raised after. The lease
+    backend is the repo's: in memory, or a file or server that several
+    processes share (``TaskTableRepo(sqlite_path=...)`` or a backend of
+    ``utils.repo.SqliteTableRepo`` / ``MySqlTableRepo``), where the claim
+    and renewal are one conditional UPDATE, so a supervisor in another
+    process sees the leases and reclaims an expired one.
     """
 
     def __init__(self, runners: List[SimulationRunner], *,

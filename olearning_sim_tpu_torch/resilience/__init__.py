@@ -20,14 +20,17 @@ from olearning_sim_tpu_torch.resilience.events import (
     CLIENT_FLAGGED,
     CLIENT_QUARANTINED,
     CLIENT_READMITTED,
+    CRASH_LOOP,
     DEADLINE_MISS,
     FAULT_INJECTED,
+    LEASE_EXPIRED,
     QUARANTINE,
     READMIT,
     RETRY,
     RETRY_EXHAUSTED,
     ROLLBACK,
     SKIP_ROUND,
+    TASK_RESUMED,
     ResilienceEvent,
     ResilienceLog,
     global_log,
@@ -57,14 +60,17 @@ __all__ = [
     "CLIENT_FLAGGED",
     "CLIENT_QUARANTINED",
     "CLIENT_READMITTED",
+    "CRASH_LOOP",
     "DEADLINE_MISS",
     "FAULT_INJECTED",
+    "LEASE_EXPIRED",
     "QUARANTINE",
     "READMIT",
     "RETRY",
     "RETRY_EXHAUSTED",
     "ROLLBACK",
     "SKIP_ROUND",
+    "TASK_RESUMED",
     "ChaosClock",
     "FailurePolicy",
     "FaultError",

@@ -31,6 +31,14 @@ QUARANTINE = "quarantine"
 READMIT = "readmit"
 SKIP_ROUND = "skip_round"
 CHECKPOINT_FALLBACK = "checkpoint_fallback"
+# Crash-recovery supervision (supervisor/): a RUNNING task's lease outlived
+# its owner process and was reclaimed...
+LEASE_EXPIRED = "lease_expired"
+# ...and relaunched through the checkpoint resume path...
+TASK_RESUMED = "task_resumed"
+# ...or died so many consecutive times its resume budget ran out and it was
+# quarantined to FAILED instead of livelocking the supervisor.
+CRASH_LOOP = "crash_loop"
 # A round closed below its quorum of on-time completions (deadline-aware
 # rounds, engine/pacing.py) and was routed through the failure policy.
 DEADLINE_MISS = "deadline_miss"

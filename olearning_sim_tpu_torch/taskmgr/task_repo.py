@@ -4,18 +4,28 @@ Reference: ``taskmgr_table`` accessed via TaskTableRepo
 (``ols_core/taskMgr/utils/utils.py:29-267``); columns inferred from call
 sites across task_manager.py / run_task.py. Same narrow get/set-by-task_id
 interface over a pluggable TableRepo backend. A copy of the JAX package's
-``taskmgr/task_repo.py`` with what the runner and the multi-task
-dispatcher call (the row items and the leases), over the in-memory
-backend; a control plane passes its own repo in (both use it
-duck-typed), and with it the task-status writes and queries.
+``taskmgr/task_repo.py``.
 """
 
 from __future__ import annotations
 
+import json
 import time
-from typing import Any, Optional, Tuple
+from typing import Any, Dict, List, Optional, Tuple
 
-from olearning_sim_tpu_torch.utils.repo import MemoryTableRepo, TableRepo
+from olearning_sim_tpu_torch.utils.repo import MemoryTableRepo, SqliteTableRepo, TableRepo
+
+
+def parse_supervision(value: Any) -> Dict[str, Any]:
+    """Decode a row's durable ``supervision`` blob ({"resumes": n,
+    "last_resume_ts": t}). THE shared resume-budget ledger: supervisor
+    crash recovery and the chip-pool scheduler's planned migrations both
+    read and charge it, so a migration storm and a crash loop drain one
+    budget and degrade to FAIL_TASK together."""
+    try:
+        return json.loads(value or "{}")
+    except (TypeError, ValueError):
+        return {}
 
 
 def make_owner_id(prefix: str = "") -> str:
@@ -55,14 +65,20 @@ TASK_COLUMNS = [
     "in_queue_time",
     "submit_task_time",
     "task_finished_time",
+    "job_error",          # the failed engine job's exception (port manager)
 ]
 
 
 class TaskTableRepo:
     """get/set items keyed by task_id (reference ``utils.py:29-267``)."""
 
-    def __init__(self, backend: Optional[TableRepo] = None):
-        self.backend = backend if backend is not None else MemoryTableRepo(TASK_COLUMNS)
+    def __init__(self, backend: Optional[TableRepo] = None, sqlite_path: Optional[str] = None):
+        if backend is not None:
+            self.backend = backend
+        elif sqlite_path is not None:
+            self.backend = SqliteTableRepo(sqlite_path, "taskmgr_table", TASK_COLUMNS)
+        else:
+            self.backend = MemoryTableRepo(TASK_COLUMNS)
 
     def has_task(self, task_id: str) -> bool:
         return self.backend.has_item("task_id", task_id)
@@ -71,17 +87,39 @@ class TaskTableRepo:
         item = {"task_id": [task_id]}
         for k, v in fields.items():
             item[k] = [v]
-        return self.backend.add_item(item)
+        ok = self.backend.add_item(item)
+        if ok and "task_status" in fields:
+            self._count_transition(fields["task_status"])
+        return ok
 
     def get_item_value(self, task_id: str, item: str) -> Any:
         return self.backend.get_item_value("task_id", task_id, item)
 
     def set_item_value(self, task_id: str, item: str, value: Any) -> bool:
-        return self.backend.set_item_value("task_id", task_id, item, value)
+        # The single seam every task_status write goes through (submit,
+        # schedule, stop, release, recover, watchdog) — counted here, and
+        # only for writes the backend actually landed (a write racing a
+        # deleted row must not count as a transition).
+        ok = self.backend.set_item_value("task_id", task_id, item, value)
+        if ok and item == "task_status":
+            self._count_transition(value)
+        return ok
+
+    @staticmethod
+    def _count_transition(status: Any) -> None:
+        from olearning_sim_tpu_torch.telemetry import instrument
+
+        instrument("ols_taskmgr_state_transitions_total").labels(
+            status=str(status)
+        ).inc()
+
+    def delete_task(self, task_id: str) -> bool:
+        return self.backend.delete_items(task_id=task_id)
 
     # ------------------------------------------------------------------ leases
     # Lease-based ownership: exactly one process may own a task's engine job
-    # at a time. The claim/renew CAS lives in the backend (its claim_row).
+    # at a time. The claim/renew CAS lives in the backend (TableRepo.claim_row)
+    # so two managers racing on one sqlite/MySQL file cannot both win.
     def claim_lease(self, task_id: str, owner_id: str, ttl_s: float,
                     now: Optional[float] = None) -> bool:
         """Take (or extend) the task's lease. Succeeds when the task is
@@ -99,6 +137,8 @@ class TaskTableRepo:
         """Extend the lease iff we still own it. A False answer means
         another process reclaimed the task — the caller must fence itself
         (stop its job), not keep running a task it no longer owns."""
+        # Wall clock: renewals extend the same cross-process persisted
+        # lease timestamp claim_lease wrote.
         now = time.time() if now is None else now
         return self.backend.claim_row(
             "task_id", task_id, "owner_id", owner_id,
@@ -131,3 +171,9 @@ class TaskTableRepo:
             return float(row.get("lease_expires")) < now
         except (TypeError, ValueError):
             return True
+
+    def get_task_ids_by_status(self, status: Any) -> List[str]:
+        return self.backend.get_values_by_conditions("task_id", task_status=status)
+
+    def query_all(self):
+        return self.backend.query_all()

@@ -4,7 +4,11 @@
   ``Histogram`` behind a :class:`MetricsRegistry` (process default +
   injectable instances);
 - :mod:`telemetry.tracing` — :class:`SpanTracer` producing parent-linked
-  wall-clock spans exportable as Chrome/Perfetto ``trace_event`` JSON.
+  wall-clock spans exportable as Chrome/Perfetto ``trace_event`` JSON;
+- :mod:`telemetry.exporters` — Prometheus text exposition
+  (:func:`render_prometheus`), JSON snapshots (:func:`snapshot` /
+  :func:`dump_json`) and a stdlib scrape endpoint
+  (:class:`MetricsHTTPServer`).
 
 Copies of the JAX package's modules of the same names. :data:`CATALOG`
 holds the entries of the JAX package's catalog that the port's modules
@@ -43,6 +47,12 @@ from olearning_sim_tpu_torch.telemetry.tracing import (
     default_tracer,
     set_default_tracer,
 )
+from olearning_sim_tpu_torch.telemetry.exporters import (
+    MetricsHTTPServer,
+    dump_json,
+    render_prometheus,
+    snapshot,
+)
 
 # Round-phase latencies cluster well under a second but stretch to
 # minutes for first rounds; checkpoint I/O sits in between.
@@ -79,6 +89,12 @@ CATALOG = {
         "First-execution wall-clock of the compiled round step per "
         "(task, operator) — dominated by XLA compilation",
         ("task_id", "operator"),
+    ),
+    "ols_engine_round_duration_seconds": (
+        HISTOGRAM,
+        "Wall-clock per (round, operator) execution as recorded by "
+        "PerformanceManager",
+        ("task_id", "operator"), _PHASE_BUCKETS,
     ),
     "ols_engine_rounds_total": (
         COUNTER,
@@ -224,6 +240,34 @@ CATALOG = {
         COUNTER, "Payload bytes restored from checkpoints (leaf sizes)",
         ("task_id",),
     ),
+    # ------------------------------------------------------------ taskmgr
+    "ols_taskmgr_state_transitions_total": (
+        COUNTER, "Task status writes by destination state", ("status",),
+    ),
+    "ols_taskmgr_queue_depth": (
+        GAUGE, "Tasks waiting in the scheduler queue", (),
+    ),
+    "ols_taskmgr_task_wait_seconds": (
+        HISTOGRAM,
+        "Queue wait per launched task: submit accepted -> engine job "
+        "launched (the p95 of this is the scheduler bench's figure of "
+        "merit vs FIFO)",
+        (), _PHASE_BUCKETS,
+    ),
+    # --------------------------------------------------------- supervisor
+    "ols_supervisor_resumes_total": (
+        COUNTER,
+        "Expired-lease RUNNING tasks re-adopted by the supervisor and "
+        "relaunched through the checkpoint resume path",
+        ("task_id",),
+    ),
+    "ols_supervisor_lease_age_seconds": (
+        HISTOGRAM,
+        "How long past expiry a reclaimed task's lease was when the "
+        "supervisor took it (recovery latency; tune the lease TTL "
+        "against this)",
+        ("task_id",), _IO_BUCKETS,
+    ),
     "ols_resilience_events_total": (
         COUNTER,
         "Resilience events (retry/rollback/quarantine/...) mirrored from "
@@ -263,11 +307,15 @@ __all__ = [
     "Histogram",
     "Metric",
     "MetricsRegistry",
+    "MetricsHTTPServer",
     "Span",
     "SpanTracer",
     "default_registry",
     "default_tracer",
+    "dump_json",
     "instrument",
+    "render_prometheus",
     "set_default_registry",
     "set_default_tracer",
+    "snapshot",
 ]

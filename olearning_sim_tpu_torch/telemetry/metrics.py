@@ -3,10 +3,10 @@
 The reference answers "what is my simulation doing" through
 ``PerformanceMgr.getPerformance`` backed by MySQL rows — end-of-run numbers,
 one lens. This module is the always-on live layer underneath: every subsystem
-registers named instruments here, and an exporter renders one coherent
-snapshot of it at any moment of a run. A copy of the JAX package's
-``telemetry/metrics.py``; the JAX package's exporters render a port
-registry as well, since its interface is the same.
+registers named instruments here, and the exporters
+(:mod:`olearning_sim_tpu_torch.telemetry.exporters`) render one coherent
+snapshot in Prometheus text-exposition or JSON form at any moment of a run.
+A copy of the JAX package's ``telemetry/metrics.py``.
 
 Design constraints, in order:
 

@@ -2,8 +2,11 @@
 
 ``torch.profiler`` answers "what did the card do" at kernel granularity;
 this module answers "what did the *runner* do" — which round, which
-operator, which phase — at host granularity. A copy of the JAX package's
-``telemetry/tracing.py`` without its Perfetto export.
+operator, which phase — at host granularity. Both export to the Chrome
+``trace_event`` JSON format, so a runner-span file opens in
+Perfetto/chrome://tracing beside the profiler's timeline (and
+``PerformanceManager.stop_trace`` writes one beside every captured trace).
+A copy of the JAX package's ``telemetry/tracing.py``.
 
 Usage::
 
@@ -20,6 +23,8 @@ threads).
 from __future__ import annotations
 
 import dataclasses
+import json
+import os
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -34,6 +39,24 @@ class Span:
     duration_s: float = 0.0
     thread_id: int = 0
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
+
+    def to_trace_event(self) -> Dict[str, Any]:
+        """Chrome trace_event complete-event (``ph: X``) form; timestamps in
+        microseconds per the spec."""
+        args = {k: v for k, v in self.attrs.items()}
+        args["span_id"] = self.span_id
+        if self.parent_id is not None:
+            args["parent_id"] = self.parent_id
+        return {
+            "name": self.name,
+            "ph": "X",
+            "cat": "runner",
+            "ts": round(self.start_s * 1e6, 3),
+            "dur": round(self.duration_s * 1e6, 3),
+            "pid": os.getpid(),
+            "tid": self.thread_id,
+            "args": args,
+        }
 
 
 class _ActiveSpan:
@@ -127,6 +150,40 @@ class SpanTracer:
     def clear(self) -> None:
         with self._lock:
             self._spans.clear()
+
+    def now(self) -> float:
+        """Tracer-relative clock (same scale as ``Span.start_s``) — a
+        watermark for windowed exports."""
+        return time.perf_counter() - self._epoch
+
+    # --------------------------------------------------------------- export
+    def to_trace_events(
+        self, since_s: Optional[float] = None
+    ) -> List[Dict[str, Any]]:
+        """``since_s`` (tracer-relative, from :meth:`now`) limits the export
+        to spans started after the watermark — e.g. only the spans inside
+        one profiler window, not the whole process history."""
+        return [
+            s.to_trace_event() for s in self.spans()
+            if since_s is None or s.start_s >= since_s
+        ]
+
+    def to_perfetto_json(self, since_s: Optional[float] = None) -> str:
+        """Chrome/Perfetto ``trace_event`` JSON (object form with
+        ``traceEvents``, the shape both UIs accept)."""
+        return json.dumps({
+            "traceEvents": self.to_trace_events(since_s),
+            "displayTimeUnit": "ms",
+        })
+
+    def export(self, path: str, since_s: Optional[float] = None) -> str:
+        """Write the Perfetto JSON next to (typically) a profiler trace;
+        returns ``path``. Parent directories are created."""
+        d = os.path.dirname(os.path.abspath(path))
+        os.makedirs(d, exist_ok=True)
+        with open(path, "w") as f:
+            f.write(self.to_perfetto_json(since_s))
+        return path
 
 
 _DEFAULT = SpanTracer()

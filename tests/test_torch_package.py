@@ -1,7 +1,7 @@
-"""Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax
-or msgpack (nor anything of the JAX package), builds no kernel and imports
-no triton when imported, and its GPU smoke script refuses to run without a
-card."""
+"""Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax,
+msgpack, protobuf or grpc (nor anything of the JAX package), builds no
+kernel and imports no triton when imported, and its GPU smoke script
+refuses to run without a card."""
 
 import os
 import pathlib
@@ -14,8 +14,9 @@ import torch_threads  # noqa: F401
 
 REPO = pathlib.Path(__file__).resolve().parent.parent
 PORT = REPO / "olearning_sim_tpu_torch"
-FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack)\b|"
-                       r"from (jax|flax|optax|orbax|msgpack)\b|olearning_sim_tpu[^_]")
+FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack|grpc|google)\b|"
+                       r"from (jax|flax|optax|orbax|msgpack|grpc|google)\b|"
+                       r"olearning_sim_tpu[^_]")
 
 
 def _run(code, cwd=REPO):
@@ -65,9 +66,21 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.parallel import collectives\n"
         "from olearning_sim_tpu_torch.parallel.mesh import (ParallelConfig, pad_to_multiple,\n"
         "    shard_clients)\n"
+        "from olearning_sim_tpu_torch.telemetry import exporters\n"
+        "from olearning_sim_tpu_torch.taskmgr import (status, task_queue, queue_repo,\n"
+        "    scheduler, validation, jobs, hybrid, task_manager, codecs)\n"
+        "from olearning_sim_tpu_torch import resourcemgr, phonemgr, performancemgr, supervisor\n"
+        "from olearning_sim_tpu_torch.resourcemgr import resource_manager\n"
+        "from olearning_sim_tpu_torch.phonemgr import phone_farm\n"
+        "from olearning_sim_tpu_torch.performancemgr import performance_manager\n"
+        "from olearning_sim_tpu_torch.supervisor import supervisor as _sup\n"
+        "from olearning_sim_tpu_torch.utils.repo import SqliteTableRepo, MySqlTableRepo\n"
+        "v = validation.validate_task_parameters(codecs.json2taskconfig(\n"
+        "    open('configs/fedavg_mnist_mlp.json').read()))\n"
+        "assert v == (True, 'Pass'), v\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"
-        "              'olearning_sim_tpu', 'triton'))\n"
+        "              'olearning_sim_tpu', 'triton', 'grpc', 'redis', 'pymysql'))\n"
         "print(bad)\n"
     )
     assert proc.returncode == 0, proc.stderr
