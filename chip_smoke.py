@@ -277,6 +277,40 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     manager's ``ols_taskmgr_*`` series are the default registry's, as in
     the JAX package), the previous one restored after.
 
+16. The platform, the chip-pool scheduler and the deviceflow service (no
+    kernel of the repo is on this path either):
+    16a ``python -m olearning_sim_tpu_torch --config <tmp>/platform.ini`` in
+       a subprocess on the card, its INI naming the services taskmgr,
+       resourcemgr, deviceflow, phonemgr, slicemgr and performancemgr, a
+       SQLite file and an intake queue; ``fedavg_mnist_mlp`` cut to
+       PLATFORM_ROUNDS rounds with its train operator's behaviour
+       controller on (PLATFORM_FLOW, 20 released a round) pushed onto the
+       intake, exporting its model file each round. Held: the row
+       SUCCEEDED with its rounds, the task's deviceflow registration held
+       while it ran and dropped with its flows at the release (the release
+       waits for ``check_dispatch_finished``), exit 0 on SIGTERM, and the
+       row's ``logical_result`` and last model file equal (the file
+       byte for byte) to those of the same task run directly in this
+       process with a port ``DeviceFlowService``. Printed: the boot,
+       submit-to-launch and submit-to-end seconds;
+    16b a ``TaskManager(pool=PoolScheduler(ChipPool([two MeshSpecs of half
+       the card's memory])))``: the cost oracle's static budget measured
+       from one round of ``fedavg_mnist_mlp`` (``measure_hbm_budget``), its
+       estimate for the task held at or above the task's measured peak; a
+       task whose ``scheduling.peak_hbm_bytes`` is twice the card's memory
+       refused at submit (``admission_rejected``, oom, never launched); a
+       MIGRATE_ROUNDS-round checkpointed ``fedavg_mnist_mlp`` held after
+       MIGRATE_AFTER rounds and migrated to the other worker. Held:
+       SUCCEEDED, one resume charged, the preempted and migrated events,
+       the final params bitwise its uninterrupted run's. Printed: the fence
+       seconds, from the stop to the first resumed round;
+    16c FLOW_MESSAGES messages published into a real-time flow (batches of
+       FLOW_BATCH, drop probability FLOW_DROP, seed FLOW_SEED) of the port's
+       ``DeviceFlowService`` over durable SQLite rooms. Held: the outbound
+       collector's batches equal those of the same service over in-memory
+       rooms and the kept messages those of a numpy oracle of the flow's
+       generator. Printed: messages per second, durable and in-memory.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -3237,6 +3271,370 @@ def control_path(dev, shrink=None):
     log(f"phase 15 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+PLATFORM_ROUNDS = 3
+PLATFORM_FLOW = {"flow_dispatch": {"use_strategy": True, "total_dispatch_amount": 20,
+                                   "specific_timing": {"use": True, "time_type": "relative",
+                                                       "timings": [0], "amounts": [20]}}}
+PLATFORM_BOOT_S = 240
+PLATFORM_TASK_S = 600
+MIGRATE_ROUNDS = 6
+MIGRATE_AFTER = 2
+FLOW_MESSAGES = 1000
+FLOW_BATCH = 50
+FLOW_DROP = 0.1
+FLOW_SEED = 7
+
+
+def flow_edit(strategy):
+    """An ``edit`` that turns the train operator's behaviour controller on
+    with ``strategy``."""
+    def edit(task):
+        ctl = task["operatorflow"]["operators"][0]["operation_behavior_controller"]
+        ctl.update(use_gradient_house=True, strategy_gradient_house=json.dumps(strategy))
+        return f"behaviour controller on: {json.dumps(strategy)}"
+    return edit
+
+
+def _wait(cond, timeout, what, poll=0.01):
+    deadline = time.monotonic() + timeout
+    while time.monotonic() < deadline:
+        got = cond()
+        if got:
+            return got
+        time.sleep(poll)
+    raise AssertionError(f"timed out after {timeout} s waiting for {what}")
+
+
+class _FenceRunner:
+    """A port runner driven round by round (what ``run()`` is). The task's
+    first launch holds after MIGRATE_AFTER rounds until the fence's stop
+    request arrives, so the migration lands at that round boundary; a
+    relaunch stamps the end of its first round."""
+
+    def __init__(self, inner, stop_event, held, first_launch):
+        self.inner, self.stop_event, self.held = inner, stop_event, held
+        self.first_launch = first_launch
+        self.first_round_at = None
+
+    @property
+    def stopped(self):
+        return self.inner.stopped
+
+    def run(self):
+        self.inner.begin()
+        done = 0
+        while True:
+            more = self.inner.step()
+            done += 1
+            if self.first_round_at is None:
+                self.first_round_at = time.perf_counter()
+            if not more:
+                break
+            if self.first_launch and done == MIGRATE_AFTER:
+                self.held.set()
+                if not self.stop_event.wait(PLATFORM_TASK_S):
+                    raise AssertionError("16b: the fence's stop request never came")
+        return self.inner.finish()
+
+
+def _flow_run(rooms_path, strategy):
+    """FLOW_MESSAGES messages through the port's DeviceFlowService (durable
+    rooms when ``rooms_path`` is given): the delivered batches and the
+    messages per second from the first publish to the flow's end."""
+    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
+
+    batches = []
+
+    def factory(flow_id, cfg):
+        return lambda batch: batches.append(list(batch))
+
+    svc = DeviceFlowService(poll_interval=0.005, seed=FLOW_SEED, rooms_path=rooms_path,
+                            outbound_factory=factory)
+    svc.register_task("df", ["logical_simulation"])
+    svc.start()
+    ok, msg = svc.notify_start("df", "df_train_0", "logical_simulation", strategy)
+    if not ok:
+        raise AssertionError(f"16c: notify_start refused: {msg}")
+    t0 = time.perf_counter()
+    for i in range(FLOW_MESSAGES):
+        svc.publish("df_train_0", "logical_simulation", {"client": i, "update": [i, -i]})
+    ok, msg = svc.notify_complete("df", "df_train_0", "logical_simulation")
+    if not ok:
+        raise AssertionError(f"16c: notify_complete refused: {msg}")
+    _wait(lambda: svc.check_dispatch_finished("df"), 120, "16c: the flow to finish")
+    seconds = time.perf_counter() - t0
+    svc.stop()
+    if rooms_path is not None:
+        svc.inbound.close()
+        svc.shelf_room.close()
+    return batches, FLOW_MESSAGES / seconds
+
+
+def platform_path(dev, shrink=None):
+    """Phase 16: the platform booted from a config file, the chip-pool
+    scheduler and the deviceflow service, the port's own."""
+    import os
+    import signal
+    import tempfile
+    import threading
+    import zlib
+
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
+    from olearning_sim_tpu_torch.resilience import ResilienceLog
+    from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+    from olearning_sim_tpu_torch.performancemgr.hbm_budget import (measure_hbm_budget,
+                                                                   tensor_bytes)
+    from olearning_sim_tpu_torch.taskmgr.pool import (ChipPool, CostOracle, MeshSpec,
+                                                      PoolScheduler)
+    from olearning_sim_tpu_torch.taskmgr.queue_repo import SqliteQueueRepo
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
+    from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.telemetry import MetricsRegistry
+    from olearning_sim_tpu_torch.utils.repo import SqliteTableRepo
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_16_")
+    card = card_line() if dev.type == "cuda" else "cpu"
+
+    # 16a: python -m olearning_sim_tpu_torch --config platform.ini.
+    db = os.path.join(tmp.name, "state.db")
+    intake = os.path.join(tmp.name, "intake.db")
+    ini = os.path.join(tmp.name, "platform.ini")
+    with open(ini, "w") as f:
+        f.write("[session]\nservices = taskmgr, resourcemgr, deviceflow, phonemgr, slicemgr, "
+                "performancemgr\n\n[taskmgr]\nscheduler_sleep_time = 0.02\n"
+                f"release_sleep_time = 0.02\n\n[repos]\nsqlite_path = {db}\n"
+                f"intake_queue_path = {intake}\n\n[deviceflow]\npoll_interval = 0.01\n")
+    style = "{task_id}_{round}_result_model.msgpack"
+    models = {k: os.path.join(tmp.name, f"models_{k}") for k in ("platform", "direct")}
+    task, cuts = load_task("fedavg_mnist_mlp", PLATFORM_ROUNDS, shrink=shrink, edit=_edits(
+        flow_edit(PLATFORM_FLOW), model_edit(models["platform"], model_update_style=style)))
+    task["task_id"] += "_platform"
+    tid = task["task_id"]
+    log(f"16a {tid}: " + "; ".join(cuts))
+    cmd = [sys.executable, "-m", "olearning_sim_tpu_torch", "--config", ini]
+    if dev.type != "cuda":
+        cmd += ["--device", dev.type]
+    env = dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+    # The child's output goes to a file: a pipe nobody drains would stall it.
+    out_path = os.path.join(tmp.name, "platform.log")
+    out = open(out_path, "w")
+    t_boot = time.perf_counter()
+    proc = subprocess.Popen(cmd, cwd=str(ROOT), env=env, stdout=out, stderr=subprocess.STDOUT)
+
+    def child_log():
+        with open(out_path) as f:
+            return f.read()
+
+    def booted():
+        if proc.poll() is not None:
+            raise AssertionError(f"16a: the platform exited {proc.returncode}: {child_log()}")
+        return next((ln for ln in child_log().splitlines() if "platform running" in ln), None)
+
+    try:
+        line = _wait(booted, PLATFORM_BOOT_S, "16a: the platform to boot")
+        boot = time.perf_counter() - t_boot
+        log(f"16a {' '.join(cmd[1:])}: {line.strip()!r} after {boot:.3f} s")
+        repo = TaskTableRepo(sqlite_path=db)
+        registry = SqliteTableRepo(db, "deviceflow_registry", ["task_id", "registry"])
+        flows = SqliteTableRepo(db, "deviceflow_flow", ["task_id", "flow_id", "flow"])
+        t_submit = time.perf_counter()
+        SqliteQueueRepo(intake).push(json.dumps(task))
+        seen, marks = {"registered": False}, {}
+
+        def progressed():
+            if proc.poll() is not None:
+                raise AssertionError(f"16a: the platform exited {proc.returncode}: "
+                                     f"{child_log()}")
+            status = repo.get_item_value(tid, "task_status")
+            if registry.get_values_by_conditions("task_id", task_id=tid):
+                seen["registered"] = True
+            if status and status not in ("UNDONE", "QUEUED") and "launch" not in marks:
+                marks["launch"] = time.perf_counter() - t_submit
+            if status in ("SUCCEEDED", "FAILED", "STOPPED") and \
+                    str(repo.get_item_value(tid, "resource_occupied")) == "0":
+                marks["end"] = time.perf_counter() - t_submit
+                return status
+            return None
+
+        status = _wait(progressed, PLATFORM_TASK_S, "16a: the task to finish")
+        row = {k: repo.get_item_value(tid, k) for k in ("task_status", "logical_round",
+                                                         "logical_result", "job_error")}
+        released = not registry.get_values_by_conditions("task_id", task_id=tid) and \
+            not flows.get_values_by_conditions("flow_id", task_id=tid)
+        log(f"16a {tid}: {status}, logical_round {row['logical_round']}; boot {boot:.3f} s, "
+            f"submit to launch {marks.get('launch', float('nan')):.3f} s, submit to end "
+            f"{marks['end']:.3f} s; deviceflow registration seen while running "
+            f"{seen['registered']}, gone with its flows after the release {released} | {card}")
+        if status != TaskStatus.SUCCEEDED.name or int(row["logical_round"]) != PLATFORM_ROUNDS:
+            raise AssertionError(f"16a: row {row}")
+        if not (seen["registered"] and released):
+            raise AssertionError("16a: the release did not wait for check_dispatch_finished "
+                                 "(the task's deviceflow registration was not held, or not "
+                                 "dropped, around it)")
+        proc.send_signal(signal.SIGTERM)
+        rc = proc.wait(timeout=60)
+    finally:
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+        out.close()
+    log(f"16a SIGTERM: exit {rc}")
+    if rc != 0:
+        raise AssertionError(f"16a: the platform exited {rc} on SIGTERM")
+    svc = DeviceFlowService(poll_interval=0.01)
+    svc.start()
+    svc.register_task(tid, ["logical_simulation"])
+    # The direct run exports into a directory of its own: one holding the
+    # platform's files would be resumed from.
+    direct_task = json.loads(json.dumps(task))
+    params_edit(storage={"root": models["direct"]})(direct_task)
+    direct = build_runner_from_taskconfig(direct_task, deviceflow=svc,
+                                          registry=MetricsRegistry(), device=dev)
+    direct.run()
+    _wait(lambda: svc.check_dispatch_finished(tid), 60, "16a: the direct run's flows")
+    svc.stop()
+    want = direct.task_repo.get_item_value(tid, "logical_result")
+    log(f"16a logical_result {row['logical_result']}; the direct run's equal: "
+        f"{row['logical_result'] == want}")
+    if row["logical_result"] != want:
+        raise AssertionError(f"16a: logical_result differs from the direct run's {want}")
+    last = style.format(task_id=tid, round=PLATFORM_ROUNDS - 1)
+    files = {k: pathlib.Path(d, last).read_bytes() for k, d in models.items()}
+    log(f"16a last model file {last}: platform {len(files['platform'])} bytes, the direct "
+        f"run's byte for byte equal: {files['platform'] == files['direct']} (tol 0)")
+    if files["platform"] != files["direct"]:
+        raise AssertionError("16a: the platform's last model file differs from the direct run's")
+    del direct
+
+    # 16b: the chip-pool scheduler on the card.
+    budgets = os.path.join(tmp.name, "hbm_budgets.json")
+    m_task, _ = load_task("fedavg_mnist_mlp", 1, shrink=shrink)
+    probe = build_runner_from_taskconfig(m_task, registry=MetricsRegistry(), device=dev)
+    probe.begin()
+    pop = probe.populations[0]
+    if dev.type == "cuda":
+        entry = measure_hbm_budget(probe.core, probe.states[pop.name], pop.dataset, budgets)
+    else:  # the CPU rehearsal has no card to measure: the tensors' sizes stand in
+        entry = {"params_bytes": tensor_bytes(probe.states[pop.name].params),
+                 "largest_buffer_bytes": tensor_bytes(pop.dataset),
+                 "clients": probe.core.config.block_clients}
+        with open(budgets, "w") as f:
+            json.dump({"plain/shard0/dp1": entry}, f)
+    clients, family = pop.dataset.num_clients, _engine_params(m_task)["model"]["name"]
+    del probe, pop
+    log(f"16b budget from one {family} round on {clients} clients (padded): {entry}")
+    oracle = CostOracle(budgets_path=budgets)
+    # The card's memory; the CPU rehearsal, which has none, gives each worker
+    # twice the task's estimate instead.
+    total = (torch.cuda.get_device_properties(dev).total_memory if dev.type == "cuda"
+             else 4 * oracle.estimate(json2taskconfig(m_task)).peak_hbm_bytes)
+    rlog = ResilienceLog()
+    workers = [MeshSpec(f"{dev}/half{i}", hbm_bytes=total / 2) for i in range(2)]
+    sched = PoolScheduler(ChipPool(workers), oracle, log=rlog)
+    mrepo = TaskTableRepo(sqlite_path=os.path.join(tmp.name, "pool.db"))
+    held, launches = threading.Event(), []
+
+    def factory(tc, stop_event):
+        inner = build_runner_from_taskconfig(tc, task_repo=mrepo, stop_event=stop_event,
+                                             registry=MetricsRegistry(), device=dev)
+        launches.append(_FenceRunner(inner, stop_event, held, first_launch=not launches))
+        return launches[-1]
+
+    mgr = TaskManager(task_repo=mrepo, pool=sched, runner_factory=factory,
+                      schedule_interval=3600, device=dev)
+    log(f"16b pool: {[(w.name, w.hbm_bytes) for w in workers]} | {card}")
+    big, _ = load_task("fedavg_mnist_mlp", 1, shrink=shrink,
+                       edit=params_edit(scheduling={"peak_hbm_bytes": 2 * total}))
+    big["task_id"] += "_oversized"
+    admitted = mgr.submit_task(big)
+    rejected = [(e.kind, e.detail.get("reason")) for e in rlog.events(task_id=big["task_id"])]
+    log(f"16b {big['task_id']} (peak_hbm_bytes {2 * total}): admitted {admitted}, row "
+        f"{mrepo.get_item_value(big['task_id'], 'task_status')}, events {rejected}")
+    if admitted or rejected != [("admission_rejected", "oom")] or \
+            mrepo.get_item_value(big["task_id"], "task_status") != "FAILED" or \
+            mgr._launcher.get_job(f"job-{big['task_id']}") is not None:
+        raise AssertionError("16b: the oversized task was not refused at submit")
+    ckpt = {"directory": os.path.join(tmp.name, "ckpt", "{task_id}"), "every": 1}
+    task, cuts = load_task("fedavg_mnist_mlp", MIGRATE_ROUNDS, shrink=shrink,
+                           edit=params_edit(checkpoint=ckpt))
+    task["task_id"] += "_migrated"
+    tid = task["task_id"]
+    plain = json.loads(json.dumps(task))
+    params = _engine_params(plain)
+    params.pop("checkpoint")
+    _set_engine_params(plain, params)
+    _sync(dev)
+    if dev.type == "cuda":
+        torch.cuda.reset_peak_memory_stats(dev)
+    base = torch.cuda.memory_allocated(dev) if dev.type == "cuda" else 0
+    straight = build_runner_from_taskconfig(plain, registry=MetricsRegistry(), device=dev)
+    straight.run()
+    _sync(dev)
+    peak = torch.cuda.max_memory_allocated(dev) - base if dev.type == "cuda" else float("nan")
+    est = oracle.estimate(json2taskconfig(task))
+    log(f"16b {tid}: " + "; ".join(cuts) + f"; oracle estimate {est.peak_hbm_bytes:.0f} B "
+        f"({est.source}), the task's measured peak {peak:.0f} B above the {base} B already "
+        f"held | {card}")
+    if est.source != "static_hbm" or (dev.type == "cuda" and not est.peak_hbm_bytes >= peak):
+        raise AssertionError(f"16b: the oracle's {est.source} estimate {est.peak_hbm_bytes} B "
+                             f"is below the task's measured peak {peak} B")
+    if not mgr.submit_task(task) or mgr.schedule_once() != tid:
+        raise AssertionError("16b: the task was not admitted and launched")
+    src = mrepo.get_item_value(tid, "worker_id")
+    dst = next(w.name for w in workers if w.name != src)
+    if not held.wait(PLATFORM_TASK_S):
+        raise AssertionError("16b: the task did not reach its migration point")
+    t_fence = time.perf_counter()
+    outcome = sched.migrate(tid, dst, reason="chip_smoke")
+    new_job = mgr._launcher.get_job(mrepo.get_item_value(tid, "job_id"))
+    new_job.join(PLATFORM_TASK_S)
+    fence = launches[-1].first_round_at - t_fence if len(launches) == 2 else float("nan")
+    mgr.release_once()
+    sup = json.loads(mrepo.get_item_value(tid, "supervision") or "{}")
+    ev = [(e.kind, e.detail.get("worker", e.detail.get("dst"))) for e in rlog.events(task_id=tid)]
+    status = mrepo.get_item_value(tid, "task_status")
+    log(f"16b {tid}: migrate -> {outcome} ({src} -> {dst}, job {new_job.job_id}), fence "
+        f"{fence:.3f} s from the stop to the first resumed round, {status}, resumes "
+        f"{sup.get('resumes')}, events {ev}, worker_id {mrepo.get_item_value(tid, 'worker_id')}"
+        f" | {card}")
+    if outcome != "migrated" or status != TaskStatus.SUCCEEDED.name or sup.get("resumes") != 1 \
+            or [k for k, _ in ev] != ["task_preempted", "task_migrated"] or \
+            sched.pool.placement(tid) is not None or len(launches) != 2:
+        raise AssertionError("16b: the migration did not finish as one resumed SUCCEEDED run")
+    got, ref = new_job.runner.inner.states["data_0"].params, straight.states["data_0"].params
+    diff = max(float((got[k] - ref[k]).abs().max()) for k in ref)
+    log(f"16b migrated vs uninterrupted: params max abs diff {diff:g} (tol 0)")
+    if diff != 0 or not all(bool(torch.equal(got[k], ref[k])) for k in ref):
+        raise AssertionError("16b: the migrated run is not bitwise its uninterrupted run")
+    mgr.stop()
+    del straight, new_job, launches
+
+    # 16c: the deviceflow service over durable SQLite rooms.
+    strategy = json.dumps({"real_time_dispatch": {
+        "use_strategy": True, "dispatch_batch_sizes": [FLOW_BATCH],
+        "drop_simulation": {"drop_probability": FLOW_DROP}}})
+    durable, rate = _flow_run(os.path.join(tmp.name, "rooms.db"), strategy)
+    memory, mem_rate = _flow_run(None, strategy)
+    rng = np.random.default_rng([FLOW_SEED, zlib.crc32(b"df_train_0")])
+    oracle_kept = [i for i in range(FLOW_MESSAGES) if not rng.random() < FLOW_DROP]
+    kept = [m["client"] for b in durable for m in b]
+    log(f"16c {FLOW_MESSAGES} messages, real-time batches of {FLOW_BATCH}, drop probability "
+        f"{FLOW_DROP}, seed {FLOW_SEED}: durable rooms delivered {len(kept)} in {len(durable)} "
+        f"batches at {rate:.1f} messages/s, in-memory rooms {sum(map(len, memory))} at "
+        f"{mem_rate:.1f} messages/s; equal to each other {durable == memory}, to the numpy "
+        f"oracle {kept == oracle_kept} | {card}")
+    if durable != memory or kept != oracle_kept:
+        raise AssertionError("16c: the durable rooms' deliveries differ")
+    tmp.cleanup()
+    log(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -3266,6 +3664,7 @@ def main() -> int:
     dp_path(dev)
     mp_path(dev)
     control_path(dev)
+    platform_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

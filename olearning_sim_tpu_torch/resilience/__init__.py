@@ -16,6 +16,7 @@ through the JAX package does not reach a port runner.
 """
 
 from olearning_sim_tpu_torch.resilience.events import (
+    ADMISSION_REJECTED,
     CHECKPOINT_FALLBACK,
     CLIENT_FLAGGED,
     CLIENT_QUARANTINED,
@@ -24,12 +25,15 @@ from olearning_sim_tpu_torch.resilience.events import (
     DEADLINE_MISS,
     FAULT_INJECTED,
     LEASE_EXPIRED,
+    OUTBOUND_DEGRADED,
     QUARANTINE,
     READMIT,
     RETRY,
     RETRY_EXHAUSTED,
     ROLLBACK,
     SKIP_ROUND,
+    TASK_MIGRATED,
+    TASK_PREEMPTED,
     TASK_RESUMED,
     ResilienceEvent,
     ResilienceLog,
@@ -53,9 +57,10 @@ from olearning_sim_tpu_torch.resilience.quarantine import (
     QuarantineManager,
     parse_quarantine_params,
 )
-from olearning_sim_tpu_torch.resilience.retry import NON_RETRYABLE, RetryPolicy
+from olearning_sim_tpu_torch.resilience.retry import NO_RETRY, NON_RETRYABLE, RetryPolicy
 
 __all__ = [
+    "ADMISSION_REJECTED",
     "CHECKPOINT_FALLBACK",
     "CLIENT_FLAGGED",
     "CLIENT_QUARANTINED",
@@ -64,12 +69,15 @@ __all__ = [
     "DEADLINE_MISS",
     "FAULT_INJECTED",
     "LEASE_EXPIRED",
+    "OUTBOUND_DEGRADED",
     "QUARANTINE",
     "READMIT",
     "RETRY",
     "RETRY_EXHAUSTED",
     "ROLLBACK",
     "SKIP_ROUND",
+    "TASK_MIGRATED",
+    "TASK_PREEMPTED",
     "TASK_RESUMED",
     "ChaosClock",
     "FailurePolicy",
@@ -78,6 +86,7 @@ __all__ = [
     "FaultPlan",
     "FaultSpec",
     "HostPreemption",
+    "NO_RETRY",
     "NON_RETRYABLE",
     "QuarantineManager",
     "ResilienceConfig",

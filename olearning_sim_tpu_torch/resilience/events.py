@@ -30,6 +30,9 @@ ROLLBACK = "rollback"
 QUARANTINE = "quarantine"
 READMIT = "readmit"
 SKIP_ROUND = "skip_round"
+# A resilient outbound producer dropped a batch after its retries
+# (deviceflow/outbound.py)...
+OUTBOUND_DEGRADED = "outbound_degraded"
 CHECKPOINT_FALLBACK = "checkpoint_fallback"
 # Crash-recovery supervision (supervisor/): a RUNNING task's lease outlived
 # its owner process and was reclaimed...
@@ -39,6 +42,18 @@ TASK_RESUMED = "task_resumed"
 # ...or died so many consecutive times its resume budget ran out and it was
 # quarantined to FAILED instead of livelocking the supervisor.
 CRASH_LOOP = "crash_loop"
+# Chip-pool control plane (taskmgr/pool.py): a submission the scheduler
+# refused up-front — backpressure (bounded queue), oom (the cost oracle
+# says no worker can hold it), or deadline (projected completion blows
+# the submit-time budget)...
+ADMISSION_REJECTED = "admission_rejected"
+# ...a running task fenced at a round boundary for a planned preemption
+# (cooperative stop + fence checkpoint)...
+TASK_PREEMPTED = "task_preempted"
+# ...and relaunched on another worker under a fresh job id, resuming
+# bitwise from the fence checkpoint (charges the same durable resume
+# budget as supervisor crash recovery).
+TASK_MIGRATED = "task_migrated"
 # A round closed below its quorum of on-time completions (deadline-aware
 # rounds, engine/pacing.py) and was routed through the failure policy.
 DEADLINE_MISS = "deadline_miss"

@@ -135,3 +135,8 @@ class RetryPolicy:
         if delay > 0:
             self.sleep(delay)
         return True
+
+
+# A do-nothing policy: one attempt, no sleeps. Call sites that take an
+# Optional[RetryPolicy] use this when handed None so the code path is uniform.
+NO_RETRY = RetryPolicy(max_attempts=1, base_delay=0.0, jitter=0.0)

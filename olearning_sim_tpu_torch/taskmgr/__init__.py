@@ -2,11 +2,11 @@
 task-JSON codec (into plain dataclasses; the port imports no protobuf),
 submit validation, the task queue and the alternate intake queues, the
 scheduler strategies, the status calculus, the local engine jobs, the
-hybrid allocator, the task table, operator-flow barriers, and the
+hybrid allocator, the task table, operator-flow barriers, the chip-pool
+scheduler (``pool``), and the
 :class:`~olearning_sim_tpu_torch.taskmgr.task_manager.TaskManager` that
 drives the port's runners (``task_manager``; with the supervisor in
-:mod:`olearning_sim_tpu_torch.supervisor`). Not ported yet (ROADMAP A17b):
-the chip-pool scheduler (``pool.py``)."""
+:mod:`olearning_sim_tpu_torch.supervisor`)."""
 
 from olearning_sim_tpu_torch.taskmgr.codecs import (
     TaskConfig,

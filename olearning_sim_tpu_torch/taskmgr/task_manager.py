@@ -19,8 +19,9 @@ factory builds them with
 on the manager's ``device`` (``"cuda"`` unless the caller asks for the
 CPU). A runner that fails to build or run there fails its job; it is never
 retried on another device, and the job's error lands in the row's
-``job_error`` column. Left out (ROADMAP A17b, A14): the chip-pool
-scheduler (``pool=`` is refused) and the hybrid real-data split.
+``job_error`` column. ``pool=`` takes the port's chip-pool scheduler
+(:class:`~olearning_sim_tpu_torch.taskmgr.pool.PoolScheduler`). Left out
+(ROADMAP A14): the hybrid real-data split.
 """
 
 from __future__ import annotations
@@ -113,6 +114,7 @@ class TaskManager:
         heartbeat_interval: Optional[float] = None,
         supervise_orphans: bool = False,
         pool=None,
+        rebalance_interval: float = 2.0,
         adopt_stranded_after: Optional[float] = None,
         registry=None,
         device="cuda",
@@ -132,12 +134,10 @@ class TaskManager:
         the legacy release-and-fail recovery.
 
         ``device`` — where the default runner factory builds runners;
-        ``"cuda"`` raises here without a card. ``pool`` — the chip-pool
-        scheduler of the JAX package, not ported (ROADMAP A17b)."""
-        if pool is not None:
-            raise ValueError(
-                "TaskManager(pool=...): the chip-pool scheduler "
-                "(taskmgr/pool.py) is not ported yet: ROADMAP.md A17b")
+        ``"cuda"`` raises here without a card. ``pool`` — a
+        :class:`~olearning_sim_tpu_torch.taskmgr.pool.PoolScheduler`: it is
+        the strategy, gates submission and, with the daemons started, runs
+        ``rebalance_once`` every ``rebalance_interval`` seconds."""
         self._device = resolve_device(device)
         self.logger = logger if logger is not None else Logger()
         self._task_repo = task_repo if task_repo is not None else TaskTableRepo()
@@ -160,7 +160,17 @@ class TaskManager:
         # launch wins). None (default) keeps single-manager behavior.
         self._adopt_stranded_after = adopt_stranded_after
         self._last_adopt_scan = 0.0
-        self._strategy = StrategyFactory.create_strategy(scheduler_strategy)
+        # Chip-pool control plane (taskmgr/pool.py): when a PoolScheduler
+        # is supplied it IS the strategy, and additionally gates submission
+        # (admission control) and drives planned preemption/migration from
+        # the rebalance daemon.
+        self._pool = pool
+        self._rebalance_interval = rebalance_interval
+        if pool is not None:
+            pool.bind(self)
+            self._strategy = pool
+        else:
+            self._strategy = StrategyFactory.create_strategy(scheduler_strategy)
         self._schedule_interval = schedule_interval
         self._release_interval = release_interval
         self._interrupt_interval = interrupt_interval
@@ -207,6 +217,10 @@ class TaskManager:
         # for the ols_taskmgr_task_wait_seconds histogram (in_queue_time
         # has only 1 s resolution).
         self._queue_entered: Dict[str, float] = {}
+        # Tasks mid-migration (pool scheduler fence window): their job is
+        # deliberately stopped between fence and relaunch, and the release
+        # loop must not finalize that transient as STOPPED.
+        self._migrating: set = set()
         self._lock = threading.RLock()
         self._stop = threading.Event()
         self._threads = []
@@ -291,6 +305,11 @@ class TaskManager:
             # The runner publishes into the same registry this manager
             # retires finished tasks' series from (series retention).
             registry=self._registry,
+            # Telemetry->scheduler loop: with a pool scheduler attached,
+            # every round's measured wall time refines the family's cost
+            # estimate for the NEXT admission/packing decision.
+            cost_oracle=(self._pool.oracle if self._pool is not None
+                         else None),
             device=self._device,
         )
 
@@ -326,6 +345,21 @@ class TaskManager:
             if task_id in self._task_queue:
                 return False
             repo = self._task_repo
+            if self._pool is not None:
+                decision = self._pool.admit(tc, len(self._task_queue))
+                if not decision.ok:
+                    # Terminal by policy: an admission rejection fails the
+                    # row loudly (admission_rejected event + metric already
+                    # recorded by the pool) — the submitter resubmits as a
+                    # new task once pressure clears. Never a silent queue,
+                    # never a placement that runs a worker out of memory.
+                    repo.set_item_value(task_id, "task_status",
+                                        TaskStatus.FAILED.name)
+                    repo.set_item_value(
+                        task_id, "task_finished_time",
+                        time.strftime("%Y-%m-%d %H:%M:%S"),
+                    )
+                    return False
             repo.set_item_value(task_id, "task_params", json.dumps(taskconfig2json(tc)))
             repo.set_item_value(
                 task_id, "total_simulation", json.dumps(_total_simulation_entry(tc))
@@ -353,6 +387,8 @@ class TaskManager:
             if task_id in self._task_queue:
                 self._task_queue.delete(task_id)
                 self._queue_entered.pop(task_id, None)
+                if self._pool is not None:
+                    self._pool.abort_launch(task_id)
                 self._update_queue_gauge()
                 self._task_repo.set_item_value(task_id, "task_status", TaskStatus.STOPPED.name)
                 return True
@@ -654,8 +690,11 @@ class TaskManager:
         finally:
             if not launched:
                 # The task left the queue on every failure path too —
-                # drop its wait-clock entry (leaks otherwise).
+                # drop its wait-clock entry (leaks otherwise) and the
+                # pool's pending placement.
                 self._queue_entered.pop(result.task.taskID.taskID, None)
+                if self._pool is not None:
+                    self._pool.abort_launch(result.task.taskID.taskID)
 
     def _submit_scheduled_inner(self, result: ScheduleResult) -> bool:
         tc = result.task
@@ -820,6 +859,10 @@ class TaskManager:
             instrument("ols_taskmgr_task_wait_seconds").observe(
                 time.monotonic() - entered
             )
+        if self._pool is not None:
+            # Consume the pending placement: the worker's memory share is
+            # charged and the row's worker_id records where it landed.
+            self._pool.on_launched(task_id)
         return True
 
     # ------------------------------------------------------- release/interrupt
@@ -834,6 +877,10 @@ class TaskManager:
             if task_id in self._fenced:
                 # Another process reclaimed this task (heartbeat fencing):
                 # the row — including its final status — is theirs to write.
+                continue
+            if task_id in self._migrating:
+                # Planned preemption in flight: the stopped job is a fence,
+                # not a terminal state — the pool scheduler relaunches it.
                 continue
             job_id = row.get("job_id")
             if self._supervise_orphans and job_id and \
@@ -869,6 +916,8 @@ class TaskManager:
             )
             self._task_repo.release_lease(task_id, self.owner_id)
             self._own_jobs.pop(task_id, None)
+            if self._pool is not None:
+                self._pool.on_finished(task_id)
             # Series retention: the finished task's per-task label series
             # (ols_engine_*{task_id=...}, ols_resilience_events_total)
             # are retired — a long-lived server otherwise leaks one
@@ -936,6 +985,8 @@ class TaskManager:
                 self._fenced.add(task_id)
                 if self._resource_manager is not None:
                     self._resource_manager.release_resource(task_id)
+                if self._pool is not None:
+                    self._pool.on_finished(task_id)
                 continue
             self.logger.error(
                 task_id=task_id, system_name="TaskMgr",
@@ -951,6 +1002,8 @@ class TaskManager:
             self._fenced.add(task_id)
             if self._resource_manager is not None:
                 self._resource_manager.release_resource(task_id)
+            if self._pool is not None:
+                self._pool.on_finished(task_id)
 
     def interrupt_once(self, now: Optional[float] = None) -> None:
         """Watchdog (reference ``interruptTask``, ``task_manager.py:1150-1200``):
@@ -982,6 +1035,9 @@ class TaskManager:
             (self.interrupt_once, self._interrupt_interval, "taskmgr-interrupt"),
             (self.heartbeat_once, self._heartbeat_interval, "taskmgr-heartbeat"),
         ]
+        if self._pool is not None:
+            daemons.append((self._pool.rebalance_once,
+                            self._rebalance_interval, "taskmgr-rebalance"))
         for fn, interval, name in daemons:
             t = threading.Thread(
                 target=self._loop, args=(fn, interval), name=name, daemon=True

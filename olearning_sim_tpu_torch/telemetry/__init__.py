@@ -58,6 +58,10 @@ from olearning_sim_tpu_torch.telemetry.exporters import (
 # minutes for first rounds; checkpoint I/O sits in between.
 _PHASE_BUCKETS = (0.001, 0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0,
                   2.5, 5.0, 10.0, 30.0, 60.0, 120.0, 300.0)
+# Outbound producer latency per dispatched batch: an in-memory collector
+# returns in microseconds, a network sink in milliseconds.
+_DISPATCH_BUCKETS = (0.0001, 0.0005, 0.001, 0.005, 0.01, 0.05, 0.1, 0.5,
+                     1.0, 5.0)
 _IO_BUCKETS = (0.005, 0.01, 0.025, 0.05, 0.1, 0.25, 0.5, 1.0, 2.5, 5.0,
                10.0, 30.0, 60.0)
 # Simulated device time (completion/deadline): phone rounds span sub-second
@@ -240,6 +244,31 @@ CATALOG = {
         COUNTER, "Payload bytes restored from checkpoints (leaf sizes)",
         ("task_id",),
     ),
+    # --------------------------------------------------------- deviceflow
+    "ols_deviceflow_queue_depth": (
+        GAUGE,
+        "Staged messages by room (inbound queue / all shelves combined)",
+        ("room",),
+    ),
+    "ols_deviceflow_inbound_messages_total": (
+        COUNTER, "Messages published into the deviceflow inbound room", (),
+    ),
+    "ols_deviceflow_dispatched_messages_total": (
+        COUNTER, "Messages delivered to outbound producers", (),
+    ),
+    "ols_deviceflow_dropped_messages_total": (
+        COUNTER, "Messages dropped by dispatch behavior (drop schedule)", (),
+    ),
+    "ols_deviceflow_dispatch_batch_duration_seconds": (
+        HISTOGRAM, "Outbound producer latency per dispatched batch",
+        (), _DISPATCH_BUCKETS,
+    ),
+    "ols_deviceflow_parked_batches": (
+        GAUGE,
+        "Degraded outbound batches parked on durable shelves awaiting "
+        "crash redelivery",
+        (),
+    ),
     # ------------------------------------------------------------ taskmgr
     "ols_taskmgr_state_transitions_total": (
         COUNTER, "Task status writes by destination state", ("status",),
@@ -247,12 +276,25 @@ CATALOG = {
     "ols_taskmgr_queue_depth": (
         GAUGE, "Tasks waiting in the scheduler queue", (),
     ),
+    "ols_taskmgr_admission_rejected_total": (
+        COUNTER,
+        "Submissions refused by chip-pool admission control by reason "
+        "(backpressure / oom / deadline); rejected tasks are failed "
+        "loudly, never queued silently (taskmgr/pool.py)",
+        ("reason",),
+    ),
     "ols_taskmgr_task_wait_seconds": (
         HISTOGRAM,
         "Queue wait per launched task: submit accepted -> engine job "
         "launched (the p95 of this is the scheduler bench's figure of "
         "merit vs FIFO)",
         (), _PHASE_BUCKETS,
+    ),
+    "ols_taskmgr_pool_utilization_ratio": (
+        GAUGE,
+        "Fraction of a pool worker's peak-HBM capacity consumed by "
+        "current placements (chip-pool scheduler ledger)",
+        ("worker",),
     ),
     # --------------------------------------------------------- supervisor
     "ols_supervisor_resumes_total": (

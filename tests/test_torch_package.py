@@ -1,7 +1,8 @@
 """Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax,
 msgpack, protobuf or grpc (nor anything of the JAX package), builds no
-kernel and imports no triton when imported, and its GPU smoke script
-refuses to run without a card."""
+kernel and imports no triton when imported, brings in none of its optional
+clients (redis, pymysql, yaml, websocket) until they are used, and its GPU
+smoke script refuses to run without a card."""
 
 import os
 import pathlib
@@ -72,15 +73,22 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch import resourcemgr, phonemgr, performancemgr, supervisor\n"
         "from olearning_sim_tpu_torch.resourcemgr import resource_manager\n"
         "from olearning_sim_tpu_torch.phonemgr import phone_farm\n"
-        "from olearning_sim_tpu_torch.performancemgr import performance_manager\n"
+        "from olearning_sim_tpu_torch.performancemgr import performance_manager, hbm_budget\n"
         "from olearning_sim_tpu_torch.supervisor import supervisor as _sup\n"
         "from olearning_sim_tpu_torch.utils.repo import SqliteTableRepo, MySqlTableRepo\n"
+        "from olearning_sim_tpu_torch.deviceflow import (validate, rooms, sorter, registry,\n"
+        "    flow, dispatcher, durable_rooms, outbound, service, DeviceFlowService)\n"
+        "from olearning_sim_tpu_torch.taskmgr import pool\n"
+        "from olearning_sim_tpu_torch.clustermgr import slice_manager, ClusterManager\n"
+        "from olearning_sim_tpu_torch.services import session, SimulatorSession\n"
+        "from olearning_sim_tpu_torch import config, __main__\n"
         "v = validation.validate_task_parameters(codecs.json2taskconfig(\n"
         "    open('configs/fedavg_mnist_mlp.json').read()))\n"
         "assert v == (True, 'Pass'), v\n"
         "bad = sorted(m for m in set(sys.modules) - before if m.split('.')[0] in\n"
         "             ('jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"
-        "              'olearning_sim_tpu', 'triton', 'grpc', 'redis', 'pymysql'))\n"
+        "              'olearning_sim_tpu', 'triton', 'grpc', 'redis', 'pymysql', 'yaml',\n"
+        "              'websocket'))\n"
         "print(bad)\n"
     )
     assert proc.returncode == 0, proc.stderr

@@ -1,7 +1,8 @@
 """The port's SimulationRunner: counterparts of tests/test_runner.py (round
 loop and accounting, status fusion, train -> eval chain, custom operator,
 deviceflow lifecycle with the JAX package's DeviceFlowService, the barriers,
-final-round stop tolerance, DAG inputs), and a small task run through the
+final-round stop tolerance, DAG inputs), the port's DeviceFlowService in the
+JAX service's place, and a small task run through the
 JAX bridge and runner and through the port's, on the CPU.
 
 In the task comparison the port starts from the JAX runner's initial
@@ -156,6 +157,47 @@ def test_runner_with_deviceflow_lifecycle():
         assert svc.check_dispatch_finished("task_e2e")
     finally:
         svc.stop()
+
+
+def _deviceflow_run(svc):
+    """Two rounds of a port runner driven by a deviceflow service; the
+    runner's history, its task row and the service's flow table."""
+    repo = TaskTableRepo()
+    svc.start()
+    try:
+        svc.register_task("task_e2e", ["logical_simulation"])
+        strategy = json.dumps({"flow_dispatch": {
+            "use_strategy": True, "total_dispatch_amount": 20,
+            "specific_timing": {"use": True, "time_type": "relative",
+                                "timings": [0, 1], "amounts": [12, 8],
+                                "drop_simulation": {"drop_probability": [0.25, 0.5]}}}})
+        ops = [OperatorSpec(name="train", use_deviceflow=True, deviceflow_strategy=strategy)]
+        history = build_runner(rounds=2, operators=ops, deviceflow=svc, repo=repo).run()
+        deadline = time.monotonic() + 5
+        while not svc.check_dispatch_finished("task_e2e") and time.monotonic() < deadline:
+            time.sleep(0.01)
+        finished = svc.check_dispatch_finished("task_e2e")
+        row = {k: repo.get_item_value("task_e2e", k)
+               for k in ("logical_round", "logical_operator", "logical_result")}
+        return history, row, finished, svc.flow_manager.repo.query_all()
+    finally:
+        svc.stop()
+
+
+def test_runner_with_port_deviceflow_equals_jax_service():
+    """The port's DeviceFlowService drives the same port runner as the JAX
+    package's service: the same histories, task row and released flows."""
+    from olearning_sim_tpu.deviceflow import DeviceFlowService as JaxService
+
+    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
+
+    jax_run = _deviceflow_run(JaxService(poll_interval=0.01))
+    port_run = _deviceflow_run(DeviceFlowService(poll_interval=0.01))
+    assert port_run == jax_run
+    history, row, finished, flows = port_run
+    assert finished and flows == [] and row["logical_round"] == 2
+    released = [h["train"]["data_0"]["released"] for h in history]
+    assert all(0 < r < 20 for r in released)  # the drop schedule is live
 
 
 def test_operator_flow_flag_file_barrier(tmp_path):

@@ -870,13 +870,11 @@ def test_failed_runner_fails_the_job_with_its_error():
     assert "no card for this runner" in trepo.get_item_value("dies", "job_error")
 
 
-def test_manager_refuses_cuda_without_a_card_and_pool_and_hybrid_split(tmp_path):
+def test_manager_refuses_cuda_without_a_card_and_hybrid_split(tmp_path):
     from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
 
     with pytest.raises(RuntimeError, match="cuda"):
         TaskManager(schedule_interval=3600)
-    with pytest.raises(ValueError, match="A17b"):
-        TaskManager(schedule_interval=3600, device="cpu", pool=object())
     (tmp_path / "data").mkdir()
     js = make_task_json("split")
     td = js["target"]["data"][0]
@@ -895,6 +893,41 @@ def test_manager_refuses_cuda_without_a_card_and_pool_and_hybrid_split(tmp_path)
     assert mgr.schedule_once() == "split"
     assert repo.get_item_value("split", "task_status") == "FAILED"
     assert rm.get_resource()["logical_simulation"] == {"cpu": 8.0, "mem": 8.0}
+
+
+def test_manager_with_pool_admits_places_and_finishes_rows_equal_jax():
+    """TaskManager(pool=PoolScheduler(...)): an oversized task is refused at
+    submit, the next is admitted, placed best-fit (the row's worker_id),
+    run by a real runner (the JAX runner, the port's on the CPU), released
+    from the pool at the release, and its row equals the JAX manager's."""
+    from test_scheduler_storm import sched_task_json
+
+    gib = 1 << 30
+
+    def run(s):
+        if s.name == "jax":
+            from olearning_sim_tpu.taskmgr import pool
+        else:
+            from olearning_sim_tpu_torch.taskmgr import pool
+        sched = pool.PoolScheduler(pool.ChipPool([pool.MeshSpec("w0", hbm_bytes=8 * gib),
+                                                  pool.MeshSpec("w1", hbm_bytes=3 * gib)]),
+                                   pool.CostOracle(), log=s.ResilienceLog())
+        repo = s.Repo()
+        mgr = s.manager(task_repo=repo, schedule_interval=3600, pool=sched)
+        out = [mgr.submit_task(s.tc(sched_task_json("huge", hbm_gb=9.0))),
+               mgr.submit_task(s.tc(sched_task_json("pooled", hbm_gb=2.0, rounds=2))),
+               mgr.schedule_once(), sched.pool.placement("pooled").worker,
+               join(mgr._launcher, "job-pooled").name]
+        mgr.release_once()
+        out += [sched.pool.placement("pooled"), mgr.get_task_status("pooled").name,
+                [(e.kind, e.detail["reason"]) for e in sched.log.events()]]
+        mgr.stop()
+        return out, rows(repo)
+    (jout, jrows), (tout, trows) = both(run)
+    assert tout == jout and trows == jrows
+    assert tout[:4] == [False, True, "pooled", "w1"] and tout[5:] == [
+        None, "SUCCEEDED", [("admission_rejected", "oom")]]
+    assert trows["pooled"]["worker_id"] == "w1" and trows["huge"]["task_status"] == "FAILED"
 
 
 def test_default_factory_passes_device_perf_and_registry():
