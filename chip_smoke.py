@@ -311,8 +311,54 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        rooms and the kept messages those of a numpy oracle of the flow's
        generator. Printed: messages per second, durable and in-memory.
 
+17. Task inputs from outside (K1 is on this path, in 17a's evaluate):
+    every archive written by the script from INGEST_SEED into a temporary
+    directory, in its published layout;
+    17a a Sent140 zip (``training.1600000.processed.noemoticon.csv``, every
+       field quoted, SENT140_ROWS rows cut from 1,600,000, from
+       SENT140_USERS users, and a test CSV of SENT140_TEST_ROWS rows, the
+       config's eval_n; a sentiment word of its label in every tweet) as the
+       ``data_path`` of ``fedadam_sent140_distilbert`` at full width, clients
+       10,000 -> 64, block 64 -> DISTILBERT_BLOCK as in 8d, INGEST_ROUNDS
+       rounds, ``data.real`` SENT140_REAL; then its witness, the same task
+       at a local learning rate of WITNESS_LOCAL_LR for WITNESS_ROUNDS
+       rounds (the config's rate diverges within a round at this width);
+       held: the population and eval set bitwise ``load_population`` of
+       the same zip run again, the witness's eval accuracy at WITNESS_ACC
+       or above, its model (q/k/v stacked into the flash layout) evaluated
+       on the test split through K1, launched depth x eval batches times,
+       its logits within EVAL_LOGITS_ATOL of the dense model's (and its
+       loss within EVAL_LOSS_TOL) and, on one batch, of the CPU path, and
+       the same check failing K1 with its key mask dropped and with
+       uniform weights; printed: fetch and extract, parse and partition
+       seconds, rounds/sec and peak memory;
+    17b MNIST's four gzipped IDX files at their published sizes (60,000 and
+       10,000 rows of 28x28 uint8, seeded class patterns) packed as
+       ``mnist.tar.gz`` and served by an ``http.server`` thread on
+       127.0.0.1: ``fedavg_mnist_mlp`` uncut but for rounds (INGEST_ROUNDS),
+       ``data_transfer_type`` HTTP, Dirichlet 0.5, with an operator EXT_OP
+       whose code comes from a local zip (FILE): an ``OperatorABC`` that
+       fails for odd client ids; held: the HTTP population bitwise the same
+       archive read as a FILE path, the operator's success and failed 50
+       and 50 every round, the train rows finite; printed: the HTTP fetch
+       seconds and the operator's wall seconds a round (100 subprocesses,
+       8 at a time);
+    17c the same files as a local zip, ``data_split_type`` true with
+       allocation HYBRID_ALLOCATION, submitted to a ``TaskManager`` over
+       SQLite with a phone farm recording its jobs; held: each half's rows
+       the stratified reckoning (sum over labels of round(n x 0.25) to the
+       device), the phone job handed the ``_device.zip`` shard, the task
+       SUCCEEDED with the logical half trained on the card, the shard
+       removed at the release;
+    17d whether ``websocket``, ``boto3`` and ``minio`` import; a task naming
+       each (a ``selection_url``; an S3 and a MinIO model block with
+       storage settings) builds where the package imports and otherwise
+       fails at build with an error naming the package.
+
 Both launch counts are zeroed just before phase 4 and again just before
-phase 6; K1's is read just after phase 5, K2's just after phase 6. The last lines are the
+phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
+is zeroed again just before 17a's flash evaluate and read just after it.
+The last lines are the
 ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Exits non-zero without CUDA.
 """
@@ -338,6 +384,11 @@ TOL = {"bfloat16": (2e-2, 1e-2), "float32": (1e-4, 1e-4)}
 STATS_TOL = (1e-4, 1e-4)
 # Loss of one eval batch, flash kernel on the card vs plain version on the CPU.
 EVAL_LOSS_TOL = 2e-2
+# Phase 17a, logits of a trained DistilBERT (bf16 compute), K1's flash model
+# against the dense-attention model and against the plain version on the
+# CPU: K1 rounds p to bf16 before P.V where the dense softmax does not,
+# through 6 layers (absolute, as LC_LOGITS_ATOL below).
+EVAL_LOGITS_ATOL = 5e-2
 # Long-context phase, K2's ring model against the dense-combine ring model
 # (same parameters, bf16 compute): the kernel rounds p to bf16 before P.V
 # where the dense combine keeps it f32, through 6 layers. Logits: absolute;
@@ -3635,6 +3686,577 @@ def platform_path(dev, shrink=None):
     log(f"phase 16 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# Phase 17: task inputs from outside. Every archive is written here from
+# INGEST_SEED in its published layout; the sizes are module constants so a
+# CPU rehearsal can cut them.
+INGEST_SEED = 15
+INGEST_ROUNDS = 3
+SENT140_ROWS = 160_000       # the training CSV's 1,600,000 rows, cut 10x
+SENT140_USERS = 16_000       # about 10 tweets per user, as in the full file
+SENT140_TEST_ROWS = 2_048    # fedadam_sent140_distilbert's eval_n
+SENT140_REAL = {"scheme": "by_writer", "n_local": 24}
+# 17a's witness: the task at a lower local learning rate, trained until its
+# eval accuracy is far above chance (0.5; one standard deviation of a
+# coin's accuracy over 2,048 rows is 0.011).
+WITNESS_LOCAL_LR = 1e-3
+WITNESS_ROUNDS = 8
+WITNESS_ACC = 0.6
+MNIST_ROWS = (60_000, 10_000)  # train, t10k: the published counts
+MNIST_REAL = {"scheme": "dirichlet", "alpha": 0.5}
+HYBRID_ALLOCATION = (75, 25)   # logical, device clients of fedavg_mnist_mlp's 100
+EXT_OP = "ext_fail_odd"
+EXT_SOURCE = """import sys
+sys.path.insert(0, {root!r})
+from olearning_sim_tpu_torch.operators import OperatorABC
+
+
+class FailOdd(OperatorABC):
+    def run(self):
+        return 1 if any(c % 2 for c in self.params["client_ids"]) else 0
+
+
+FailOdd().main()
+"""
+SENT140_GOOD = ("love", "great", "happy", "awesome", "thanks", "fun")
+SENT140_BAD = ("hate", "sad", "awful", "sick", "miss", "tired")
+
+
+def write_sent140_zip(path, rows, users, test_rows, seed):
+    """A Sent140 archive in the published layout: ``trainingandtestdata.zip``
+    holding ``training.1600000.processed.noemoticon.csv`` and
+    ``testdata.manual.2009.06.14.csv``, every field quoted, columns
+    polarity,id,date,query,user,text. Words come from a seeded list of
+    2,000; each tweet carries a sentiment word of its label (polarity 0 or
+    4), so the task can learn. Returns the seconds it took."""
+    import csv
+    import io
+    import zipfile
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    letters = np.array(list("abcdefghijklmnopqrstuvwxyz"))
+    vocab = ["".join(letters[rng.integers(0, 26, int(n))]) for n in rng.integers(3, 9, 2000)]
+
+    def csv_bytes(n, first_id):
+        label = rng.integers(0, 2, n)
+        length = rng.integers(5, 20, n)
+        words = rng.integers(0, len(vocab), (n, 20))
+        senti = rng.integers(0, len(SENT140_GOOD), n)
+        where = rng.integers(0, 20, n) % (length + 1)
+        user = rng.integers(0, users, n)
+        out = io.StringIO()
+        w = csv.writer(out, quoting=csv.QUOTE_ALL, lineterminator="\n")
+        for i in range(n):
+            text = [vocab[j] for j in words[i, :length[i]]]
+            text.insert(int(where[i]), (SENT140_GOOD if label[i] else SENT140_BAD)[senti[i]])
+            w.writerow([4 * int(label[i]), first_id + i, "Mon Apr 06 22:19:45 PDT 2009",
+                        "NO_QUERY", f"user{int(user[i]):05d}", " ".join(text)])
+        return out.getvalue().encode()
+
+    with zipfile.ZipFile(path, "w", zipfile.ZIP_DEFLATED, compresslevel=1) as zf:
+        zf.writestr("training.1600000.processed.noemoticon.csv", csv_bytes(rows, 1467810369))
+        zf.writestr("testdata.manual.2009.06.14.csv", csv_bytes(test_rows, 3))
+    return time.perf_counter() - t0
+
+
+def write_mnist_files(d, rows, seed):
+    """MNIST's four gzipped IDX files (``train-images-idx3-ubyte.gz`` and
+    siblings) in the published layout and sizes: 28x28 uint8 images, each
+    a seeded class pattern over noise, and uint8 labels. Returns
+    (train labels, file paths, seconds)."""
+    import gzip
+    import os
+    import struct
+
+    import numpy as np
+
+    t0 = time.perf_counter()
+    rng = np.random.default_rng(seed)
+    patterns = (rng.random((10, 28, 28)) < 0.25).astype(np.uint8) * 159
+    paths, train_labels = [], None
+    for stem, n in zip(("train", "t10k"), rows):
+        labels = rng.integers(0, 10, n).astype(np.uint8)
+        images = rng.integers(0, 96, (n, 28, 28), dtype=np.uint8) + patterns[labels]
+        for kind, arr in (("images-idx3", images), ("labels-idx1", labels)):
+            path = os.path.join(d, f"{stem}-{kind}-ubyte.gz")
+            header = bytes([0, 0, 0x08, arr.ndim]) + struct.pack(f">{arr.ndim}I", *arr.shape)
+            with gzip.open(path, "wb", compresslevel=1) as f:
+                f.write(header + arr.tobytes())
+            paths.append(path)
+        train_labels = labels if stem == "train" else train_labels
+    return train_labels, paths, time.perf_counter() - t0
+
+
+def data_edit(path, transfer, real):
+    """An ``edit`` pointing the task's target data at an archive."""
+    def edit(task):
+        task["target"]["data"][0].update(data_path=path, data_transfer_type=transfer)
+        params = _engine_params(task)
+        params["data"]["real"] = real
+        _set_engine_params(task, params)
+        return f"data_path {path} over {transfer}; data.real {json.dumps(real)}"
+    return edit
+
+
+def external_edit(code_path):
+    """An ``edit`` that appends an operator running external code from an
+    archive fetched over FILE."""
+    def edit(task):
+        side = {"operator_transfer_type": "FILE", "operator_code_path": "",
+                "operator_entry_file": "", "operator_params": ""}
+        task["operatorflow"]["operators"].append({
+            "name": EXT_OP, "input": ["train"], "use_data": True,
+            "operation_behavior_controller": {"use_gradient_house": False,
+                                              "strategy_gradient_house": "",
+                                              "outbound_service": ""},
+            "model": {"use_model": False, "model_for_train": False,
+                      "model_transfer_type": "FILE", "model_path": "",
+                      "model_update_style": ""},
+            "logical_simulation": dict(side, operator_code_path=code_path,
+                                       operator_entry_file="entry.py",
+                                       operator_params="{}"),
+            "device_simulation": side})
+        return f"operator {EXT_OP}: external code {code_path} (FILE), entry.py"
+    return edit
+
+
+def _host_arrays(ds):
+    """A population's arrays on the host: floats as float32, integers as
+    int64 (the port keeps labels in int64 on the card)."""
+    import numpy as np
+    import torch
+
+    out = {}
+    for f in ("x", "y", "num_samples", "client_uid", "weight"):
+        v = getattr(ds, f)
+        if isinstance(v, torch.Tensor):
+            v = (v.float() if v.is_floating_point() else v).cpu().numpy()
+        v = np.asarray(v)
+        out[f] = v.astype(np.int64 if v.dtype.kind in "iu" else np.float32)
+    return out
+
+
+def _same_population(label, a, b, eval_a, eval_b):
+    """Two populations (and eval sets) bitwise equal, or fail."""
+    import numpy as np
+
+    ha, hb = _host_arrays(a), _host_arrays(b)
+    same = {f: bool(ha[f].shape == hb[f].shape and np.array_equal(ha[f], hb[f])) for f in ha}
+    same["eval"] = all(np.array_equal(np.asarray(x), np.asarray(y))
+                       for x, y in zip(eval_a, eval_b))
+    log(f"{label}: bitwise equal {same}")
+    if not all(same.values()):
+        raise AssertionError(f"{label}: the populations differ")
+
+
+def dense_to_flash(params):
+    """A dense-attention DistilBERT's parameters laid out for the flash
+    model: each block's query, key and value projections stacked into its
+    fused ``qkv`` (rows q, then k, then v, as the flash block splits them),
+    ``out`` renamed ``attn_out``; every other tensor as it is."""
+    import torch
+
+    out = {}
+    for name, v in params.items():
+        head, _, leaf = name.rpartition(".")
+        block, _, proj = head.rpartition(".")
+        if proj == "query":
+            out[f"{block}.qkv.{leaf}"] = torch.cat(
+                [params[f"{block}.{p}.{leaf}"] for p in ("query", "key", "value")])
+        elif proj in ("key", "value"):
+            continue
+        elif proj == "out":
+            out[f"{block}.attn_out.{leaf}"] = v
+        else:
+            out[name] = v
+    return out
+
+
+def eval_logits(core, params, x):
+    """The f32 logits of ``core``'s model over ``x`` in its eval batches, as
+    :meth:`FedCore.evaluate` computes them (one rank)."""
+    import torch
+    from torch.func import functional_call
+
+    dev = next(iter(params.values())).device
+    bs = core.config.eval_batch_size
+    with torch.no_grad():
+        return torch.cat([functional_call(core.model, params,
+                                          (torch.as_tensor(x[i:i + bs]).to(dev),)).float()
+                          for i in range(0, len(x), bs)])
+
+
+class _HttpServer:
+    """``http.server`` on 127.0.0.1 serving one directory from a thread."""
+
+    def __init__(self, root):
+        import http.server
+        import threading
+
+        class Quiet(http.server.SimpleHTTPRequestHandler):
+            def __init__(self, *a, **k):
+                super().__init__(*a, directory=str(root), **k)
+
+            def log_message(self, *a):
+                pass
+
+        self.httpd = http.server.ThreadingHTTPServer(("127.0.0.1", 0), Quiet)
+        self.url = f"http://127.0.0.1:{self.httpd.server_address[1]}"
+        self.thread = threading.Thread(target=self.httpd.serve_forever, daemon=True)
+        self.thread.start()
+
+    def close(self):
+        self.httpd.shutdown()
+        self.httpd.server_close()
+        self.thread.join()
+
+
+def ingest_path(dev, shrink=None):
+    """Phase 17: task inputs from outside: real archives (local, over HTTP),
+    external operator code, the hybrid split through the manager, and the
+    optional client packages."""
+    import importlib
+    import os
+    import tarfile
+    import tempfile
+    import zipfile
+
+    import numpy as np
+    import torch
+
+    from olearning_sim_tpu_torch.data import ingest
+    from olearning_sim_tpu_torch.data.formats import detect_and_load
+    from olearning_sim_tpu_torch.data.partition import partition
+    from olearning_sim_tpu_torch.engine import FedCoreConfig, build_fedcore, fedadam
+    from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
+    from olearning_sim_tpu_torch.models import transformer
+    from olearning_sim_tpu_torch.operators import external
+    from olearning_sim_tpu_torch.ops import flash_attention
+    from olearning_sim_tpu_torch.phonemgr import SimulatedPhoneFarm
+    from olearning_sim_tpu_torch.resourcemgr import DeviceTopology, ResourceManager
+    from olearning_sim_tpu_torch.storage import HttpFileRepo
+    from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+    from olearning_sim_tpu_torch.taskmgr.scheduler import get_task_request_resource
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
+    from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.telemetry import default_tracer
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_17_")
+    # Extracted archives, staged halves and operator scratch go under it.
+    previous_tempdir, tempfile.tempdir = tempfile.tempdir, tmp.name
+    card = card_line() if dev.type == "cuda" else "cpu"
+    ingest.clear_cache()
+
+    # 17a: a Sent140 archive at full width, through K1.
+    sent_zip = os.path.join(tmp.name, "trainingandtestdata.zip")
+    secs = write_sent140_zip(sent_zip, SENT140_ROWS, SENT140_USERS, SENT140_TEST_ROWS,
+                             INGEST_SEED)
+    log(f"17a archive {os.path.basename(sent_zip)}: {SENT140_ROWS} training rows (cut from "
+        f"1,600,000) from {SENT140_USERS} users, {SENT140_TEST_ROWS} test rows, "
+        f"{os.path.getsize(sent_zip)} bytes, written in {secs:.2f} s")
+    edit = _edits(block_edit(DISTILBERT_BLOCK) if shrink is None else None,
+                  data_edit(sent_zip, "FILE", SENT140_REAL))
+    clients = [64] if shrink is None else None
+    runner_a, hist_a = run_task("17a", "fedadam_sent140_distilbert", dev, INGEST_ROUNDS,
+                           clients=clients, edit=edit, shrink=shrink)
+    task_a, _ = load_task("fedadam_sent140_distilbert", INGEST_ROUNDS, clients, edit, shrink)
+    params_a = _engine_params(task_a)
+    pop_a = runner_a.populations[0]
+    ex, ey = pop_a.eval_data
+    seq_len = int(params_a["model"]["input_shape"][0])
+    vocab = int(params_a["model"]["overrides"].get("vocab_size", 30522))
+    n_clients = pop_a.dataset.num_real_clients
+    syn = params_a["data"]["synthetic"]
+    load_kw = dict(num_clients=n_clients, n_local=SENT140_REAL["n_local"],
+                   scheme=SENT140_REAL["scheme"],
+                   alpha=float(syn.get("dirichlet_alpha") or 0.5), seed=int(syn["seed"]),
+                   transfer_type=0, eval_n=params_a["data"]["eval_n"],
+                   vocab_size=vocab, seq_len=seq_len)
+    ingest.clear_cache()
+    t0 = time.perf_counter()
+    direct, direct_eval, _ = ingest.load_population(sent_zip, **load_kw)
+    t_load = time.perf_counter() - t0
+    _same_population("17a the bridge's population against load_population run again",
+                     pop_a.dataset, direct, pop_a.eval_data, direct_eval)
+    t0 = time.perf_counter()
+    d = ingest.fetch_dataset_dir(sent_zip, 0)
+    t_fetch = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    x, y, writer = detect_and_load(d, "train", vocab_size=vocab, seq_len=seq_len)
+    t_parse = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    partition(x, y, n_clients, SENT140_REAL["n_local"], scheme="by_writer", writer=writer,
+              seed=int(syn["seed"]))
+    t_part = time.perf_counter() - t0
+    log(f"17a ingest seconds: fetch and extract {t_fetch:.3f}, parse {t_parse:.3f} "
+        f"({len(y)} rows, {len(np.unique(writer))} users), partition {t_part:.3f} "
+        f"(by writer into {n_clients} clients), load_population whole {t_load:.3f} | {card}")
+
+    log(f"17a at the config's local learning rate: eval acc per round "
+        f"{[h['evaluate']['data_0']['eval_acc'] for h in hist_a]} | {card}")
+    del runner_a
+
+    # The witness: the same task on the same archive at a lower local
+    # learning rate learns it, so the model K1 evaluates depends on its
+    # attention (the config's rate diverges within a round at this width).
+    lr_edit = params_edit(algorithm=dict(params_a["algorithm"], local_lr=WITNESS_LOCAL_LR))
+    runner_w, hist_w = run_task("17a witness", "fedadam_sent140_distilbert", dev,
+                                WITNESS_ROUNDS, clients=clients, edit=_edits(edit, lr_edit),
+                                shrink=shrink)
+    acc_w = hist_w[-1]["evaluate"]["data_0"]["eval_acc"]
+    log(f"17a witness eval acc per round {[h['evaluate']['data_0']['eval_acc'] for h in hist_w]}"
+        f" (held at {WITNESS_ACC:g} or above on the card) | {card}")
+    if dev.type == "cuda" and not acc_w >= WITNESS_ACC:
+        raise AssertionError(f"17a: the witness did not learn the archive (acc {acc_w:.4f})")
+
+    over = dict(params_a["model"]["overrides"], attention_impl="flash")
+    flash_core = build_fedcore("distilbert", fedadam(0.01, 0.001), FedCoreConfig(**MAIN_CFG),
+                               model_overrides=over, input_shape=(seq_len,), device=dev)
+    dense = runner_w.states["data_0"].params
+    trained = dense_to_flash(dense)
+    dloss, dacc = runner_w.core.evaluate(dense, ex, ey)
+    dense_logits = eval_logits(runner_w.core, dense, ex)
+    flash_attention.launches = 0
+    _sync(dev)
+    t0 = time.perf_counter()
+    floss, facc = flash_core.evaluate(trained, ex, ey)
+    _sync(dev)
+    t_eval = time.perf_counter() - t0
+    launches = flash_attention.launches
+    depth = len(flash_core.model.blocks)
+    batches = -(-len(ey) // flash_core.config.eval_batch_size)
+    flash_logits = eval_logits(flash_core, trained, ex)
+    diff = float((flash_logits - dense_logits).abs().max())
+    log(f"17a flash evaluate of the witness's model on the archive's {len(ey)} test rows: "
+        f"loss={floss:.6f} acc={facc:.4f} seconds={t_eval:.4f}; dense loss={dloss:.6f} "
+        f"acc={dacc:.4f}; logits max|flash - dense| {diff:.3e} (tol {EVAL_LOGITS_ATOL:g}, "
+        f"dense logits max|.| {float(dense_logits.abs().max()):.3f}); K1 launches {launches} "
+        f"(depth {depth} x {batches} eval batches) | {card}")
+    if dev.type == "cuda" and launches != depth * batches:
+        raise AssertionError(f"17a: K1 launched {launches} times, expected {depth * batches}")
+    if not (bool(torch.isfinite(flash_logits).all()) and diff <= EVAL_LOGITS_ATOL
+            and abs(floss - dloss) <= EVAL_LOSS_TOL):
+        raise AssertionError("17a: the flash evaluate disagrees with the dense one")
+    # Two wrong kernels this check must catch: the key mask dropped (padding
+    # attended) and uniform weights (scores zeroed).
+    real_k1 = transformer.flash_attention
+    wrong = {"key mask dropped": lambda q, k, v, kv_mask=None: real_k1(q, k, v),
+             "uniform weights": lambda q, k, v, kv_mask=None: real_k1(q * 0, k, v,
+                                                                      kv_mask=kv_mask)}
+    for what, k1 in wrong.items():
+        transformer.flash_attention = k1
+        try:
+            moved = float((eval_logits(flash_core, trained, ex) - dense_logits).abs().max())
+        finally:
+            transformer.flash_attention = real_k1
+        log(f"17a with K1's {what}: logits max|flash - dense| {moved:.3e}, "
+            f"{moved / EVAL_LOGITS_ATOL:.1f}x the tolerance")
+        if not moved > EVAL_LOGITS_ATOL:
+            raise AssertionError(f"17a: the logits check does not catch K1's {what}")
+    n_cmp = min(64, len(ey))
+    card_logits = eval_logits(flash_core, trained, ex[:n_cmp])
+    cpu_logits = eval_logits(flash_core, {k: v.cpu() for k, v in trained.items()}, ex[:n_cmp])
+    cdiff = float((card_logits.cpu() - cpu_logits).abs().max())
+    log(f"17a flash eval batch of {n_cmp}: logits max|card - CPU path| {cdiff:.3e} "
+        f"(tol {EVAL_LOGITS_ATOL:g})")
+    if not cdiff <= EVAL_LOGITS_ATOL:
+        raise AssertionError("17a: the flash evaluate on the card disagrees with the CPU path")
+    del runner_w, flash_core, trained, dense
+
+    # 17b: MNIST over HTTP, with an external operator.
+    mnist_dir = os.path.join(tmp.name, "mnist")
+    os.makedirs(mnist_dir)
+    labels, files, secs = write_mnist_files(mnist_dir, MNIST_ROWS, INGEST_SEED)
+    tar_path = os.path.join(tmp.name, "mnist.tar.gz")
+    with tarfile.open(tar_path, "w:gz", compresslevel=1) as tf:
+        for f in files:
+            tf.add(f, f"mnist/{os.path.basename(f)}")
+    code_zip = os.path.join(tmp.name, "fail_odd.zip")
+    with zipfile.ZipFile(code_zip, "w") as zf:
+        zf.writestr("entry.py", EXT_SOURCE.format(root=str(ROOT)))
+    log(f"17b archive mnist.tar.gz: {MNIST_ROWS[0]} train and {MNIST_ROWS[1]} test rows of "
+        f"28x28 uint8 in four gzipped IDX files, {os.path.getsize(tar_path)} bytes, written "
+        f"in {secs:.2f} s; operator code {os.path.basename(code_zip)} "
+        f"({os.path.getsize(code_zip)} bytes)")
+    srv = _HttpServer(tmp.name)
+    try:
+        url = f"{srv.url}/mnist.tar.gz"
+        t0 = time.perf_counter()
+        if not HttpFileRepo().download_file(url, os.path.join(tmp.name, "fetched.tar.gz")):
+            raise AssertionError(f"17b: {url} did not download")
+        t_http = time.perf_counter() - t0
+        log(f"17b HTTP fetch of {url}: {t_http:.4f} s "
+            f"({os.path.getsize(tar_path) / t_http / 1e6:.1f} MB/s)")
+        runner_b, hist_b = run_task("17b", "fedavg_mnist_mlp", dev, INGEST_ROUNDS,
+                                    edit=_edits(data_edit(url, "HTTP", MNIST_REAL),
+                                                external_edit(code_zip)),
+                                    shrink=shrink)
+    finally:
+        srv.close()
+    ext_secs = [sp.duration_s for sp in default_tracer().spans()
+                if sp.name == f"round.{EXT_OP}.custom"]
+    file_task, _ = load_task("fedavg_mnist_mlp", INGEST_ROUNDS,
+                             edit=data_edit(tar_path, "FILE", MNIST_REAL), shrink=shrink)
+    runner_f = build_runner_from_taskconfig(file_task, device=dev)
+    _same_population("17b the HTTP population against the same archive over FILE",
+                     runner_b.populations[0].dataset, runner_f.populations[0].dataset,
+                     runner_b.populations[0].eval_data, runner_f.populations[0].eval_data)
+    del runner_f
+    pop_b = runner_b.populations[0]
+    real = pop_b.dataset.num_real_clients
+    counts = [h[EXT_OP]["data_0"] for h in hist_b]
+    log(f"17b {EXT_OP} per round {counts}; wall seconds per round "
+        f"{[round(s, 4) for s in ext_secs]} ({real} subprocesses a round, "
+        f"{external.MAX_WORKERS} at a time) | {card}")
+    want = {"success": (real + 1) // 2, "failed": real // 2}
+    if any(c != want for c in counts):
+        raise AssertionError(f"17b: the external operator's counts are not {want}")
+    # What one of those subprocesses costs, one at a time (median of 3).
+    op = runner_b.operators[-1].custom_fn
+    entry = [os.path.join(op.code_dir, op.entry_file), "--params",
+             json.dumps(op._batch_params("t", 0, EXT_OP, "data_0", [0],
+                                         os.path.join(tmp.name, "probe")))]
+    starts = {}
+    for what, argv in (("bare interpreter", ["-c", "pass"]),
+                       ("import numpy", ["-c", "import numpy"]),
+                       ("import torch", ["-c", "import torch"]),
+                       ("the operator's entry", entry)):
+        secs = []
+        for _ in range(3):
+            t0 = time.perf_counter()
+            subprocess.run([sys.executable] + argv, cwd=op.code_dir, capture_output=True)
+            secs.append(time.perf_counter() - t0)
+        starts[what] = sorted(secs)[1]
+    log("17b one subprocess at a time, median of 3: "
+        + ", ".join(f"{k} {v:.3f} s" for k, v in starts.items()) + f" | {card}")
+    x_b = pop_b.dataset.x[:real]
+    if not bool(torch.isfinite(x_b.float()).all()):
+        raise AssertionError("17b: the train rows are not finite")
+
+    # 17c: the hybrid split through the manager.
+    mnist_zip = os.path.join(tmp.name, "mnist.zip")
+    with zipfile.ZipFile(mnist_zip, "w") as zf:
+        for f in files:
+            zf.write(f, os.path.basename(f))
+    logical_n, device_n = HYBRID_ALLOCATION
+
+    def hybrid_edit(task):
+        td = task["target"]["data"][0]
+        td.update(data_split_type=True)
+        td["total_simulation"]["nums"] = [logical_n + device_n]
+        td["allocation"].update(logical_simulation=[logical_n], device_simulation=[device_n])
+        task["device_simulation"]["resource_request"] = [
+            {"name": td["name"], "devices": td["total_simulation"]["devices"],
+             "num_request": [device_n]}]
+        return (f"data_split_type true, allocation logical {logical_n} device {device_n}, "
+                f"device request {device_n}")
+
+    task_c, cuts = load_task("fedavg_mnist_mlp", INGEST_ROUNDS,
+                             edit=data_edit(mnist_zip, "FILE", MNIST_REAL), shrink=shrink)
+    cuts.append(hybrid_edit(task_c))  # after any shrink: the allocation stays whole
+    task_c["task_id"] = "chip_smoke_17c"
+    log("17c fedavg_mnist_mlp: " + "; ".join(cuts))
+
+    class RecordingFarm(SimulatedPhoneFarm):
+        """A phone farm whose device rounds take no time; records jobs."""
+
+        def __init__(self, **kw):
+            super().__init__(**kw)
+            self.submitted = []
+
+        def submit_task(self, task_id, rounds, operators, data):
+            self.submitted.append(data)
+            return super().submit_task(task_id, rounds, operators, data)
+
+    farm = RecordingFarm(inventory={task_c["user_id"]: {"hpc": device_n}}, speedup=1e9)
+    req = get_task_request_resource(json2taskconfig(task_c))["logical_simulation"]
+    units = max(req["cpu"], req["mem"])
+    rm = ResourceManager(topology=DeviceTopology.detect(dev, units_per_core=units,
+                                                        mem_per_core=units),
+                         phone_provider=farm.get_device_available_resource)
+    repo = TaskTableRepo(sqlite_path=os.path.join(tmp.name, "tasks.db"))
+    mgr = TaskManager(task_repo=repo, resource_manager=rm, phone_client=farm,
+                      schedule_interval=3600, device=dev)
+    if not mgr.submit_task(task_c):
+        raise AssertionError("17c: the manager refused the hybrid task")
+    t0 = time.perf_counter()
+    if mgr.schedule_once() != task_c["task_id"]:
+        raise AssertionError("17c: the hybrid task was not launched")
+    t_stage = time.perf_counter() - t0
+    staged = mgr._device_paths[(task_c["task_id"], "data_0")]
+    stored = json.loads(repo.get_item_value(task_c["task_id"], "task_params"))
+    logical_path = stored["target"]["data"][0]["data_path"]
+    ingest.clear_cache()
+    rows = {"logical": len(ingest.load_arrays(logical_path)[1]),
+            "device": len(ingest.load_arrays(staged)[1])}
+    frac = device_n / (logical_n + device_n)
+    reckoned = sum(int(round(int(np.sum(labels == k)) * frac)) for k in range(10))
+    job = mgr._launcher.get_job(repo.get_item_value(task_c["task_id"], "job_id"))
+    _wait(lambda: job.status not in (TaskStatus.PENDING, TaskStatus.RUNNING), 600,
+          "17c's job")
+    mgr.release_once()
+    status = repo.get_item_value(task_c["task_id"], "task_status")
+    routed = farm.submitted[0][0].get("data_path") if farm.submitted else None
+    log(f"17c staged and launched in {t_stage:.3f} s; rows logical {rows['logical']} device "
+        f"{rows['device']} (reckoned device {reckoned} = sum over labels of round(n x "
+        f"{frac:g}), of {len(labels)}); phone job data_path {routed}; logical half "
+        f"{job.status.name}, logical_round {repo.get_item_value(task_c['task_id'], 'logical_round')}, "
+        f"task {status}; staged shard removed at the release: {not os.path.exists(staged)} "
+        f"| {card}")
+    if rows != {"logical": len(labels) - reckoned, "device": reckoned}:
+        raise AssertionError("17c: the halves' rows differ from the stratified reckoning")
+    if routed != staged or not staged.endswith("_device.zip"):
+        raise AssertionError("17c: the phone job did not get the device shard's path")
+    if status != TaskStatus.SUCCEEDED.name or os.path.exists(staged):
+        raise AssertionError(f"17c: the task ended {status} (job error {job.error})")
+
+    # 17d: the optional client packages.
+    def importable(name):
+        try:
+            importlib.import_module(name)
+            return True
+        except ImportError:
+            return False
+
+    for package, word, block in (
+            ("websocket", "websocket-client",
+             params_edit(operator_flow={"selection_url": "ws://127.0.0.1:9"})),
+            ("boto3", "boto3", None), ("minio", "minio", None)):
+        have = importable(package)
+        if block is None:
+            kind = "S3" if package == "boto3" else "MINIO"
+            block = _edits(model_edit(tmp.name, model_update_style="{task_id}_{round}"),
+                           params_edit(storage={"endpoint": "127.0.0.1:9", "access_key": "k",
+                                                "secret_key": "s", "bucket": "b"}))
+            block = _edits(block, _transfer_edit(kind))
+        task_d, cuts = load_task("fedavg_mnist_mlp", 1, edit=block, shrink=shrink)
+        try:
+            build_runner_from_taskconfig(task_d, device=dev)
+            outcome = None
+        except (ImportError, RuntimeError) as e:
+            outcome = e
+        log(f"17d {package} imports: {have}; a task with {'; '.join(cuts[1:])}: "
+            + ("built" if outcome is None else f"{type(outcome).__name__}: {outcome}"))
+        if have != (outcome is None) or (outcome is not None and word not in str(outcome)):
+            raise AssertionError(f"17d: {package}: the build does not follow the import")
+    ingest.clear_cache()
+    tempfile.tempdir = previous_tempdir
+    tmp.cleanup()
+    log(f"phase 17 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def _transfer_edit(kind):
+    """An ``edit`` that sets the train operator's model transfer type."""
+    def edit(task):
+        task["operatorflow"]["operators"][0]["model"]["model_transfer_type"] = kind
+        return f"model_transfer_type {kind}"
+    return edit
+
+
 def main() -> int:
     import torch
 
@@ -3665,6 +4287,7 @@ def main() -> int:
     mp_path(dev)
     control_path(dev)
     platform_path(dev)
+    ingest_path(dev)
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

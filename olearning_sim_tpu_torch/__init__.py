@@ -7,13 +7,18 @@ standard library only. Its entry points (``engine.fedcore.build_fedcore``,
 caller passes ``device="cpu"``; hand-written CUDA kernels live under
 ``csrc/`` and are built with ``nvcc`` at first use (``ops/_build.py``).
 
-Ported so far: the synchronous FedAvg/FedAdam round on one device, the
-DistilBERT-shaped ``TextTransformer`` (dense, flash and ring attention),
-the long-context sequence-parallel entry points (``parallel``), and both
-attention kernels (the flash forward and its softmax-stats variant).
-``ROADMAP.md`` lists what is still to come.
+Importing the package imports nothing: a user operator's subprocess that
+does ``from olearning_sim_tpu_torch.operators import OperatorABC`` pays no
+torch import. ``resolve_device`` is reached through the module's
+``__getattr__``. ``ROADMAP.md`` lists what is still to come.
 """
 
-from olearning_sim_tpu_torch.device import resolve_device
-
 __all__ = ["resolve_device"]
+
+
+def __getattr__(name):
+    if name == "resolve_device":
+        from olearning_sim_tpu_torch.device import resolve_device
+
+        return resolve_device
+    raise AttributeError(f"module {__name__!r} has no attribute {name!r}")

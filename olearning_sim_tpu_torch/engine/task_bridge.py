@@ -19,6 +19,7 @@ optional::
                     "carry_dtype": "bf16", "shard_server_update": false},
       "data":      {"synthetic": {"seed": 0, "n_local": 20, "num_classes": 10,
                     "dirichlet_alpha": null, "class_sep": 2.0}, "eval_n": 1024,
+                    "real": {"scheme": "dirichlet", "alpha": 0.5, "n_local": 20},
                     "compute_profiles": {"<device class>": local_steps}},
       "resilience": {...},                    # ResilienceConfig.from_dict
       "quarantine": {"preseed": {"data_0": [3, 7]}},
@@ -31,7 +32,8 @@ optional::
                     "speed_profiles": {"high": 0.05, "low": 0.4}},
       "defense":   {"clip_norm": 5.0, "aggregator": "trimmed_mean",
                     "trim_fraction": 0.1, "anomaly_threshold": 4.0},
-      "storage":   {"root": "/models"},       # the model files' FILE repo
+      "storage":   {"root": "/models",        # make_file_repo's keywords: the
+                    "endpoint": "minio:9000", ...},  # FILE root, object-store settings
       "scenario":  {"online_base": 0.4, "online_amp": 0.3,
                     "spikes": [{"round": 3, "rounds": 2, "boost": 3.0}],
                     "leave_rate": 0.001, "drift_period_rounds": 20,
@@ -66,10 +68,17 @@ has ``{task_id}`` replaced, and a relative one is placed under
 ``tempfile.gettempdir()``, so a relaunch from another working directory
 resumes from the same steps.
 
-A task that asks for a part of the JAX bridge the port leaves out (the
-websocket round provider, a real dataset) raises a
-``ValueError`` naming its ``ROADMAP.md`` item; none is ignored, since a
-dropped block would run a different simulation than the one asked for.
+A target with a ``dataPath`` trains on that archive, fetched over its
+``dataTransferType`` with the ``storage`` block's settings, parsed and
+partitioned by ``data.real`` (``olearning_sim_tpu_torch.data``); its test
+split (or a held-out tail of ``eval_n`` rows) is the eval set. An operator
+whose ``operatorCodePath`` is not ``builtin:`` runs user code in
+subprocesses (``olearning_sim_tpu_torch.operators``): a directory as it
+is, or an archive fetched over ``operatorTransferType``. An
+``operator_flow.selection_url`` polls a selection service over WebSocket;
+without the websocket-client package the task fails at build with an
+``ImportError`` naming it. An unknown engine-params block is refused, since
+a dropped block would run a different simulation than the one asked for.
 The JAX bridge's persistent compile-cache switch has no counterpart in
 eager PyTorch and is dropped.
 """
@@ -109,7 +118,10 @@ from olearning_sim_tpu_torch.parallel.mesh import MeshPlan, ParallelConfig, make
 from olearning_sim_tpu_torch.resilience import ResilienceConfig, parse_quarantine_params
 from olearning_sim_tpu_torch.storage import make_file_repo
 from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
-from olearning_sim_tpu_torch.taskmgr.operator_flow import OperatorFlowController
+from olearning_sim_tpu_torch.taskmgr.operator_flow import (
+    OperatorFlowController,
+    require_websocket_client,
+)
 
 BUILTIN_PREFIX = "builtin:"
 
@@ -139,21 +151,45 @@ def cost_family(tc) -> str:
     return f"{algo}_{model}"
 
 
-def _refuse_left_out(task_id: str, params: Dict[str, Any], tc) -> None:
+def _check_blocks(task_id: str, params: Dict[str, Any]) -> None:
+    """Refuse an unknown engine-params block; fail a ``selection_url``
+    without websocket-client now, not at the first barrier."""
     unknown = sorted(set(params) - KNOWN)
     if unknown:
         raise ValueError(f"task {task_id}: unknown engine params blocks {unknown} "
                          f"(known: {sorted(KNOWN)})")
     if (params.get("operator_flow") or {}).get("selection_url"):
-        raise ValueError(f"task {task_id}: the websocket round provider "
-                         f"(operator_flow.selection_url) is not ported yet: ROADMAP.md A16")
-    for td in tc.target.targetData:
-        if td.dataPath:
-            raise ValueError(f"task {task_id}: real dataset {td.dataPath!r} (dataPath) "
-                             f"is not ported yet: ROADMAP.md A14 (real-dataset ingest)")
+        require_websocket_client()
 
 
-def _operator_specs(task_id: str, tc) -> list:
+def _external_spec(op, storage: Optional[Dict[str, Any]]) -> OperatorSpec:
+    """External user code: stage it (a directory as it is, else an archive
+    or file fetched through its transfer type's repo) and run it through
+    the subprocess escape hatch (reference get_operator_code,
+    utils_runner.py:684-782 + the per-phone subprocess loop)."""
+    from olearning_sim_tpu_torch.operators import external_operator_spec
+    from olearning_sim_tpu_torch.storage import fetch_operator_code
+
+    info = op.logicalSimulationOperatorInfo
+    path = info.operatorCodePath
+    if os.path.isdir(path):
+        code_dir = path
+    else:
+        repo = make_file_repo(info.operatorTransferType, **(storage or {}))
+        code_dir = fetch_operator_code(
+            repo, path, tempfile.mkdtemp(prefix=f"op_{op.name}_"))
+    return external_operator_spec(
+        name=op.name,
+        code_dir=code_dir,
+        entry_file=info.operatorEntryFile,
+        operator_params=info.operatorParams,
+        use_deviceflow=op.operationBehaviorController.useController,
+        deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
+        inputs=list(op.input),
+    )
+
+
+def _operator_specs(tc, storage: Optional[Dict[str, Any]] = None) -> list:
     specs = []
     for op in tc.operatorFlow.operator:
         info = op.logicalSimulationOperatorInfo
@@ -161,9 +197,8 @@ def _operator_specs(task_id: str, tc) -> list:
             # Device-only operator: belongs to the phone half.
             continue
         if not info.operatorCodePath.startswith(BUILTIN_PREFIX):
-            raise ValueError(f"task {task_id}: operator {op.name} runs external code "
-                             f"{info.operatorCodePath!r}, which is not ported yet: "
-                             f"ROADMAP.md A15 (external operator code)")
+            specs.append(_external_spec(op, storage))
+            continue
         kind = info.operatorCodePath[len(BUILTIN_PREFIX):]
         if kind not in ("train", "eval"):
             raise ValueError(f"operator {op.name}: unknown builtin operator {kind!r}")
@@ -188,8 +223,7 @@ def _model_io(task_id: str, tc, params: Dict[str, Any]):
         if not (m.useModel or m.modelUpdateStyle):
             continue
         try:
-            repo = make_file_repo(m.modelTransferType,
-                                  root=(params.get("storage") or {}).get("root", "/"))
+            repo = make_file_repo(m.modelTransferType, **(params.get("storage") or {}))
         except ValueError as e:
             raise ValueError(f"task {task_id}: operator {op.name} model: {e}") from None
         model_io = ModelUpdateExporter(
@@ -243,7 +277,7 @@ def build_runner_from_taskconfig(
     dev = resolve_device(device)
     task_id = tc.taskID.taskID
     params = _engine_params(tc)
-    _refuse_left_out(task_id, params, tc)
+    _check_blocks(task_id, params)
     # The block selects the mesh, so it is resolved before the plan, as
     # the JAX bridge resolves it.
     parallel = (ParallelConfig.from_dict(params["parallel"])
@@ -256,7 +290,7 @@ def build_runner_from_taskconfig(
             f"parallel mp={parallel.mp} pp={parallel.pp} but the supplied "
             f"mesh plan has mp={plan.mp} pp={plan.pp}"
         )
-    operators = _operator_specs(task_id, tc)
+    operators = _operator_specs(tc, storage=params.get("storage"))
     # Parsed before any data is made, so a bad block fails fast.
     model_io, warm_start_path = _model_io(task_id, tc, params)
     convergence = (ConvergenceConfig.from_dict(params["convergence"])
@@ -327,7 +361,36 @@ def build_runner_from_taskconfig(
         if not dynamic:
             dynamic = [0] * len(nums)
         num_clients = sum(nums)
-        if is_text:
+        eval_data = None
+        pop_classes = num_classes
+        if td.dataPath:
+            # Real dataset: honour dataPath + dataTransferType (reference
+            # download_data_files, utils_run_task.py:174-325). The archive's
+            # test split (or a held-out tail) is the central eval set.
+            from olearning_sim_tpu_torch.data import load_population
+
+            real_cfg = data_cfg.get("real", {})
+            text_kwargs = ({"vocab_size": vocab_size, "seq_len": int(input_shape[0])}
+                           if is_text else {})
+            ds, eval_data, data_classes = load_population(
+                td.dataPath,
+                num_clients=num_clients,
+                n_local=int(real_cfg.get("n_local", syn.get("n_local", 20))),
+                scheme=real_cfg.get("scheme", "dirichlet"),
+                alpha=float(real_cfg.get("alpha", syn.get("dirichlet_alpha") or 0.5)),
+                seed=seed,
+                transfer_type=td.dataTransferType,
+                storage_settings=params.get("storage"),
+                eval_n=data_cfg.get("eval_n"),
+                **text_kwargs,
+            )
+            if data_classes > model_classes:
+                raise ValueError(
+                    f"dataset at {td.dataPath!r} has {data_classes} classes "
+                    f"but the model's head emits only {model_classes}"
+                )
+            pop_classes = data_classes
+        elif is_text:
             ds = make_synthetic_text_dataset(
                 seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
                 seq_len=int(input_shape[0]), num_classes=num_classes,
@@ -353,8 +416,7 @@ def build_runner_from_taskconfig(
         for ci, n in enumerate(nums):
             cls[start:start + n] = ci
             start += n
-        eval_data = None
-        if data_cfg.get("eval_n"):
+        if eval_data is None and not td.dataPath and data_cfg.get("eval_n"):
             if is_text:
                 eval_data = make_central_text_eval_set(
                     seed, int(data_cfg["eval_n"]), int(input_shape[0]), num_classes,
@@ -376,7 +438,7 @@ def build_runner_from_taskconfig(
         populations.append(DataPopulation(
             name=td.dataName, dataset=ds, device_classes=devices,
             class_of_client=cls, nums=nums, dynamic_nums=dynamic,
-            eval_data=eval_data, num_steps=num_steps, num_classes=num_classes,
+            eval_data=eval_data, num_steps=num_steps, num_classes=pop_classes,
             store=store, device=dev,
         ))
 

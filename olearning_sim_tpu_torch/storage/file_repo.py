@@ -1,16 +1,25 @@
-"""File-transfer backends behind one interface, ``FILE`` transfer type only.
+"""File-transfer backends behind one interface.
 
-A copy of the JAX package's ``storage/file_repo.py`` for local files: the
-:class:`FileRepo` interface (upload / download / delete / list,
-re-specified there after the reference's unreleased ``file_repo.py``),
-:class:`LocalFileRepo` (a rooted directory tree, uploads committed stage
--> fsync -> rename -> fsync(dir)), and :class:`ResilientFileRepo`
-(retry/backoff plus the ``storage.*`` fault points). The JAX module takes
+The reference moves datasets, models, and operator code through four transfer
+types (``FileTransferType`` enum, ``ols_core/proto/taskService.proto:131-136``:
+FILE/HTTP/S3/MINIO), with concrete repos at
+``ofl_commons/infrastructure/FileRepo/s3_file_repo.py:7-64`` (boto3) and
+``minio_file_repo.py:22-65`` (minio), a wget/urllib path for HTTP
+(``taskMgr/utils/utils_run_task.py:174-325``), and plain paths for FILE.
+The abstract base the reference imports (``file_repo.py``) was never released,
+so this module re-specifies it: upload / download / delete / list /
+download_payload (download-then-delete, the reference's payload semantics).
+
+S3 and MinIO impls import their SDKs lazily and raise a clear error when the
+SDK is not installed — single-host mode needs neither.
+
+A copy of the JAX package's ``storage/file_repo.py``. The JAX module takes
 the transfer type from the generated protobuf enum; the port keys on its
 name (the task JSON's ``"FILE"``, ``"S3"``, ...) or its wire number (a
 protobuf ``TaskConfig`` handed in by the JAX control plane), since it
-imports no protobuf. HTTP, S3 and MinIO are not ported:
-S3 and MinIO need SDKs the port does not depend on (``ROADMAP.md`` A19).
+imports no protobuf. Options no caller of the port sets are left out:
+``ResilientFileRepo`` takes its retry policy always and no log hook, and
+``fetch_operator_code`` unpacks by the ``.zip`` suffix alone.
 """
 
 from __future__ import annotations
@@ -19,6 +28,8 @@ import abc
 import os
 import shutil
 import tempfile
+import urllib.request
+import zipfile
 from typing import List, Union
 
 from olearning_sim_tpu_torch.utils.durable import commit_replace, copy_file_durable
@@ -58,6 +69,13 @@ class FileRepo(abc.ABC):
     @abc.abstractmethod
     def list_files(self, prefix: str = "") -> List[str]:
         """All stored paths starting with ``prefix``."""
+
+    def download_payload(self, remote_path: str, local_path: str) -> bool:
+        """Download then delete (reference ``s3_file_repo.py`` download_payload
+        semantics: payloads are consumed, not mirrored)."""
+        if not self.download_file(remote_path, local_path):
+            return False
+        return self.delete_file(remote_path)
 
     def exists(self, remote_path: str) -> bool:
         return remote_path in self.list_files(remote_path)
@@ -145,6 +163,125 @@ class LocalFileRepo(FileRepo):
         return sorted(found)
 
 
+class HttpFileRepo(FileRepo):
+    """HTTP transfer type: download-only (the reference fetches HTTP data with
+    wget/urllib, ``utils_run_task.py:216-233``; it never uploads over HTTP)."""
+
+    def upload_file(self, local_path: str, remote_path: str) -> bool:
+        raise NotImplementedError("HTTP transfer is download-only")
+
+    def download_file(self, remote_path: str, local_path: str) -> bool:
+        try:
+            os.makedirs(os.path.dirname(local_path) or ".", exist_ok=True)
+            with urllib.request.urlopen(remote_path) as resp, open(local_path, "wb") as out:
+                shutil.copyfileobj(resp, out)
+            return True
+        except Exception:
+            # http.client errors (IncompleteRead etc.) are not OSErrors; keep
+            # the bool contract and don't leave a truncated file behind.
+            try:
+                os.remove(local_path)
+            except OSError:
+                pass
+            return False
+
+    def delete_file(self, remote_path: str) -> bool:
+        raise NotImplementedError("HTTP transfer is download-only")
+
+    def list_files(self, prefix: str = "") -> List[str]:
+        raise NotImplementedError("HTTP transfer is download-only")
+
+
+class S3FileRepo(FileRepo):
+    """S3 transfer type (reference ``s3_file_repo.py:7-64``, boto3). The SDK is
+    imported lazily so single-host deployments need no boto3."""
+
+    def __init__(self, endpoint_url: str, access_key: str, secret_key: str, bucket: str):
+        try:
+            import boto3  # noqa: PLC0415
+        except ImportError as e:  # pragma: no cover - exercised only without boto3
+            raise RuntimeError("S3 transfer requires boto3 (not installed)") from e
+        self.bucket = bucket
+        self._client = boto3.client(
+            "s3",
+            endpoint_url=endpoint_url,
+            aws_access_key_id=access_key,
+            aws_secret_access_key=secret_key,
+        )
+
+    def upload_file(self, local_path: str, remote_path: str) -> bool:
+        try:
+            self._client.upload_file(local_path, self.bucket, remote_path)
+            return True
+        except Exception:
+            return False
+
+    def download_file(self, remote_path: str, local_path: str) -> bool:
+        try:
+            os.makedirs(os.path.dirname(local_path) or ".", exist_ok=True)
+            self._client.download_file(self.bucket, remote_path, local_path)
+            return True
+        except Exception:
+            return False
+
+    def delete_file(self, remote_path: str) -> bool:
+        try:
+            self._client.delete_object(Bucket=self.bucket, Key=remote_path)
+            return True
+        except Exception:
+            return False
+
+    def list_files(self, prefix: str = "") -> List[str]:
+        out: List[str] = []
+        paginator = self._client.get_paginator("list_objects_v2")
+        for page in paginator.paginate(Bucket=self.bucket, Prefix=prefix):
+            out.extend(obj["Key"] for obj in page.get("Contents", []))
+        return out
+
+
+class MinioFileRepo(FileRepo):
+    """MINIO transfer type (reference ``minio_file_repo.py:22-65``)."""
+
+    def __init__(self, endpoint: str, access_key: str, secret_key: str, bucket: str,
+                 secure: bool = False):
+        try:
+            from minio import Minio  # noqa: PLC0415
+        except ImportError as e:  # pragma: no cover - exercised only without minio
+            raise RuntimeError("MinIO transfer requires the minio SDK (not installed)") from e
+        self.bucket = bucket
+        self._client = Minio(endpoint, access_key=access_key, secret_key=secret_key,
+                             secure=secure)
+
+    def upload_file(self, local_path: str, remote_path: str) -> bool:
+        try:
+            self._client.fput_object(self.bucket, remote_path, local_path)
+            return True
+        except Exception:
+            return False
+
+    def download_file(self, remote_path: str, local_path: str) -> bool:
+        try:
+            self._client.fget_object(self.bucket, remote_path, local_path)
+            return True
+        except Exception:
+            return False
+
+    def delete_file(self, remote_path: str) -> bool:
+        try:
+            self._client.remove_object(self.bucket, remote_path)
+            return True
+        except Exception:
+            return False
+
+    def list_files(self, prefix: str = "") -> List[str]:
+        try:
+            return [o.object_name
+                    for o in self._client.list_objects(self.bucket, prefix=prefix,
+                                                       recursive=True)]
+        except Exception:
+            return []
+
+
 class ResilientFileRepo(FileRepo):
     """Wrap any :class:`FileRepo` with retry/backoff + fault injection.
 
@@ -152,9 +289,9 @@ class ResilientFileRepo(FileRepo):
     raised exceptions and on returned ``False`` (the backends' native failure
     signal); after the policy is exhausted the last result/exception is
     surfaced unchanged, so callers keep their existing contracts.
-    ``NotImplementedError`` (capability statements) passes straight through.
-    Fault-injection points: ``storage.upload``, ``storage.download``,
-    ``storage.delete``, ``storage.list``.
+    ``NotImplementedError`` (capability statements, e.g. HTTP upload) passes
+    straight through. Fault-injection points: ``storage.upload``,
+    ``storage.download``, ``storage.delete``, ``storage.list``.
     """
 
     def __init__(self, inner: FileRepo, retry_policy, task_id: str = ""):
@@ -203,19 +340,79 @@ class ResilientFileRepo(FileRepo):
         return self.inner.exists(remote_path)
 
 
+def storage_settings_from_env() -> dict:
+    """Object-store connection settings from the environment (the reference
+    reads them from ``config/manager_config.yaml``; the deployment config
+    system maps that file onto these variables)."""
+    return {
+        "endpoint": os.environ.get("OLS_STORAGE_ENDPOINT", ""),
+        "access_key": os.environ.get("OLS_STORAGE_ACCESS_KEY", ""),
+        "secret_key": os.environ.get("OLS_STORAGE_SECRET_KEY", ""),
+        "bucket": os.environ.get("OLS_STORAGE_BUCKET", ""),
+        "secure": os.environ.get("OLS_STORAGE_SECURE", "") == "1",
+    }
+
+
 def make_file_repo(transfer_type: Union[str, int], *, root: str = "/",
+                   endpoint: str = "", access_key: str = "", secret_key: str = "",
+                   bucket: str = "", secure: bool = False,
                    retry_policy=None) -> FileRepo:
     """Factory keyed by the transfer type's name or wire number (the
     dispatch the reference does ad hoc at every download site,
-    ``utils_run_task.py:174-325``). ``root`` is the engine params' ``storage``
-    block's; ``retry_policy`` — optional
+    ``utils_run_task.py:174-325``). ``root`` is the FILE repo's (the engine
+    params' ``storage`` block's); S3 and MinIO take the object store's
+    settings from the keywords, or from ``OLS_STORAGE_*`` when no
+    ``endpoint`` is given.
+
+    ``retry_policy`` — optional
     :class:`~olearning_sim_tpu_torch.resilience.RetryPolicy`; when given the
-    repo is wrapped in :class:`ResilientFileRepo`."""
+    repo is wrapped in :class:`ResilientFileRepo` (transient I/O failures
+    retried with backoff, fault-injection points armed)."""
+
+    def _wrap(repo: FileRepo) -> FileRepo:
+        if retry_policy is None:
+            return repo
+        return ResilientFileRepo(repo, retry_policy=retry_policy)
+
     name = _transfer_type_name(transfer_type)
-    if name != "FILE":
-        raise ValueError(f"{name} file transfer is not ported yet: "
-                         f"ROADMAP.md A19 (remote object stores)")
-    repo = LocalFileRepo(root=root)
-    if retry_policy is None:
-        return repo
-    return ResilientFileRepo(repo, retry_policy=retry_policy)
+    if name == "FILE":
+        return _wrap(LocalFileRepo(root=root))
+    if name == "HTTP":
+        return _wrap(HttpFileRepo())
+    if not endpoint:
+        env = storage_settings_from_env()
+        if not env["endpoint"]:
+            raise ValueError(
+                f"{name} transfer type needs object-store settings; pass "
+                "endpoint/keys/bucket or set OLS_STORAGE_ENDPOINT / "
+                "OLS_STORAGE_ACCESS_KEY / OLS_STORAGE_SECRET_KEY / "
+                "OLS_STORAGE_BUCKET"
+            )
+        endpoint = env["endpoint"]
+        access_key = access_key or env["access_key"]
+        secret_key = secret_key or env["secret_key"]
+        bucket = bucket or env["bucket"]
+        secure = secure or env["secure"]
+    if name == "S3":
+        return _wrap(S3FileRepo(endpoint_url=endpoint, access_key=access_key,
+                                secret_key=secret_key, bucket=bucket))
+    return _wrap(MinioFileRepo(endpoint=endpoint, access_key=access_key,
+                               secret_key=secret_key, bucket=bucket,
+                               secure=secure))
+
+
+def fetch_operator_code(repo: FileRepo, remote_path: str, dest_dir: str) -> str:
+    """Fetch user operator code (zip or single file) into ``dest_dir`` and
+    return the code directory — the reference's ``get_operator_code``
+    (``taskMgr/utils/utils_runner.py:684-782``) without the temp-dir juggling.
+    Zips are extracted; a plain file is copied as-is."""
+    os.makedirs(dest_dir, exist_ok=True)
+    name = os.path.basename(remote_path)
+    local = os.path.join(dest_dir, name)
+    if not repo.download_file(remote_path, local):
+        raise FileNotFoundError(f"operator code not found: {remote_path}")
+    if name.endswith(".zip"):
+        with zipfile.ZipFile(local) as zf:
+            zf.extractall(dest_dir)
+        os.remove(local)
+    return dest_dir

@@ -14,8 +14,11 @@ used to synchronize the simulation with an external aggregation service:
   reference hard-codes researcher paths — here the paths and the sampler are
   parameters).
 
-A copy of the JAX package's ``taskmgr/operator_flow.py`` without the
-WebSocket round provider (ROADMAP.md A16): ``selection_url`` raises.
+A copy of the JAX package's ``taskmgr/operator_flow.py``, with one
+difference kept on purpose: where ``import websocket`` (websocket-client)
+fails, building the ``selection_url`` barrier raises an ``ImportError``
+naming the package. The JAX provider swallows that error on every poll
+and waits out ``total_timeout``.
 
 All strategies share the (wait_interval, total_timeout) polling contract from
 ``StrategyCondition`` (``taskService.proto:62-66``). Strategies are a
@@ -24,6 +27,7 @@ registry so deployments can plug their own barriers.
 
 from __future__ import annotations
 
+import logging
 import os
 import threading
 import time
@@ -126,14 +130,87 @@ class FlagFileBarrier:
             time.sleep(wait_interval)
 
 
-def _polling_barrier(round_provider=None, selection_url=None, **_):
-    if selection_url:
-        # The reference polls its selection service over WebSocket; that
-        # transport needs the websocket-client package, which the port does
-        # not depend on. Refused, never replaced by another barrier.
-        raise ValueError(
-            "operator_flow.selection_url: the websocket round provider is "
-            "not ported yet (ROADMAP.md A16); pass a round_provider callable"
+def require_websocket_client():
+    """The websocket-client module (``import websocket``), which the
+    selection-service barrier needs; an ``ImportError`` naming the package
+    where it is missing."""
+    try:
+        import websocket  # websocket-client
+    except ImportError as e:
+        raise ImportError(
+            "operator_flow.selection_url: the websocket round provider needs "
+            f"the websocket-client package (import websocket failed: {e})") from e
+    return websocket
+
+
+class WebsocketRoundProvider:
+    """Round provider for :class:`PollingRoundBarrier` that polls an external
+    selection service over WebSocket — the reference's
+    ``waiting_for_global_aggregation`` transport (``operatorflow.py:158-237``:
+    connect, send a query, read ``{"round_idx": N}``).
+
+    Returns ``None`` on any transport/parse error (the barrier keeps
+    polling); the connection is cached across polls and dropped on error.
+    Building one without websocket-client raises
+    (:func:`require_websocket_client`).
+    """
+
+    def __init__(
+        self,
+        url: str,
+        query: Optional[Dict[str, Any]] = None,
+        round_key: str = "round_idx",
+        timeout: float = 5.0,
+    ):
+        self._client = require_websocket_client()
+        self.url = url
+        # Request/response poll: every poll sends the query (default {})
+        # and reads one answer — a silent provider would otherwise block
+        # on recv until timeout against request-driven services.
+        self.query = {} if query is None else query
+        self.round_key = round_key
+        self.timeout = timeout
+        self._ws = None
+
+    def _drop(self) -> None:
+        ws, self._ws = self._ws, None
+        if ws is not None:
+            try:
+                ws.close()
+            except Exception as e:
+                # Best-effort teardown of a possibly-dead socket; keep the
+                # failure observable for degraded-path debugging.
+                logging.getLogger(__name__).debug(
+                    "selection-service websocket close for %s failed: "
+                    "%s: %s", self.url, type(e).__name__, e)
+
+    def __call__(self) -> Optional[int]:
+        import json
+
+        try:
+            if self._ws is None:
+                self._ws = self._client.create_connection(self.url, timeout=self.timeout)
+            self._ws.send(json.dumps(self.query))
+            resp = json.loads(self._ws.recv())
+            return int(resp[self.round_key])
+        except Exception as e:
+            # Documented contract: None keeps the barrier polling — but a
+            # persistently-failing provider should be diagnosable, so the
+            # error is logged, not swallowed invisibly.
+            logging.getLogger(__name__).debug(
+                "selection-service poll of %s failed: %s: %s",
+                self.url, type(e).__name__, e)
+            self._drop()
+            return None
+
+    close = _drop
+
+
+def _polling_barrier(round_provider=None, selection_url=None,
+                     selection_query=None, round_key="round_idx", **_):
+    if round_provider is None and selection_url:
+        round_provider = WebsocketRoundProvider(
+            selection_url, query=selection_query, round_key=round_key
         )
     return PollingRoundBarrier(round_provider)
 

@@ -20,8 +20,9 @@ on the manager's ``device`` (``"cuda"`` unless the caller asks for the
 CPU). A runner that fails to build or run there fails its job; it is never
 retried on another device, and the job's error lands in the row's
 ``job_error`` column. ``pool=`` takes the port's chip-pool scheduler
-(:class:`~olearning_sim_tpu_torch.taskmgr.pool.PoolScheduler`). Left out
-(ROADMAP A14): the hybrid real-data split.
+(:class:`~olearning_sim_tpu_torch.taskmgr.pool.PoolScheduler`). A hybrid
+task's real dataset is split between its halves before launch
+(:mod:`olearning_sim_tpu_torch.data.hybrid_split`).
 """
 
 from __future__ import annotations
@@ -221,6 +222,8 @@ class TaskManager:
         # deliberately stopped between fence and relaunch, and the release
         # loop must not finalize that transient as STOPPED.
         self._migrating: set = set()
+        # (task_id, data_name) -> staged device-shard path (hybrid split)
+        self._device_paths: dict = {}
         self._lock = threading.RLock()
         self._stop = threading.Event()
         self._threads = []
@@ -457,18 +460,48 @@ class TaskManager:
     def _stage_hybrid_data(self, tc: TaskConfig) -> None:
         """Split real datasets between the halves per the (possibly ILP-
         mutated) allocation (reference HybridDataSplitter,
-        ``utils_runner.py:195-382``). Only target data with
-        ``dataSplitType`` set, a real ``dataPath``, and device rounds > 0
-        need it, and the split is not ported: such a task is refused."""
+        ``utils_runner.py:195-382``): the logical half's ``dataPath`` is
+        rewritten to its disjoint shard, the device shard's path rides to
+        the phone job in ``_device_paths``. Only runs for target data with
+        ``dataSplitType`` set, a real ``dataPath``, and device rounds > 0."""
+        from olearning_sim_tpu_torch.data.hybrid_split import (
+            device_fraction_of,
+            stage_hybrid_split,
+        )
+        from olearning_sim_tpu_torch.storage import make_file_repo
+
         for td in tc.target.targetData:
-            logical = sum(td.allocation.allocationLogicalSimulation)
-            device = sum(td.allocation.allocationDeviceSimulation)
-            frac = device / (logical + device) if logical + device else 0.0
-            if td.dataSplitType and td.dataPath and frac > 0.0:
-                raise ValueError(
-                    f"task {tc.taskID.taskID}: the hybrid split of real dataset "
-                    f"{td.dataPath!r} (dataSplitType) is not ported yet: "
-                    f"ROADMAP.md A14 (real-dataset ingest)")
+            frac = device_fraction_of(td)
+            if not (td.dataSplitType and td.dataPath and frac > 0.0):
+                continue
+            transfer = td.dataTransferType
+            repo = None
+            if transfer != 0:  # not FILE: upload both halves beside the original
+                repo = make_file_repo(transfer)
+            logical_path, device_path = stage_hybrid_split(
+                td.dataPath, frac, transfer_type=transfer, repo=repo,
+            )
+            self._device_paths[(tc.taskID.taskID, td.dataName)] = device_path
+            td.dataPath = logical_path
+            self.logger.info(
+                task_id=tc.taskID.taskID, system_name="TaskMgr",
+                module_name="hybrid",
+                message=f"{td.dataName}: split {frac:.0%} to device half "
+                        f"({device_path}); logical trains on {logical_path}",
+            )
+
+    def _cleanup_hybrid_staging(self, task_id: str) -> None:
+        """Drop the task's staged hybrid shards (paths + local temp files) —
+        releases otherwise leak one entry and two staged zips per task."""
+        import os
+
+        for key in [k for k in self._device_paths if k[0] == task_id]:
+            path = self._device_paths.pop(key)
+            if os.path.isfile(path):
+                try:
+                    os.remove(path)
+                except OSError:
+                    pass
 
     def _submit_device_half(self, tc: TaskConfig) -> bool:
         """Launch the phone (device-simulation) sub-job when the allocation
@@ -487,6 +520,11 @@ class TaskManager:
                     "devices": list(td.totalSimulation.deviceTotalSimulation),
                     "nums": nums,
                 }
+                staged = self._device_paths.get((task_id, td.dataName))
+                if staged:
+                    # The phone job trains on its own disjoint shard
+                    # (hybrid data split), not the full dataset.
+                    entry["data_path"] = staged
                 device_target.append(entry)
         if not device_target:
             return True
@@ -916,6 +954,7 @@ class TaskManager:
             )
             self._task_repo.release_lease(task_id, self.owner_id)
             self._own_jobs.pop(task_id, None)
+            self._cleanup_hybrid_staging(task_id)
             if self._pool is not None:
                 self._pool.on_finished(task_id)
             # Series retention: the finished task's per-task label series
@@ -978,13 +1017,14 @@ class TaskManager:
             if status not in (TaskStatus.PENDING, TaskStatus.RUNNING):
                 # Terminal job whose row another process took over: stand
                 # down — the new owner writes the final status — but OUR
-                # frozen resources are still ours to release
+                # frozen resources and staging are still ours to release
                 # (release_once skips fenced rows and would otherwise leak
                 # them forever).
                 self._own_jobs.pop(task_id, None)
                 self._fenced.add(task_id)
                 if self._resource_manager is not None:
                     self._resource_manager.release_resource(task_id)
+                self._cleanup_hybrid_staging(task_id)
                 if self._pool is not None:
                     self._pool.on_finished(task_id)
                 continue
@@ -997,11 +1037,12 @@ class TaskManager:
             self._launcher.stop_job(job_id)
             self._own_jobs.pop(task_id, None)
             # Hand the row over wholesale: release OUR frozen resources
-            # and never let release_once overwrite the
+            # and staging, and never let release_once overwrite the
             # reclaimer's status with our stopped job's.
             self._fenced.add(task_id)
             if self._resource_manager is not None:
                 self._resource_manager.release_resource(task_id)
+            self._cleanup_hybrid_staging(task_id)
             if self._pool is not None:
                 self._pool.on_finished(task_id)
 

@@ -15,6 +15,9 @@ devices):
   quarantine loop: both ranks keep the same host records, and those equal
   the JAX runner's at dp 2 on its host outputs (the numbers within
   tests/test_torch_runner.py's tolerances);
+- a runner with an external fail-odd operator (tests/test_torch_operators.py's):
+  each client's code runs once a round over the two ranks, as under the
+  JAX runner, and both ranks count what JAX counts;
 - a preempted sharded FedAdam task and a preempted Ditto task resume at dp
   2 bitwise to the uninterrupted dp-2 run; the checkpoint holds the
   optimizer state in its full flat padded layout and the personal state
@@ -28,8 +31,10 @@ The port is handed the JAX runner's init params and its minibatch draws
 run once for the module through tests/test_torch_dp.py's harness, and
 this module imports no JAX at its top, so the children never do."""
 
+import collections
 import contextlib
 import json
+import os
 
 import numpy as np
 import pytest
@@ -39,7 +44,7 @@ import torch_threads  # noqa: F401
 from test_torch_dp import DP, run_ranks
 
 ROUNDS = {"clean": 2, "deadline": 3, "attack": 3, "bridge_mlp": 1, "bridge_bf16": 1,
-          "resume_sharded": 4, "resume_ditto": 3}
+          "external": 2, "resume_sharded": 4, "resume_ditto": 3}
 PREEMPT_AT = 2
 PERSONAL_SALT = 0x0D1770
 BF16_NOISE_RATIO = 1.3
@@ -52,6 +57,7 @@ def _tasks(tmp):
     JAX)."""
     from test_torch_deadline import DEADLINE, robust_task
     from test_torch_defense import ATTACKS
+    from test_torch_operators import _code_dir, _with_external
     from test_torch_runner import task_json
     from test_torch_task_bridge import load, shrink
 
@@ -67,6 +73,11 @@ def _tasks(tmp):
     ckpt = {"directory": str(tmp / "{task_id}"), "every": 1}
     fedadam = {"name": "fedadam", "local_lr": 0.1, "server_lr": 0.01}
     ditto = {"name": "ditto", "local_lr": 0.1, "lam": 0.3}
+    external = _with_external(task_json("dp_external", rounds=ROUNDS["external"]),
+                              _code_dir(tmp, "olearning_sim_tpu_torch"))
+    (tmp / "marks").mkdir()
+    external["operatorflow"]["operators"][1]["logical_simulation"]["operator_params"] = \
+        json.dumps({"mark": str(tmp / "marks")})
     return {
         "clean": (task_json("dp_clean", rounds=ROUNDS["clean"]), None),
         "deadline": (robust_task("dp_deadline", ROUNDS["deadline"],
@@ -77,6 +88,7 @@ def _tasks(tmp):
                                           "payload": payload}]}),
         "bridge_mlp": (shrink(load("fedavg_mnist_mlp")), None),
         "bridge_bf16": (shrink(load("fedavg_mnist_mlp_bf16")), None),
+        "external": (external, None),
         "resume_sharded": (algorithm(robust_task("dp_resume_sharded", ROUNDS["resume_sharded"],
                                                  evaluate=False, checkpoint=ckpt),
                                      fedadam, shard=True), None),
@@ -267,7 +279,8 @@ def _runner_job(rank, world, inp):
 def setup(tmp_path_factory):
     from test_torch_task_bridge import _with_params, engine_params, load, set_engine_params, shrink
 
-    tasks = _tasks(tmp_path_factory.mktemp("dp_ckpt"))
+    tmp = tmp_path_factory.mktemp("dp_ckpt")
+    tasks = _tasks(tmp)
     inp, ref = {}, {}
     # A checkpoint of the port and one of JAX, each written at dp 1.
     from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
@@ -283,6 +296,10 @@ def setup(tmp_path_factory):
         inp.update({f"{case}/p0/{k}": v for k, v in r["p0"].items()})
         for i, (a, b) in enumerate(zip(r["idx"], r["pidx"])):
             inp[f"{case}/idx/{i}"], inp[f"{case}/pidx/{i}"] = a, b
+    # The JAX runner's operator marks apart from the ranks'.
+    (tmp / "marks").rename(tmp / "marks_jax")
+    (tmp / "marks").mkdir()
+    ref["marks"] = tmp
     # The mp-2 config as it computes (bf16) and in f32, both on JAX's bridge
     # at mp 2 from the same init; the port runs the bf16 one.
     mp2 = shrink(load("fedadam_sent140_distilbert_mp2"))
@@ -318,7 +335,7 @@ def _jax_rescale(tmp):
 
 
 # ------------------------------------------------------------------- checks
-HOST_CASES = ("clean", "deadline", "attack", "bridge_mlp", "bridge_bf16")
+HOST_CASES = ("clean", "deadline", "attack", "bridge_mlp", "bridge_bf16", "external")
 
 
 @pytest.mark.parametrize("case", HOST_CASES)
@@ -373,6 +390,23 @@ def test_runner_at_dp2_matches_jax_runner_at_dp2(case, setup):
         assert set(thist[-1]["quarantine_state"]["data_0"]["total"]) == {"0", "5", "8"}
     if case == "deadline":
         assert sum(h["train"]["data_0"]["stragglers"] for h in thist if "train" in h) > 0
+
+
+def test_external_operator_at_dp2_runs_each_client_once(setup):
+    """An external fail-odd operator over two ranks: each rank runs every
+    other client, so each client's code runs once a round (one mark per
+    round and client), as under the JAX runner at dp 2; both ranks count
+    JAX's 6 successes and 6 failures a round."""
+    ranks, ref = setup
+    jext = [h["ext"] for h in json.loads(json.dumps(ref["external"]["history"],
+                                                    default=float))]
+    assert jext == [{"data_0": {"success": 6, "failed": 6}}] * ROUNDS["external"]
+    for r in ranks:
+        assert [h["ext"] for h in json.loads(str(r["external/history"]))] == jext
+    once = {f"{r}_{c}": 1 for r in range(ROUNDS["external"]) for c in range(12)}
+    for marks in ("marks", "marks_jax"):
+        names = os.listdir(ref["marks"] / marks)
+        assert collections.Counter(n.rsplit("_", 1)[0] for n in names) == once, marks
 
 
 @pytest.mark.parametrize("case", ["resume_sharded", "resume_ditto"])

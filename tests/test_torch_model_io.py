@@ -320,9 +320,25 @@ def test_resilient_repo_retries_storage_faults(tmp_path):
 
 
 @pytest.mark.parametrize("kind", ["HTTP", "S3", "MINIO", 1, 2, 3])
-def test_remote_transfer_types_name_a19(kind):
-    with pytest.raises(ValueError, match="ROADMAP.md A19"):
-        make_file_repo(kind)
+def test_remote_transfer_types_name_a19(kind, monkeypatch):
+    """Each remote transfer type (item A19) does what the JAX factory does:
+    HTTP builds its repo, S3 and MinIO without object-store settings raise
+    the JAX factory's ValueError."""
+    from olearning_sim_tpu.storage import FileTransferType
+    from olearning_sim_tpu.storage import make_file_repo as jmake
+
+    for key in ("OLS_STORAGE_ENDPOINT", "OLS_STORAGE_ACCESS_KEY", "OLS_STORAGE_SECRET_KEY",
+                "OLS_STORAGE_BUCKET", "OLS_STORAGE_SECURE"):
+        monkeypatch.delenv(key, raising=False)
+    jkind = FileTransferType(kind) if isinstance(kind, int) else FileTransferType[kind]
+    try:
+        want = type(jmake(jkind)).__name__
+    except ValueError as e:
+        with pytest.raises(ValueError) as got:
+            make_file_repo(kind)
+        assert str(got.value) == str(e) and "OLS_STORAGE_ENDPOINT" in str(e)
+    else:
+        assert type(make_file_repo(kind)).__name__ == want == "HttpFileRepo"
     assert isinstance(make_file_repo(0, root="store"), LocalFileRepo)
     with pytest.raises(ValueError, match="unknown file transfer type"):
         make_file_repo("FTP")

@@ -82,6 +82,11 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.clustermgr import slice_manager, ClusterManager\n"
         "from olearning_sim_tpu_torch.services import session, SimulatorSession\n"
         "from olearning_sim_tpu_torch import config, __main__\n"
+        "from olearning_sim_tpu_torch import data, operators, storage\n"
+        "from olearning_sim_tpu_torch.data import formats, ingest, partition, hybrid_split\n"
+        "from olearning_sim_tpu_torch.operators import base, external\n"
+        "from olearning_sim_tpu_torch.storage import fragment_repo\n"
+        "from olearning_sim_tpu_torch.taskmgr.operator_flow import WebsocketRoundProvider\n"
         "v = validation.validate_task_parameters(codecs.json2taskconfig(\n"
         "    open('configs/fedavg_mnist_mlp.json').read()))\n"
         "assert v == (True, 'Pass'), v\n"
@@ -93,6 +98,26 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_operators_import_leaves_torch_out():
+    """An operator's subprocess imports the port's operators package
+    without torch, or numpy (the package ``__init__`` imports nothing,
+    the operators package only its stdlib base; ``resolve_device`` and
+    ``ExternalOperator`` are reached through module ``__getattr__``s)."""
+    proc = _run(
+        "import sys\n"
+        "import olearning_sim_tpu_torch.operators\n"
+        "from olearning_sim_tpu_torch.operators import OperatorABC\n"
+        "assert 'torch' not in sys.modules, 'torch imported'\n"
+        "assert 'numpy' not in sys.modules, 'numpy imported'\n"
+        "from olearning_sim_tpu_torch.operators import ExternalOperator\n"
+        "assert ExternalOperator.__name__ == 'ExternalOperator'\n"
+        "import olearning_sim_tpu_torch as p\n"
+        "print(p.resolve_device('cpu'))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "cpu"
 
 
 def test_port_sources_name_no_jax():

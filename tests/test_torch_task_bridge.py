@@ -1,11 +1,12 @@
 """The port's task bridge: every input form builds the same runner, every
 configs/*.json builds and runs one tiny round on the CPU (cut by editing
 the loaded JSON only; the mp-2 config on two gloo ranks, and refused at a
-world of one as JAX's mesh refuses one device), every left-out
-engine-params block is refused with its ROADMAP.md item, the checkpoint
-and model blocks build and run, the JAX control plane drives a port runner
-through its runner_factory, and the repaired FedCoreConfig.from_dict
-agrees with the JAX package's."""
+world of one as JAX's mesh refuses one device), an unknown engine-params
+block is refused, a selection_url, a dataPath, external operator code and
+every model transfer type do what the JAX bridge does with them, the
+checkpoint and model blocks build and run, the JAX control plane drives a
+port runner through its runner_factory, and the repaired
+FedCoreConfig.from_dict agrees with the JAX package's."""
 
 import json
 import pathlib
@@ -347,15 +348,33 @@ def test_unknown_model_raises_key_error():
 
 @pytest.mark.parametrize("blocks,item", [
     # dp is the world size, not a key: JAX's ParallelConfig rejects it.
-    ({"parallel": {"dp": 2}}, r"unknown parallel config keys: \['dp'\]"),
-    ({"operator_flow": {"selection_url": "ws://localhost:9"}}, "ROADMAP.md A16"),
-    ({"streaming": {"x": 1}}, "unknown engine params"),
+    pytest.param({"parallel": {"dp": 2}}, r"unknown parallel config keys: \['dp'\]",
+                 id="blocks0-unknown parallel config keys: \\['dp'\\]"),
+    # The websocket round provider (item A16) builds as the JAX bridge's.
+    pytest.param({"operator_flow": {"selection_url": "ws://localhost:9"}}, None,
+                 id="blocks1-ROADMAP.md A16"),
+    pytest.param({"streaming": {"x": 1}}, "unknown engine params",
+                 id="blocks2-unknown engine params"),
 ])
 def test_left_out_blocks_are_refused(blocks, item):
-    with pytest.raises(ValueError, match=item):
-        build_runner_from_taskconfig(_with_params(**blocks), device="cpu")
+    if item is not None:
+        with pytest.raises(ValueError, match=item):
+            build_runner_from_taskconfig(_with_params(**blocks), device="cpu")
+        return
+    from olearning_sim_tpu.taskmgr import operator_flow as jflow
+    from olearning_sim_tpu_torch.taskmgr import operator_flow as tflow
+
+    runner = build_runner_from_taskconfig(_with_params(**blocks), device="cpu")
+    kwargs = runner.operator_flow.strategy_kwargs
+    assert kwargs == blocks["operator_flow"]
+    jbarrier, tbarrier = jflow._polling_barrier(**kwargs), tflow._polling_barrier(**kwargs)
+    for attr in ("url", "query", "round_key", "timeout"):
+        assert getattr(tbarrier.round_provider, attr) == getattr(jbarrier.round_provider, attr)
+    assert type(tbarrier.round_provider).__name__ == "WebsocketRoundProvider"
 
 
+# Each case was a refusal naming its ROADMAP.md item (the ids keep the
+# items); each now does what the JAX package does with the same input.
 @pytest.mark.parametrize("field,value,item", [
     ("model", {"model_update_style": "{task_id}_{round}", "model_transfer_type": "S3"},
      "A19"),
@@ -368,17 +387,42 @@ def test_left_out_blocks_are_refused(blocks, item):
     ("data_path", "s3://bucket/mnist", "A14"),
     ("operator_code_path", "ops/train.zip", "A15"),
 ])
-def test_left_out_task_fields_are_refused(field, value, item):
+def test_left_out_task_fields_are_refused(field, value, item, monkeypatch, tmp_path):
+    from olearning_sim_tpu import storage as jst
+    from olearning_sim_tpu.data import fetch_dataset_dir as jfetch_data
+
+    for key in ("OLS_STORAGE_ENDPOINT", "OLS_STORAGE_ACCESS_KEY", "OLS_STORAGE_SECRET_KEY",
+                "OLS_STORAGE_BUCKET", "OLS_STORAGE_SECURE"):
+        monkeypatch.delenv(key, raising=False)
     task = shrink(load("fedavg_mnist_mlp"))
     op = task["operatorflow"]["operators"][1]
     if field == "model":
         op["model"].update(value)
+        kind = jst.FileTransferType[value["model_transfer_type"] or "S3"]
+        try:
+            want = type(jst.make_file_repo(kind)).__name__
+        except ValueError as e:
+            want = e
     elif field == "data_path":
         task["target"]["data"][0]["data_path"] = value
+        with pytest.raises(FileNotFoundError) as e:
+            jfetch_data(value, 0)  # the config's FILE transfer type
+        want = e.value
     else:
         op["logical_simulation"]["operator_code_path"] = value
-    with pytest.raises(ValueError, match=f"ROADMAP.md {item}"):
-        build_runner_from_taskconfig(task, device="cpu")
+        with pytest.raises(FileNotFoundError) as e:
+            jst.fetch_operator_code(jst.LocalFileRepo(root="/"), value, str(tmp_path))
+        want = e.value
+    if isinstance(want, Exception):
+        with pytest.raises(type(want)) as got:
+            build_runner_from_taskconfig(task, device="cpu")
+        # The port's bridge names the task and operator before the message.
+        assert str(want) in str(got.value)
+        return
+    runner = build_runner_from_taskconfig(task, device="cpu")
+    assert type(runner.model_io.repo).__name__ == want == "HttpFileRepo"
+    assert runner.warm_start_path == value["model_path"]
+
 
 
 def _model_blocks(tmp_path):

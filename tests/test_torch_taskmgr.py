@@ -888,8 +888,16 @@ def test_manager_refuses_cuda_without_a_card_and_hybrid_split(tmp_path):
     mgr = TaskManager(task_repo=repo, resource_manager=rm, schedule_interval=3600,
                       device="cpu")
     assert mgr.submit_task(js)
-    with pytest.raises(ValueError, match="A14"):
+    # The hybrid split (item A14) is staged now; an empty data directory
+    # fails it as it fails the JAX manager's.
+    from olearning_sim_tpu.taskmgr.codecs import json2taskconfig as jjson
+    from olearning_sim_tpu.taskmgr.task_manager import TaskManager as JManager
+
+    with pytest.raises(FileNotFoundError) as want:
+        JManager()._stage_hybrid_data(jjson(js))
+    with pytest.raises(FileNotFoundError) as got:
         mgr._stage_hybrid_data(tcodecs.json2taskconfig(js))
+    assert str(got.value) == str(want.value)
     assert mgr.schedule_once() == "split"
     assert repo.get_item_value("split", "task_status") == "FAILED"
     assert rm.get_resource()["logical_simulation"] == {"cpu": 8.0, "mem": 8.0}
