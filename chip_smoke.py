@@ -20,10 +20,16 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    and the f32 instance's time there.
 4. Main path: two full-width DistilBERT FedAdam rounds (768/12/6/3072,
    vocab 30522, L 64; dense attention) on 16 synthetic clients, then
-   ``evaluate`` on 2048 held-out rows.
-5. Flash evaluate: the same model with ``attention_impl="flash"`` evaluated
-   on the 2048 rows, which must launch K1 6 times per eval batch; one eval
-   batch is checked against the CPU path (plain version).
+   ``evaluate`` on 2048 held-out rows (their tails padded from PAD_SEED).
+5. Flash evaluate: phase 4's model and clients trained from the initial
+   parameters for FLASH_TRAIN_ROUNDS rounds at a local lr of
+   WITNESS_LOCAL_LR (the config's diverges at this width),
+   its q/k/v stacked into the flash layout (``dense_to_flash``), evaluated
+   with ``attention_impl="flash"`` on the 2048 rows, which must launch K1 6
+   times per eval batch; held by its logits: within EVAL_LOGITS_ATOL of the
+   dense model's (its loss within EVAL_LOSS_TOL), the same check failing K1
+   with its key mask dropped and with uniform weights, and one eval batch's
+   logits and loss against the CPU path (plain version).
 6. Long-context path: full-width DistilBERT with ``attention_impl="ring"``,
    ``ring_use_flash=True`` and ``max_len=2048`` on a ring of one (one card),
    on 8 synthetic rows of 2048 tokens with padded tails: two forwards, whose
@@ -145,7 +151,7 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        ``exp(-t/30)`` flow_dispatch strategy live; clients cut 3,500 ->
        128 (RESNET_CLIENTS), 2 of 100 rounds;
     10b ``ditto_cifar100_vit`` likewise, block 32, bf16 personal params,
-       compute profiles 8/5/2 steps; clients cut 10,000 -> 256
+       compute profiles 8/5/2 steps; clients cut 10,000 -> 128
        (VIT_CLIENTS, the config's 3:4:3), 2 of 100 rounds; then
        ``evaluate_personal`` and the personal state's bytes per client;
     10c ``moe_text`` at its registry defaults (vocab 30522, width 256,
@@ -232,9 +238,11 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        equal, the round's move within MP_MOVE_REL of mp 1's, the per-rank
        peak device memory at mp 1 and mp 2 and the bytes handed to each
        collective;
-    14b a flash evaluate at mp 2 (attention whole, FFN split): K1 launched
-       depth x batches times on each rank (counted from 0 on each), the
-       loss within EVAL_LOSS_TOL of mp 1's;
+    14b a flash evaluate at mp 2 (attention whole, FFN split) of phase 5's
+       model on phase 5's rows: K1 launched depth x batches times on each
+       rank (counted from 0 on each), the loss within EVAL_LOSS_TOL of mp
+       1's, the logits within EVAL_LOGITS_ATOL of mp 1's, and the same check
+       failing K1 with its key mask dropped and with uniform weights;
     14c a pp-2 round of full-width DistilBERT (GPipe, M 2): the ranks
        equal, the move within MP_MOVE_REL of the dense round's;
     14d ``ep_train_step`` of ``moe_text`` at ep 2: the move within
@@ -355,11 +363,44 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        storage settings) builds where the package imports and otherwise
        fails at build with an error naming the package.
 
+18. The convergence gate, multi-process launch and elastic rescale (K2 is
+    on this path, in 18b's workers):
+    18a the port's convergence gate (``analysis/convergence_gate.py``): its
+       five entries (clean, async_staleness, attack_trimmed_mean,
+       attack_undefended, drift_trace) run on the card through
+       ``run_convergence_task``, each held within the gate's tolerances of
+       the envelopes the port blessed on the CPU
+       (``analysis/convergence.json``); printed: each entry's accuracies,
+       rounds to target and seconds;
+    18b ``MultiHostLauncher`` worlds of worker processes
+       (``python -m olearning_sim_tpu_torch.clustermgr.worker``):
+       ``smoke_round`` at world 1 over NCCL, and ``smoke_ring_sp`` with
+       ``flash full`` at world 2 over gloo, two ranks sharing the card:
+       DistilBERT at its published widths (768, 12 heads of 64, MLP 3072),
+       depth 2, 4 rows of 2048 tokens with padded tails split over the
+       ranks; its ring steps run K2 in each worker, each worker counts its
+       K2 launches from 0 around the forward and prints them (none fails
+       the phase), and the target holds the ring's logits against the
+       dense model's (3e-2, atol and rtol) and shows the same check failing
+       K2 with its key mask dropped and with uniform weights;
+    18c ``ElasticWorldRunner`` over a slice of two ranks' room on the card:
+       phase 4's full-width DistilBERT FedAdam task (its model, server
+       optimizer state and 16 clients) at world 1, then 2, then 1 over
+       gloo, ELASTIC_SEGMENT_ROUNDS rounds a segment
+       (``targets.elastic_text_segment``, checkpoint-restart through the
+       round checkpointer); held: the worlds, the history's worlds, and the
+       final parameters within ELASTIC_REL of a fixed-world run at dp 1 on
+       the card; printed: ``overhead_summary()`` (spawn, torch import,
+       joining the world, restore, first round and checkpoint seconds per
+       segment: the time to rescale; the step's bytes, the modules the
+       first round imported).
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
-is zeroed again just before 17a's flash evaluate and read just after it.
+is zeroed again just before 17a's flash evaluate and read just after it;
+each 18b worker zeroes and reads its own K2 count around its ring forward.
 The last lines are the
-``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
+script's seconds, the ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Exits non-zero without CUDA.
 """
 
@@ -374,6 +415,8 @@ import subprocess
 import sys
 import time
 from concurrent.futures import ThreadPoolExecutor
+
+STARTED = time.perf_counter()  # the whole script's seconds are printed at its end
 
 # Tolerances of a kernel's o against its plain version: |err| <= ATOL + RTOL*|ref|.
 # bf16: the two round p to bf16 at different running maxima and may round
@@ -421,7 +464,7 @@ DISTILBERT_BLOCK = 16
 # synthetic text clients and its eval batch (moe_text's dispatch tensor is
 # [S, E, capacity], with capacity a share of S, the batch's tokens).
 RESNET_CLIENTS = (64, 64)
-VIT_CLIENTS = (77, 102, 77)
+VIT_CLIENTS = (38, 52, 38)
 MOE_CLIENTS = 64
 MOE_EVAL_BATCH = 256
 # Phase 10d, a family's round on the card against the CPU's. In f32
@@ -724,26 +767,24 @@ def stats_kernel_phase(dev):
 RESULTS = {}
 MAIN_CFG = dict(batch_size=16, max_local_steps=4, block_clients=8)
 MAIN_SEQ_LEN = 64
+# Phase 5 holds K1 by the logits of phase 4's model trained from its
+# initial parameters for FLASH_TRAIN_ROUNDS rounds at WITNESS_LOCAL_LR,
+# over eval rows whose tails are padded from PAD_SEED (14b reuses both).
+FLASH_TRAIN_ROUNDS = 8
+PAD_SEED = 5
 
 
 def _host(params):
     return {k: v.detach().cpu().clone() for k, v in params.items()}
 
 
-def distilbert_setup(dev, plan):
-    """Phase 4's full-width DistilBERT FedAdam core on ``plan`` and its 16
-    synthetic clients (block 8), this rank's shard placed."""
-    from olearning_sim_tpu_torch.engine import (
-        FedCoreConfig,
-        build_fedcore,
-        fedadam,
-        make_synthetic_text_dataset,
-    )
+def distilbert_setup(dev, plan, local_lr=0.01):
+    """Phase 4's full-width DistilBERT FedAdam core on ``plan`` (at
+    ``local_lr``, the config's 0.01 by default) and its 16 synthetic
+    clients (block 8), this rank's shard placed: 18c's elastic task."""
+    from olearning_sim_tpu_torch.clustermgr.targets import text_core
 
-    cfg = FedCoreConfig(**MAIN_CFG)
-    ds = make_synthetic_text_dataset(0, 16, 24, MAIN_SEQ_LEN, dirichlet_alpha=0.8)
-    ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
-    return build_fedcore("distilbert", fedadam(0.01, 0.001), cfg, device=dev, plan=plan), ds
+    return text_core(plan, dev, local_lr)
 
 
 def distilbert_rounds(dev, label):
@@ -778,21 +819,31 @@ def distilbert_rounds(dev, label):
     return core, state, times
 
 
+def padded_eval_set(n, vocab_size=30522):
+    """Phase 5's (and 14b's) held-out rows: ``make_central_text_eval_set``'s
+    with seeded padded tails (row i keeps its first 8 to 64 tokens), so
+    what K1 computes depends on its key mask."""
+    import numpy as np
+
+    from olearning_sim_tpu_torch.engine import make_central_text_eval_set
+
+    x, y = make_central_text_eval_set(0, n, MAIN_SEQ_LEN, vocab_size=vocab_size)
+    keep = np.random.default_rng(PAD_SEED).integers(8, MAIN_SEQ_LEN + 1, size=n)
+    return np.where(np.arange(MAIN_SEQ_LEN)[None, :] < keep[:, None], x, 0).astype(x.dtype), y
+
+
 def main_path(dev):
     """Phases 4 and 5; returns K1's launches in them."""
     import torch
 
-    from olearning_sim_tpu_torch.engine import (
-        FedCoreConfig,
-        build_fedcore,
-        fedadam,
-        make_central_text_eval_set,
-    )
+    from olearning_sim_tpu_torch.engine import FedCoreConfig, build_fedcore, fedadam
     from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
 
     cfg = FedCoreConfig(**MAIN_CFG)
-    seq_len, eval_n = MAIN_SEQ_LEN, 2048
-    x_eval, y_eval = make_central_text_eval_set(0, eval_n, seq_len)
+    eval_n = 2048
+    x_eval, y_eval = padded_eval_set(eval_n)
+    card = card_line()
 
     flash_attention.launches = flash_attention_stats.launches = 0
     core, state, times = distilbert_rounds(dev, "round")
@@ -805,15 +856,34 @@ def main_path(dev):
     if not math.isfinite(loss):
         raise AssertionError("dense evaluate loss is not finite")
 
+    # The model K1 is held by: phase 4's model and population trained from
+    # its initial parameters at the witness's local rate (the config's
+    # diverges at this width, and a model it trained leaves attention near
+    # uniform), so that wrong kernels move its logits.
+    wcore, wds = distilbert_setup(dev, make_mesh_plan(), local_lr=WITNESS_LOCAL_LR)
+    state = wcore.init_state(seed=0, device=dev)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    for _ in range(FLASH_TRAIN_ROUNDS):
+        state, _ = wcore.round_step(state, wds)
+    torch.cuda.synchronize()
+    t_train = time.perf_counter() - t0
+    dloss, dacc = wcore.evaluate(state.params, x_eval, y_eval)
+    dense_logits = eval_logits(wcore, state.params, x_eval)
+    log(f"5 trained: {FLASH_TRAIN_ROUNDS} rounds at local lr {WITNESS_LOCAL_LR:g} from the "
+        f"initial parameters in {t_train:.2f} s; dense evaluate loss={dloss:.6f} "
+        f"acc={dacc:.4f}, logits max|.| {float(dense_logits.abs().max()):.3f} | {card}")
+
     flash_core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg,
                                model_overrides={"attention_impl": "flash"}, device=dev)
-    fstate = flash_core.init_state(seed=0, device=dev)
+    trained = dense_to_flash(state.params)
+    RESULTS["5"] = {"flash": _host(trained)}
     before = flash_attention.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
-    floss, facc = flash_core.evaluate(fstate.params, x_eval, y_eval)
+    floss, facc = flash_core.evaluate(trained, x_eval, y_eval)
     log(f"flash evaluate on {eval_n}: loss={floss:.6f} acc={facc:.4f} "
-        f"seconds={time.perf_counter() - t0:.4f}")
+        f"seconds={time.perf_counter() - t0:.4f} (dense {dloss:.6f} / {dacc:.4f})")
     launches = flash_attention.launches
     batches = -(-eval_n // cfg.eval_batch_size)
     depth = len(flash_core.model.blocks)
@@ -821,19 +891,23 @@ def main_path(dev):
         raise AssertionError(
             f"flash kernel launched {launches - before} times, expected "
             f"{depth} layers x {batches} eval batches")
-    if not math.isfinite(floss):
-        raise AssertionError("flash evaluate loss is not finite")
+    if not (math.isfinite(floss) and abs(floss - dloss) <= EVAL_LOSS_TOL):
+        raise AssertionError("flash evaluate loss is not finite or not the dense one's")
+    # Compare launches from here on: the count was read.
+    hold_k1_by_logits("5", flash_core, trained, x_eval, dense_logits, card)
 
-    # One eval batch, kernel on the card vs plain version on the CPU
-    # (compare launches after the count was read: they do not count).
+    # One eval batch, kernel on the card vs plain version on the CPU.
     n_cmp = 64
-    gpu_loss, _ = flash_core.evaluate(fstate.params, x_eval[:n_cmp], y_eval[:n_cmp])
-    cpu_params = {k: v.cpu() for k, v in fstate.params.items()}
+    gpu_loss, _ = flash_core.evaluate(trained, x_eval[:n_cmp], y_eval[:n_cmp])
+    cpu_params = {k: v.cpu() for k, v in trained.items()}
     cpu_loss, _ = flash_core.evaluate(cpu_params, x_eval[:n_cmp], y_eval[:n_cmp])
     diff = abs(gpu_loss - cpu_loss)
+    cdiff = float((eval_logits(flash_core, trained, x_eval[:n_cmp]).cpu()
+                   - eval_logits(flash_core, cpu_params, x_eval[:n_cmp])).abs().max())
     log(f"flash eval batch of {n_cmp}: card loss {gpu_loss:.6f}, CPU path loss "
-        f"{cpu_loss:.6f}, |diff| {diff:.3e} (tol {EVAL_LOSS_TOL:g})")
-    if not diff <= EVAL_LOSS_TOL:
+        f"{cpu_loss:.6f}, |diff| {diff:.3e} (tol {EVAL_LOSS_TOL:g}); logits max|card - CPU "
+        f"path| {cdiff:.3e} (tol {EVAL_LOGITS_ATOL:g})")
+    if not (diff <= EVAL_LOSS_TOL and cdiff <= EVAL_LOGITS_ATOL):
         raise AssertionError("flash evaluate on the card disagrees with the CPU path")
     return launches
 
@@ -2740,7 +2814,7 @@ def dp_path(dev, shrink=None):
 # Phase 14: model parallelism. 14a runs fedadam_sent140_distilbert_mp2 with
 # its clients cut to MP_CLIENTS and its block (64, which does not fit one
 # card even at mp 1: A18) to MP_BLOCK.
-MP_CLIENTS = (32,)
+MP_CLIENTS = (16,)
 MP_BLOCK = 16
 # 14c: a pipelined round of full-width DistilBERT (pp 2, M 2).
 PP_CLIENTS, PP_BLOCK, PP_STEPS = 8, 4, 2
@@ -2853,22 +2927,27 @@ def _mp_rank(rank, world, store_path, out_dir, dev_type, shrink, small):
                           "seconds": time.perf_counter() - t0,
                           "sharded": runner.core.tp_sharded_ratio}
             del runner
-            # 14b: a flash evaluate at mp 2, K1 on every rank.
+            # 14b: a flash evaluate at mp 2, K1 on every rank, of phase 5's
+            # trained model; held by its logits against mp 1's.
             plan = make_mesh_plan(mp=2)
             core = _flash_core(dev, plan, small)
-            fstate = core.init_state(seed=0, device=dev)
+            ref = torch.load(os.path.join(out_dir, "14b.pt"), weights_only=False)
+            fparams = {k: v.to(dev) for k, v in ref["params"].items()}
             x_eval, y_eval = _eval_set(small)
             collectives.reset_bytes()
             flash_attention.launches = 0
             _sync(dev)
             t0 = time.perf_counter()
-            loss, acc = core.evaluate(fstate.params, x_eval, y_eval)
+            loss, acc = core.evaluate(fparams, x_eval, y_eval)
             _sync(dev)
             out["14b"] = {"loss": loss, "acc": acc, "launches": flash_attention.launches,
                           "seconds": time.perf_counter() - t0, "bytes": dict(collectives.BYTES),
                           "depth": len(core.model.blocks),
                           "batches": -(-len(y_eval) // core.config.eval_batch_size)}
-            del core, fstate
+            out["14b"]["moves"] = hold_k1_by_logits(
+                f"14b rank {rank}", core, fparams, x_eval, ref["logits"], ref["card"],
+                wrong_must_fail=ref["trained"])
+            del core, fparams
             # 14c: a pipelined round.
             if dev.type == "cuda":
                 torch.cuda.reset_peak_memory_stats(dev)
@@ -2904,11 +2983,9 @@ def _mp_rank(rank, world, store_path, out_dir, dev_type, shrink, small):
 
 
 def _eval_set(small):
-    from olearning_sim_tpu_torch.engine import make_central_text_eval_set
-
-    vocab = small.get("distilbert", {}).get("vocab_size", 30522)
-    return make_central_text_eval_set(0, small.get("eval_n", 2048), MAIN_SEQ_LEN,
-                                      vocab_size=vocab)
+    """14b's rows: phase 5's (narrowed by ``small`` in a rehearsal)."""
+    return padded_eval_set(small.get("eval_n", 2048),
+                           small.get("distilbert", {}).get("vocab_size", 30522))
 
 
 def _flash_core(dev, plan, small):
@@ -2957,9 +3034,17 @@ def mp_path(dev, shrink=None, small=None):
     small = small or {}
     a_ref = {"params": _host(ref.states["data_0"].params), "peak": _peak(dev)}
     del ref
+    # 14b's model: phase 5's trained one (a rehearsal that skipped phase 5
+    # evaluates an untrained one, which wrong kernels need not fail).
     core = _flash_core(dev, one, small)
     x_eval, y_eval = _eval_set(small)
-    b_ref = core.evaluate(core.init_state(seed=0, device=dev).params, x_eval, y_eval)
+    trained = "5" in RESULTS
+    bparams = ({k: v.to(dev) for k, v in RESULTS["5"]["flash"].items()} if trained
+               else core.init_state(seed=0, device=dev).params)
+    b_ref = core.evaluate(bparams, x_eval, y_eval)
+    b_in = {"params": _host(bparams), "logits": eval_logits(core, bparams, x_eval).cpu(),
+            "card": card, "trained": trained and dev.type == "cuda"}
+    del bparams
     core, ds = _pp_setup(dev, one, small)
     state = core.init_state(seed=0, device=dev)
     c_p0 = _host(state.params)
@@ -2981,6 +3066,8 @@ def mp_path(dev, shrink=None, small=None):
 
     world = 2
     with tempfile.TemporaryDirectory(prefix="chip_smoke_14_") as work:
+        torch.save(b_in, f"{work}/14b.pt")
+        del b_in
         t0 = time.perf_counter()
         ctx = tmp.start_processes(_mp_rank, args=(world, f"{work}/store", work, dev.type,
                                                   shrink, small),
@@ -3021,6 +3108,9 @@ def mp_path(dev, shrink=None, small=None):
             raise AssertionError(f"14b rank {r}: K1 launched {b['launches']} times")
         if not abs(b["loss"] - b_ref[0]) <= EVAL_LOSS_TOL:
             raise AssertionError(f"14b rank {r}: the mp-2 loss differs from mp 1's")
+        log(f"14b rank {r}: wrong kernels move the mp-2 logits by "
+            + ", ".join(f"{w} {m:.3e} ({m / EVAL_LOGITS_ATOL:.1f}x the tolerance)"
+                        for w, m in b["moves"].items()) + f" | {card}")
     c = r0["14c"]
     log(f"14c pp 2: mean_loss={c['loss']:.6f} (pp 1 {c_ref['loss']:.6f}), {c['seconds']:.1f} s, "
         f"peak {gib(c['peak'])}, bytes { {k: v for k, v in c['bytes'].items() if v} }")
@@ -3876,16 +3966,53 @@ def dense_to_flash(params):
 
 def eval_logits(core, params, x):
     """The f32 logits of ``core``'s model over ``x`` in its eval batches, as
-    :meth:`FedCore.evaluate` computes them (one rank)."""
+    :meth:`FedCore.evaluate` computes them (this rank's shards under mp)."""
     import torch
     from torch.func import functional_call
 
     dev = next(iter(params.values())).device
     bs = core.config.eval_batch_size
+    local, kw = core._to_carry(params), core._forward_kwargs()
     with torch.no_grad():
-        return torch.cat([functional_call(core.model, params,
-                                          (torch.as_tensor(x[i:i + bs]).to(dev),)).float()
+        return torch.cat([functional_call(core._module(), local,
+                                          (torch.as_tensor(x[i:i + bs]).to(dev),), kw).float()
                           for i in range(0, len(x), bs)])
+
+
+def hold_k1_by_logits(label, flash_core, params, x, want, card, wrong_must_fail=True):
+    """K1 held by logits: the flash model's logits over ``x`` within
+    EVAL_LOGITS_ATOL of ``want`` (the dense model's, or the flash model's at
+    mp 1), and the same check failing two wrong kernels: K1 with its key
+    mask dropped (padding attended) and with uniform weights (scores
+    zeroed). Their launches are not counted: callers read K1's count first.
+    Returns each wrong kernel's distance."""
+    import torch
+
+    from olearning_sim_tpu_torch.models import transformer
+
+    got = eval_logits(flash_core, params, x)
+    want = want.to(got.device)
+    diff = float((got - want).abs().max())
+    log(f"{label} logits max|flash - reference| {diff:.3e} over {len(x)} rows (tol "
+        f"{EVAL_LOGITS_ATOL:g}, reference max|.| {float(want.abs().max()):.3f}) | {card}")
+    if not (bool(torch.isfinite(got).all()) and diff <= EVAL_LOGITS_ATOL):
+        raise AssertionError(f"{label}: the flash logits disagree with the reference")
+    real_k1 = transformer.flash_attention
+    wrong = {"key mask dropped": lambda q, k, v, kv_mask=None: real_k1(q, k, v),
+             "uniform weights": lambda q, k, v, kv_mask=None: real_k1(q * 0, k, v,
+                                                                      kv_mask=kv_mask)}
+    moves = {}
+    for what, k1 in wrong.items():
+        transformer.flash_attention = k1
+        try:
+            moves[what] = float((eval_logits(flash_core, params, x) - want).abs().max())
+        finally:
+            transformer.flash_attention = real_k1
+        log(f"{label} with K1's {what}: logits max|flash - reference| {moves[what]:.3e}, "
+            f"{moves[what] / EVAL_LOGITS_ATOL:.1f}x the tolerance")
+        if wrong_must_fail and not moves[what] > EVAL_LOGITS_ATOL:
+            raise AssertionError(f"{label}: the logits check does not catch K1's {what}")
+    return moves
 
 
 class _HttpServer:
@@ -3931,7 +4058,6 @@ def ingest_path(dev, shrink=None):
     from olearning_sim_tpu_torch.data.partition import partition
     from olearning_sim_tpu_torch.engine import FedCoreConfig, build_fedcore, fedadam
     from olearning_sim_tpu_torch.engine.task_bridge import build_runner_from_taskconfig
-    from olearning_sim_tpu_torch.models import transformer
     from olearning_sim_tpu_torch.operators import external
     from olearning_sim_tpu_torch.ops import flash_attention
     from olearning_sim_tpu_torch.phonemgr import SimulatedPhoneFarm
@@ -4029,34 +4155,15 @@ def ingest_path(dev, shrink=None):
     launches = flash_attention.launches
     depth = len(flash_core.model.blocks)
     batches = -(-len(ey) // flash_core.config.eval_batch_size)
-    flash_logits = eval_logits(flash_core, trained, ex)
-    diff = float((flash_logits - dense_logits).abs().max())
     log(f"17a flash evaluate of the witness's model on the archive's {len(ey)} test rows: "
         f"loss={floss:.6f} acc={facc:.4f} seconds={t_eval:.4f}; dense loss={dloss:.6f} "
-        f"acc={dacc:.4f}; logits max|flash - dense| {diff:.3e} (tol {EVAL_LOGITS_ATOL:g}, "
-        f"dense logits max|.| {float(dense_logits.abs().max()):.3f}); K1 launches {launches} "
-        f"(depth {depth} x {batches} eval batches) | {card}")
+        f"acc={dacc:.4f}; K1 launches {launches} (depth {depth} x {batches} eval batches) "
+        f"| {card}")
     if dev.type == "cuda" and launches != depth * batches:
         raise AssertionError(f"17a: K1 launched {launches} times, expected {depth * batches}")
-    if not (bool(torch.isfinite(flash_logits).all()) and diff <= EVAL_LOGITS_ATOL
-            and abs(floss - dloss) <= EVAL_LOSS_TOL):
+    if not abs(floss - dloss) <= EVAL_LOSS_TOL:
         raise AssertionError("17a: the flash evaluate disagrees with the dense one")
-    # Two wrong kernels this check must catch: the key mask dropped (padding
-    # attended) and uniform weights (scores zeroed).
-    real_k1 = transformer.flash_attention
-    wrong = {"key mask dropped": lambda q, k, v, kv_mask=None: real_k1(q, k, v),
-             "uniform weights": lambda q, k, v, kv_mask=None: real_k1(q * 0, k, v,
-                                                                      kv_mask=kv_mask)}
-    for what, k1 in wrong.items():
-        transformer.flash_attention = k1
-        try:
-            moved = float((eval_logits(flash_core, trained, ex) - dense_logits).abs().max())
-        finally:
-            transformer.flash_attention = real_k1
-        log(f"17a with K1's {what}: logits max|flash - dense| {moved:.3e}, "
-            f"{moved / EVAL_LOGITS_ATOL:.1f}x the tolerance")
-        if not moved > EVAL_LOGITS_ATOL:
-            raise AssertionError(f"17a: the logits check does not catch K1's {what}")
+    hold_k1_by_logits("17a", flash_core, trained, ex, dense_logits, card)
     n_cmp = min(64, len(ey))
     card_logits = eval_logits(flash_core, trained, ex[:n_cmp])
     cpu_logits = eval_logits(flash_core, {k: v.cpu() for k, v in trained.items()}, ex[:n_cmp])
@@ -4115,20 +4222,27 @@ def ingest_path(dev, shrink=None):
     want = {"success": (real + 1) // 2, "failed": real // 2}
     if any(c != want for c in counts):
         raise AssertionError(f"17b: the external operator's counts are not {want}")
-    # What one of those subprocesses costs, one at a time (median of 3).
+    # The run's end removed the operator's fetched code and save root.
     op = runner_b.operators[-1].custom_fn
-    entry = [os.path.join(op.code_dir, op.entry_file), "--params",
+    if os.path.exists(op.code_dir) or os.path.exists(op.save_dir):
+        raise AssertionError("17b: the finished run left its operator's scratch directories")
+    # What one of those subprocesses costs, one at a time (median of 3), from
+    # a copy of the operator's code.
+    probe = os.path.join(tmp.name, "probe_code")
+    with zipfile.ZipFile(code_zip) as zf:
+        zf.extractall(probe)
+    entry = [os.path.join(probe, op.entry_file), "--params",
              json.dumps(op._batch_params("t", 0, EXT_OP, "data_0", [0],
                                          os.path.join(tmp.name, "probe")))]
     starts = {}
+    # (A fresh process's torch import is timed by each 18c segment.)
     for what, argv in (("bare interpreter", ["-c", "pass"]),
                        ("import numpy", ["-c", "import numpy"]),
-                       ("import torch", ["-c", "import torch"]),
                        ("the operator's entry", entry)):
         secs = []
         for _ in range(3):
             t0 = time.perf_counter()
-            subprocess.run([sys.executable] + argv, cwd=op.code_dir, capture_output=True)
+            subprocess.run([sys.executable] + argv, cwd=probe, capture_output=True)
             secs.append(time.perf_counter() - t0)
         starts[what] = sorted(secs)[1]
     log("17b one subprocess at a time, median of 3: "
@@ -4257,6 +4371,134 @@ def _transfer_edit(kind):
     return edit
 
 
+ELASTIC_SEGMENT_ROUNDS = 2
+ELASTIC_WORLDS = (1, 2, 1)
+# 18c: the rescaled run against the fixed world, relative L2 over all
+# parameters (the same draws; dp 2 sums the clients' deltas in another
+# order).
+ELASTIC_REL = 1e-5
+LAUNCH_TIMEOUT_S = 300
+TARGETS = "olearning_sim_tpu_torch.clustermgr.targets"
+
+
+def cluster_path(dev):
+    """Phase 18: the convergence gate on the card, worlds of worker
+    processes (K2 in 18b's ring workers) and an elastic 1-2-1 rescale. On
+    the CPU (a rehearsal) the worlds run there, over gloo."""
+    import torch
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    gate_on_card(dev, card)
+    if dev.type == "cuda":
+        # The workers share the card with this process: hand back what its
+        # allocator caches from earlier phases.
+        torch.cuda.empty_cache()
+    worlds_on_card(dev, card)
+    elastic_on_card(dev, card)
+    log(f"phase 18 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
+def gate_on_card(dev, card):
+    """18a: the gate's entries on ``dev`` against the CPU-blessed envelopes."""
+    from olearning_sim_tpu_torch.analysis import convergence_gate as gate
+
+    env = gate.load_envelopes()
+    problems = []
+    for name in gate.GATE_ENTRIES:
+        t0 = time.perf_counter()
+        rec = gate.run_entry(name, device=dev)
+        secs = time.perf_counter() - t0
+        want = env["entries"][name]
+        found = gate.compare(name, rec, want, env.get("tolerances"))
+        problems += found
+        log(f"18a {name}: final_accuracy {rec['final_accuracy']:.4f} (CPU-blessed "
+            f"{want['final_accuracy']:.4f}), best {rec['best_accuracy']:.4f} "
+            f"({want['best_accuracy']:.4f}), at round budget "
+            f"{rec['accuracy_at_round_budget']:.4f} ({want['accuracy_at_round_budget']:.4f}), "
+            f"reached {rec['reached']} ({want['reached']}), rounds_to_target "
+            f"{rec['rounds_to_target']} ({want['rounds_to_target']}), {secs:.2f} s"
+            f"{' FINDINGS ' + str(found) if found else ''} | {card}")
+    if problems:
+        raise AssertionError(f"18a: the convergence gate fails on the card: {problems}")
+
+
+def worlds_on_card(dev, card):
+    """18b: worlds of worker processes, K2 in the ring workers."""
+    from olearning_sim_tpu_torch.clustermgr import MultiHostLauncher
+
+    t0 = time.perf_counter()
+    one = MultiHostLauncher(1, coordinator_port=_free_port(), platform=dev.type)
+    res = one.launch(f"{TARGETS}:smoke_round", timeout=LAUNCH_TIMEOUT_S)
+    log(f"18b smoke_round, world 1 over {one.backend}, {time.perf_counter() - t0:.1f} s: "
+        f"{res[0].stdout.strip().splitlines()[-1]} | {card}")
+    t0 = time.perf_counter()
+    res = MultiHostLauncher(2, coordinator_port=_free_port(), platform=dev.type,
+                            backend="gloo").launch(f"{TARGETS}:smoke_ring_sp",
+                                                   args=["flash", "full"],
+                                                   timeout=LAUNCH_TIMEOUT_S)
+    wall = time.perf_counter() - t0
+    for rank, r in enumerate(res):
+        lines = [ln for ln in r.stdout.splitlines() if ln.startswith("smoke_ring_sp ")]
+        line = [ln for ln in lines if ln.startswith("smoke_ring_sp ok")][-1]
+        launches = int(re.search(r"K2 launches=(\d+)", line)[1])
+        for ln in lines:
+            log(f"18b world 2 over gloo on one card, rank {rank}: {ln} | {card}")
+        if dev.type == "cuda" and not launches:
+            raise AssertionError(f"18b rank {rank}: the ring ran no K2 launch")
+    log(f"18b smoke_ring_sp world of 2: {wall:.1f} s")
+
+
+def elastic_on_card(dev, card):
+    """18c: phase 4's DistilBERT FedAdam task, world 1 -> 2 -> 1, two ranks
+    sharing the card when the slice holds two, against a fixed-world run at
+    dp 1."""
+    import os
+    import tempfile
+
+    from olearning_sim_tpu_torch.checkpoint import RoundCheckpointer
+    from olearning_sim_tpu_torch.clustermgr import ClusterManager, ElasticWorldRunner
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
+
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_18_") as work:
+        mgr = ClusterManager(devices=[dev] * max(ELASTIC_WORLDS))
+        mgr.create_slice("elastic", ELASTIC_WORLDS[0], user_id="chip_smoke")
+        runner = ElasticWorldRunner(
+            mgr, "elastic", os.path.join(work, "ckpt"), target=f"{TARGETS}:elastic_text_segment",
+            segment_rounds=ELASTIC_SEGMENT_ROUNDS,
+            coordinator_port=_free_port(), segment_timeout=LAUNCH_TIMEOUT_S,
+            platform=dev.type, backend="gloo")
+
+        def controller(segment, _done):
+            runner.request_rescale(ELASTIC_WORLDS[segment])
+
+        total = ELASTIC_SEGMENT_ROUNDS * len(ELASTIC_WORLDS)
+        t0 = time.perf_counter()
+        worlds = runner.run(total_rounds=total, between_segments=controller)
+        wall = time.perf_counter() - t0
+        plan = make_mesh_plan()
+        core, ds = distilbert_setup(dev, plan)
+        cp = RoundCheckpointer(os.path.join(work, "ckpt"))
+        got = cp.restore({"d": core.init_state(seed=0, device=dev)}, {})
+        cp.close()
+    if worlds != list(ELASTIC_WORLDS) or got is None:
+        raise AssertionError(f"18c: worlds {worlds}, checkpoint {'found' if got else 'missing'}")
+    _, states, _, hist = got
+    seen = [h["world"] for h in hist]
+    want_worlds = [w for w in ELASTIC_WORLDS for _ in range(ELASTIC_SEGMENT_ROUNDS)]
+    state = core.init_state(seed=0, device=dev)
+    for _ in range(total):
+        state, _ = core.round_step(state, ds)
+    rel = _rel_l2(_host(states["d"].params), _host(state.params))
+    summary = runner.overhead_summary()
+    log(f"18c elastic worlds {worlds} over {total} rounds in {wall:.1f} s; history worlds "
+        f"{seen}; final params vs the fixed world at dp 1: relative L2 {rel:.3e} (limit "
+        f"{ELASTIC_REL:g}) | {card}")
+    log(f"18c overhead_summary: {json.dumps(summary)} | {card}")
+    if seen != want_worlds or not rel <= ELASTIC_REL:
+        raise AssertionError("18c: the elastic run differs from the fixed world")
+
+
 def main() -> int:
     import torch
 
@@ -4288,6 +4530,8 @@ def main() -> int:
     control_path(dev)
     platform_path(dev)
     ingest_path(dev)
+    cluster_path(dev)
+    log(f"chip_smoke seconds: {time.perf_counter() - STARTED:.1f}")
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {

@@ -8,12 +8,16 @@ re-upload both halves. The rebuild does the same through the
 :mod:`formats`/:mod:`ingest` parsers, staging each half as an NPZ zip next
 to the original archive (``<base>_logical.zip`` / ``<base>_device.zip``).
 
-A copy of the JAX package's ``data/hybrid_split.py``.
+A copy of the JAX package's ``data/hybrid_split.py``, but for its temporary
+directories: one that staged uploaded halves is removed after the upload,
+and one holding local halves is the caller's to remove (the task manager
+removes it when it releases the task).
 """
 
 from __future__ import annotations
 
 import os
+import shutil
 import tempfile
 import zipfile
 from typing import Any, Optional, Tuple
@@ -69,32 +73,40 @@ def stage_hybrid_split(
     With a ``repo`` (FileRepo), the halves are uploaded next to the
     original (``<base>_logical.zip``/``<base>_device.zip``) — the
     reference's re-zip-and-re-upload step. Without one, they are staged
-    as local files (single-host mode), under ``dest_prefix`` when given.
+    as local files (single-host mode), under ``dest_prefix`` when given,
+    else in a new temporary directory that is the caller's to remove (the
+    halves' directory). A temporary directory that staged uploaded halves
+    is removed once they are uploaded (the JAX package keeps both).
     """
     x, y, writer = ingest.load_arrays(
         data_path, "train", transfer_type, storage_settings
     )
     li, di = stratified_split_indices(y, device_fraction, seed)
     base = data_path[:-4] if data_path.endswith(".zip") else data_path
+    staging = None
     if dest_prefix is None:
-        dest_prefix = os.path.join(
-            tempfile.mkdtemp(prefix="olshybrid_"), os.path.basename(base)
-        )
+        staging = tempfile.mkdtemp(prefix="olshybrid_")
+        dest_prefix = os.path.join(staging, os.path.basename(base))
     local_logical = f"{dest_prefix}_logical.zip"
     local_device = f"{dest_prefix}_device.zip"
-    _write_npz_zip(local_logical, x[li], y[li],
-                   writer[li] if writer is not None else None)
-    _write_npz_zip(local_device, x[di], y[di],
-                   writer[di] if writer is not None else None)
-    if repo is None:
-        return local_logical, local_device
-    remote_logical = f"{base}_logical.zip"
-    remote_device = f"{base}_device.zip"
-    if not repo.upload_file(local_logical, remote_logical):
-        raise IOError(f"failed to upload logical share to {remote_logical}")
-    if not repo.upload_file(local_device, remote_device):
-        raise IOError(f"failed to upload device share to {remote_device}")
-    return remote_logical, remote_device
+    try:
+        _write_npz_zip(local_logical, x[li], y[li],
+                       writer[li] if writer is not None else None)
+        _write_npz_zip(local_device, x[di], y[di],
+                       writer[di] if writer is not None else None)
+        if repo is None:
+            staging = None  # the caller's now
+            return local_logical, local_device
+        remote_logical = f"{base}_logical.zip"
+        remote_device = f"{base}_device.zip"
+        if not repo.upload_file(local_logical, remote_logical):
+            raise IOError(f"failed to upload logical share to {remote_logical}")
+        if not repo.upload_file(local_device, remote_device):
+            raise IOError(f"failed to upload device share to {remote_device}")
+        return remote_logical, remote_device
+    finally:
+        if staging is not None:
+            shutil.rmtree(staging, ignore_errors=True)
 
 
 def device_fraction_of(td) -> float:

@@ -1,8 +1,6 @@
 """Convergence observability: time-to-accuracy tracking for the round loop.
 
-A copy of the JAX package's ``engine/convergence.py`` (numpy-free, standard
-library only), without its bench harness ``run_convergence_task``
-(``ROADMAP.md`` A11):
+A port of the JAX package's ``engine/convergence.py``:
 
 - :class:`ConvergenceConfig` — eval cadence, target accuracy, and
   fixed-round / fixed-simulated-second budgets (engine params
@@ -12,15 +10,19 @@ library only), without its bench harness ``run_convergence_task``
   accuracy and accuracy-at-budget in simulated AND wall time. Tracker
   state rides per-round history records, and so checkpoint meta, so a
   resumed run replays the identical record
-  (``SimulationRunner._reconverge``).
+  (``SimulationRunner._reconverge``);
+- :func:`run_convergence_task` — the harness behind the convergence gate
+  (``analysis/convergence_gate.py``): one (family x engine-config)
+  convergence run end-to-end through the port's ``SimulationRunner``, on
+  the card unless the caller asks for the CPU.
 
 Determinism contract: everything in the tracker's record is a pure
 function of (config, seeds, round) EXCEPT the ``wall_*`` fields, which
 are measured host wall-clock. Once committed to checkpoint meta they
 rehydrate bitwise on resume (a resumed run never re-measures committed
 rounds), but two independent runs never agree on them —
-:func:`strip_wall` yields the deterministic sub-record the bitwise tests
-compare.
+:func:`strip_wall` yields the deterministic sub-record the gate and the
+bitwise tests compare.
 """
 
 from __future__ import annotations
@@ -279,3 +281,172 @@ class ConvergenceTracker:
         for k in ("sim_seconds_to_target", "wall_seconds_to_target"):
             v = last.get(k)
             setattr(self, k, None if v is None else float(v))
+
+
+# --------------------------------------------------------------- harness
+def run_convergence_task(
+    *,
+    name: str,
+    seed: int = 0,
+    num_clients: int = 96,
+    n_local: int = 8,
+    input_shape=(16,),
+    num_classes: int = 4,
+    class_sep: float = 1.2,
+    eval_n: int = 512,
+    rounds: int = 12,
+    batch: int = 4,
+    local_steps: int = 2,
+    block_clients: int = 16,
+    hidden=(16,),
+    local_lr: float = 0.1,
+    convergence: Optional[Dict[str, Any]] = None,
+    deadline: Optional[Dict[str, Any]] = None,
+    async_config: Optional[Dict[str, Any]] = None,
+    defense: Optional[Dict[str, Any]] = None,
+    attack: Optional[Dict[str, Any]] = None,
+    scenario: Optional[Dict[str, Any]] = None,
+    streamed: bool = False,
+    task_id: Optional[str] = None,
+    registry=None,
+    perf=None,
+    device="cuda",
+) -> Dict[str, Any]:
+    """One (family x engine-config) convergence run end-to-end through a
+    :class:`~olearning_sim_tpu_torch.engine.runner.SimulationRunner`, the
+    JAX package's harness over the port: learnable synthetic blob
+    population + held-out eval set (the same arrays for the same seed),
+    fixed seeds, and the engine-config axes the quality question is about —
+    ``deadline`` vs ``async_config`` pacing, ``attack`` (a
+    ``runner.attack_clients`` payload run under a seeded FaultPlan) vs
+    ``defense``, ``scenario`` label drift, resident vs ``streamed``
+    execution. Returns the tracker's record plus run provenance.
+
+    ``device`` — where the model, the population and the rounds run (CUDA
+    by default; raises without a card unless the CPU is asked for). The
+    rounds run over the default process group when one is initialised, as
+    the bridge's do. Deterministic for fixed inputs on one device up to the
+    ``wall_*`` fields (:func:`strip_wall`).
+    """
+    import numpy as np
+
+    from olearning_sim_tpu_torch.device import resolve_device
+    from olearning_sim_tpu_torch.engine.algorithms import fedavg
+    from olearning_sim_tpu_torch.engine.client_data import (
+        HostClientStore,
+        make_central_eval_set,
+        make_synthetic_dataset,
+    )
+    from olearning_sim_tpu_torch.engine.fedcore import FedCoreConfig, build_fedcore
+    from olearning_sim_tpu_torch.engine.runner import (
+        DataPopulation,
+        OperatorSpec,
+        SimulationRunner,
+    )
+    from olearning_sim_tpu_torch.parallel.mesh import make_mesh_plan
+    from olearning_sim_tpu_torch.resilience import (
+        FaultPlan,
+        FaultSpec,
+        ResilienceLog,
+        faults,
+    )
+
+    dev = resolve_device(device)
+    input_shape = tuple(input_shape)
+    plan = make_mesh_plan()
+    cfg = FedCoreConfig(batch_size=batch, max_local_steps=local_steps,
+                        block_clients=block_clients)
+    core = build_fedcore(
+        "mlp2", fedavg(local_lr), cfg,
+        model_overrides={"hidden": list(hidden), "num_classes": num_classes},
+        input_shape=input_shape, device=dev, plan=plan,
+    )
+    host_ds = make_synthetic_dataset(
+        seed, num_clients, n_local, input_shape, num_classes,
+        dirichlet_alpha=0.5, class_sep=class_sep,
+    )
+    eval_data = make_central_eval_set(
+        seed, eval_n, input_shape, num_classes, class_sep=class_sep
+    )
+
+    conv_cfg = ConvergenceConfig.from_dict(dict(convergence or {}))
+    deadline_cfg = None
+    if deadline:
+        from olearning_sim_tpu_torch.engine.pacing import DeadlineConfig
+
+        deadline_cfg = DeadlineConfig.from_dict(dict(deadline))
+    async_cfg = None
+    if async_config:
+        from olearning_sim_tpu_torch.engine.async_rounds import AsyncConfig
+
+        async_cfg = AsyncConfig.from_dict(dict(async_config))
+    defense_cfg = None
+    if defense:
+        from olearning_sim_tpu_torch.engine.defense import DefenseConfig
+
+        defense_cfg = DefenseConfig.from_dict(dict(defense))
+    scenario_cfg = None
+    if scenario or streamed:
+        from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig
+
+        scen = dict(scenario or {})
+        if streamed and "stream_block_rows" not in scen:
+            # >=2 blocks so the streamed path actually streams.
+            scen["stream_block_rows"] = max(
+                plan.dp * block_clients,
+                host_ds.pad_for(plan.dp * block_clients).num_clients // 2,
+            )
+        scenario_cfg = ScenarioConfig.from_dict(scen)
+
+    store = None
+    if scenario_cfg is not None and scenario_cfg.streamed:
+        # Never placed whole: the round streams device-sized blocks.
+        store = HostClientStore.from_dataset(host_ds)
+        dataset = host_ds
+    else:
+        dataset = host_ds.pad_for(plan.dp * block_clients).shard(plan).to(dev)
+    pop = DataPopulation(
+        name="data_0", dataset=dataset, device_classes=["c0"],
+        class_of_client=np.zeros(dataset.padded_clients, int),
+        nums=[num_clients], dynamic_nums=[0], eval_data=eval_data,
+        num_classes=num_classes, store=store, device=dev,
+    )
+    # One fixed default task id for the whole grid: the server's initial
+    # parameters are seeded from the task id, so rows sharing it start from
+    # IDENTICAL initial params — the resident-vs-streamed pair is then a
+    # bitwise sanity check and every other pair isolates its axis.
+    runner = SimulationRunner(
+        task_id=task_id or "conv-grid", core=core, populations=[pop],
+        operators=[OperatorSpec(name="train")], rounds=rounds,
+        trace_seed=seed, convergence=conv_cfg, deadline=deadline_cfg,
+        async_config=async_cfg, defense=defense_cfg,
+        scenario=scenario_cfg, registry=registry, perf=perf,
+    )
+    if attack:
+        plan_f = FaultPlan(seed=seed, specs=[
+            FaultSpec(point="runner.attack_clients", times=-1,
+                      payload=dict(attack)),
+        ])
+        with faults.chaos(plan_f, log=ResilienceLog()):
+            history = runner.run()
+    else:
+        history = runner.run()
+    record = runner.convergence_record()
+    committed = sum(
+        rec.get("train", {}).get("data_0", {}).get("clients_trained", 0)
+        for rec in history
+    )
+    record.update(
+        family=name,
+        clients=num_clients,
+        rounds=rounds,
+        device_rounds_committed=int(committed),
+        # Accuracy-per-device-round: final accuracy amortized over every
+        # committed device-round — the quality-per-compute currency the
+        # sync-vs-async and defended-vs-undefended comparisons price in.
+        accuracy_per_1k_device_rounds=(
+            round(1000.0 * record["final_accuracy"] / committed, 6)
+            if committed and record["final_accuracy"] is not None else None
+        ),
+    )
+    return record

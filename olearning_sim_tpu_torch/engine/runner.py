@@ -84,6 +84,7 @@ import inspect
 import json
 import math
 import os
+import shutil
 import threading
 import time
 import zlib
@@ -149,6 +150,18 @@ class OperatorSpec:
     outbound_service: str = ""
     inputs: List[str] = dataclasses.field(default_factory=list)
     custom_fn: Optional[Callable[..., Dict[str, Any]]] = None
+    # Scratch directories the operator owns (fetched user code, an external
+    # operator's save root): removed when its runner's run ends.
+    scratch_dirs: List[str] = dataclasses.field(default_factory=list)
+
+
+def remove_scratch(operators: List[OperatorSpec]) -> None:
+    """Remove every scratch directory of ``operators`` (the JAX package
+    leaves them in the temporary directory)."""
+    for op in operators:
+        for d in op.scratch_dirs:
+            shutil.rmtree(d, ignore_errors=True)
+        op.scratch_dirs = []
 
 
 @dataclasses.dataclass
@@ -178,11 +191,6 @@ class DataPopulation:
     # ``FedCore.stream_round`` (O(block) device memory), on ``device``.
     store: Optional[HostClientStore] = None
     device: Any = "cuda"
-
-
-# Seed of the dispatch-trace draws (which clients a strategy releases and
-# drops): the JAX bridge leaves its runner's trace_seed at 0.
-TRACE_SEED = 0
 
 
 def _copy_tree(tree):
@@ -228,6 +236,7 @@ class SimulationRunner:
         defense: Optional[DefenseConfig] = None,
         scenario: Optional[ScenarioConfig] = None,
         async_config: Optional[AsyncConfig] = None,
+        trace_seed: int = 0,
     ):
         """``task_repo`` — the task table (duck-typed: ``has_task``,
         ``add_task``, ``set_item_value``); a fresh in-memory one when None.
@@ -268,8 +277,11 @@ class SimulationRunner:
         fill commit windows of ``buffer_size``, each committed with a
         staleness discount; the cumulative commit clock rides the history
         records. It excludes ``deadline``, per-client-state algorithms and
-        a streamed population."""
+        a streamed population. ``trace_seed`` — the seed of the host traces
+        (dispatch, pacing, scenario draws): the bridge leaves it at 0, the
+        convergence harness sets its task seed."""
         self.task_id = task_id
+        self.trace_seed = int(trace_seed)
         self.core = core
         self.populations = populations
         self.operators = operators
@@ -581,7 +593,7 @@ class SimulationRunner:
             steps = np.full(real, self.core.config.max_local_steps, np.int32)
         completion = pacing.completion_times(
             trace.arrival_time[:real], steps, p.class_of_client[:real],
-            p.device_classes, cfg, TRACE_SEED, round_idx, stream=stream,
+            p.device_classes, cfg, self.trace_seed, round_idx, stream=stream,
         )
         # ``runner.straggler_spike`` injection point: a simulated fleet-wide
         # (or targeted) slowdown that multiplies this round's completion
@@ -612,7 +624,7 @@ class SimulationRunner:
         replays reproduce the straggler set."""
         cfg = self.deadline
         stream = zlib.crc32(f"{operator.name}\x00{p.name}".encode())
-        selected = pacing.select_cohort(eligible, cfg, TRACE_SEED, round_idx,
+        selected = pacing.select_cohort(eligible, cfg, self.trace_seed, round_idx,
                                         stream=stream)
         completion = self._completion_times(p, round_idx, operator, trace, cfg)
         completion = np.where(selected, completion, np.inf).astype(np.float32)
@@ -643,7 +655,7 @@ class SimulationRunner:
                 round_idx,
                 task_id=self.task_id,
                 operator=operator.name,
-                seed=TRACE_SEED,
+                seed=self.trace_seed,
             )
             strace = None
             if self.scenario is not None:
@@ -905,7 +917,7 @@ class SimulationRunner:
         m = self._scenario_models.get(p.name)
         if m is None:
             m = ScenarioModel(
-                self.scenario, p.dataset.num_real_clients, seed=TRACE_SEED,
+                self.scenario, p.dataset.num_real_clients, seed=self.trace_seed,
                 class_of_client=p.class_of_client, device_classes=p.device_classes,
             )
             self._scenario_models[p.name] = m
@@ -2017,13 +2029,15 @@ class SimulationRunner:
 
     def finish(self) -> List[Dict[str, Any]]:
         """Close out a run: block on the checkpoint commit in flight, persist
-        the resilience digest, and return the history."""
+        the resilience digest, remove the operators' scratch directories,
+        and return the history."""
         if self.checkpointer is not None:
             # The last step's write runs on the commit thread; a process exit
             # right after run() must not lose it.
             self.checkpointer.wait()
         self._persist_resilience()
         self._loop = None
+        remove_scratch(self.operators)
         return self.history
 
     def pending_device_rounds(self) -> int:
@@ -2036,10 +2050,13 @@ class SimulationRunner:
         )
 
     def run(self) -> List[Dict[str, Any]]:
-        self.begin()
-        while self.step():
-            pass
-        return self.finish()
+        try:
+            self.begin()
+            while self.step():
+                pass
+            return self.finish()
+        finally:
+            remove_scratch(self.operators)
 
 
 class MultiTaskDispatcher:

@@ -87,6 +87,7 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import tempfile
 import threading
 from typing import Any, Dict, Optional
@@ -112,6 +113,7 @@ from olearning_sim_tpu_torch.engine.runner import (
     DataPopulation,
     OperatorSpec,
     SimulationRunner,
+    remove_scratch,
 )
 from olearning_sim_tpu_torch.engine.scenario import ScenarioConfig
 from olearning_sim_tpu_torch.parallel.mesh import MeshPlan, ParallelConfig, make_mesh_plan
@@ -172,44 +174,56 @@ def _external_spec(op, storage: Optional[Dict[str, Any]]) -> OperatorSpec:
 
     info = op.logicalSimulationOperatorInfo
     path = info.operatorCodePath
-    if os.path.isdir(path):
-        code_dir = path
-    else:
-        repo = make_file_repo(info.operatorTransferType, **(storage or {}))
-        code_dir = fetch_operator_code(
-            repo, path, tempfile.mkdtemp(prefix=f"op_{op.name}_"))
-    return external_operator_spec(
-        name=op.name,
-        code_dir=code_dir,
-        entry_file=info.operatorEntryFile,
-        operator_params=info.operatorParams,
-        use_deviceflow=op.operationBehaviorController.useController,
-        deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
-        inputs=list(op.input),
-    )
+    fetched = []
+    try:
+        if os.path.isdir(path):
+            code_dir = path
+        else:
+            repo = make_file_repo(info.operatorTransferType, **(storage or {}))
+            fetched.append(tempfile.mkdtemp(prefix=f"op_{op.name}_"))
+            code_dir = fetch_operator_code(repo, path, fetched[0])
+        spec = external_operator_spec(
+            name=op.name,
+            code_dir=code_dir,
+            entry_file=info.operatorEntryFile,
+            operator_params=info.operatorParams,
+            use_deviceflow=op.operationBehaviorController.useController,
+            deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
+            inputs=list(op.input),
+        )
+    except BaseException:
+        for d in fetched:
+            shutil.rmtree(d, ignore_errors=True)
+        raise
+    spec.scratch_dirs = fetched + spec.scratch_dirs
+    return spec
 
 
 def _operator_specs(tc, storage: Optional[Dict[str, Any]] = None) -> list:
     specs = []
-    for op in tc.operatorFlow.operator:
-        info = op.logicalSimulationOperatorInfo
-        if info.operatorCodePath == "":
-            # Device-only operator: belongs to the phone half.
-            continue
-        if not info.operatorCodePath.startswith(BUILTIN_PREFIX):
-            specs.append(_external_spec(op, storage))
-            continue
-        kind = info.operatorCodePath[len(BUILTIN_PREFIX):]
-        if kind not in ("train", "eval"):
-            raise ValueError(f"operator {op.name}: unknown builtin operator {kind!r}")
-        specs.append(OperatorSpec(
-            name=op.name,
-            kind=kind,
-            use_deviceflow=op.operationBehaviorController.useController,
-            deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
-            outbound_service=op.operationBehaviorController.outboundService,
-            inputs=list(op.input),
-        ))
+    try:
+        for op in tc.operatorFlow.operator:
+            info = op.logicalSimulationOperatorInfo
+            if info.operatorCodePath == "":
+                # Device-only operator: belongs to the phone half.
+                continue
+            if not info.operatorCodePath.startswith(BUILTIN_PREFIX):
+                specs.append(_external_spec(op, storage))
+                continue
+            kind = info.operatorCodePath[len(BUILTIN_PREFIX):]
+            if kind not in ("train", "eval"):
+                raise ValueError(f"operator {op.name}: unknown builtin operator {kind!r}")
+            specs.append(OperatorSpec(
+                name=op.name,
+                kind=kind,
+                use_deviceflow=op.operationBehaviorController.useController,
+                deviceflow_strategy=op.operationBehaviorController.strategyBehaviorController,
+                outbound_service=op.operationBehaviorController.outboundService,
+                inputs=list(op.input),
+            ))
+    except BaseException:
+        remove_scratch(specs)
+        raise
     return specs
 
 
@@ -291,6 +305,23 @@ def build_runner_from_taskconfig(
             f"mesh plan has mp={plan.mp} pp={plan.pp}"
         )
     operators = _operator_specs(tc, storage=params.get("storage"))
+    try:
+        return _assemble(tc, dev, task_id, params, plan, parallel, operators, task_repo=task_repo,
+                         deviceflow=deviceflow, stop_event=stop_event, perf=perf,
+                         cost_oracle=cost_oracle, registry=registry)
+    except BaseException:
+        # The runner that would have removed the operators' scratch
+        # directories at its end was never made.
+        remove_scratch(operators)
+        raise
+
+
+def _assemble(tc, dev, task_id: str, params: Dict[str, Any], plan: MeshPlan, parallel,
+              operators: list, *, task_repo, deviceflow, stop_event, perf, cost_oracle,
+              registry) -> SimulationRunner:
+    """The rest of :func:`build_runner_from_taskconfig`, once the plan and
+    the operators are settled: the model, the populations, the flow and the
+    runner."""
     # Parsed before any data is made, so a bad block fails fast.
     model_io, warm_start_path = _model_io(task_id, tc, params)
     convergence = (ConvergenceConfig.from_dict(params["convergence"])

@@ -79,14 +79,28 @@ def same_conv(x: torch.Tensor, conv: nn.Conv2d, stride: int = 1,
     return F.conv2d(x, conv.weight.to(dtype), bias, stride=stride)
 
 
+def trunc_normal_(t: torch.Tensor, std: float, generator: torch.Generator) -> torch.Tensor:
+    """Fill ``t`` in place with a normal of mean 0 and ``std`` truncated to
+    ``[-2 std, 2 std]``, by the inverse CDF of one uniform draw per element.
+    torch's own ``nn.init.trunc_normal_`` samples this way in some releases
+    and by rejection in others, so one seed would give other parameters
+    under another torch; this draw depends only on the generator's uniform
+    stream."""
+    cdf = (1.0 + math.erf(-2.0 / math.sqrt(2.0))) / 2.0  # P(Z < -2)
+    with torch.no_grad():
+        t.uniform_(2 * cdf - 1, 1 - 2 * cdf, generator=generator)
+        t.erfinv_()
+        t.mul_(std * math.sqrt(2.0))
+        return t.clamp_(min=-2 * std, max=2 * std)
+
+
 def lecun_normal_(t: torch.Tensor, generator: torch.Generator,
                   fan_in: Optional[int] = None) -> torch.Tensor:
     """Fill a Linear ``[out, in]`` or Conv ``[c_out, c_in, kh, kw]`` weight
     in place with flax's ``lecun_normal``; ``fan_in`` overrides the fan-in
     for other layouts."""
     fan_in = fan_in or math.prod(t.shape[1:])
-    std = 1.0 / math.sqrt(fan_in) / _TRUNC_STD
-    return nn.init.trunc_normal_(t, std=std, a=-2 * std, b=2 * std, generator=generator)
+    return trunc_normal_(t, 1.0 / math.sqrt(fan_in) / _TRUNC_STD, generator)
 
 
 def default_init_params(module: nn.Module, generator: torch.Generator,

@@ -148,17 +148,18 @@ def external_operator_spec(name: str, code_dir: str, entry_file: str,
     """Build an OperatorSpec running external user code (the task-bridge
     path for non-``builtin:`` operatorCodePath values). Deviceflow lifecycle
     flags carry over so legacy operators keep their NotifyStart/Complete
-    semantics."""
+    semantics. The operator's save root is the spec's scratch directory,
+    removed when its runner's run ends."""
     from olearning_sim_tpu_torch.engine.runner import OperatorSpec
 
+    fn = ExternalOperator(code_dir=code_dir, entry_file=entry_file,
+                          operator_params=operator_params)
     return OperatorSpec(
         name=name,
         kind="custom",
         use_deviceflow=use_deviceflow,
         deviceflow_strategy=deviceflow_strategy,
         inputs=list(inputs or []),
-        custom_fn=ExternalOperator(
-            code_dir=code_dir, entry_file=entry_file,
-            operator_params=operator_params,
-        ),
+        custom_fn=fn,
+        scratch_dirs=[fn.save_dir],
     )

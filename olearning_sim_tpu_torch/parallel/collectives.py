@@ -61,7 +61,7 @@ def rank(group) -> int:
     return 0 if group is None else dist.get_rank(group)
 
 
-def _comm_device(group, like: torch.Tensor) -> torch.device:
+def comm_device(group, like: torch.Tensor) -> torch.device:
     """NCCL communicates on the tensors' CUDA device, every other backend
     (gloo) on the CPU."""
     if "nccl" in str(dist.get_backend(group)).lower():
@@ -97,7 +97,7 @@ def _all_reduce(tensors: Sequence[torch.Tensor], group, name: str,
         return tensors
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for _, idx in _by_dtype(tensors).items():
-        dev = _comm_device(group, tensors[idx[0]])
+        dev = comm_device(group, tensors[idx[0]])
         buf = _pack([tensors[i] for i in idx], dev)
         BYTES[name] += buf.numel() * buf.element_size()
         dist.all_reduce(buf, op=op, group=group)
@@ -144,7 +144,7 @@ def psum_scatter(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
             raise ValueError(f"last axis {t.shape[-1]} is not a multiple of {n} ranks")
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for _, idx in _by_dtype(tensors).items():
-        dev = _comm_device(group, tensors[idx[0]])
+        dev = comm_device(group, tensors[idx[0]])
         # Rank j's slice of every tensor, concatenated: row j of [n, per_rank].
         parts = [tensors[i].to(dev).reshape(-1, n, tensors[i].shape[-1] // n)
                  .transpose(0, 1).reshape(n, -1) for i in idx]
@@ -172,7 +172,7 @@ def all_gather(tensors: Sequence[torch.Tensor], group, dim: int = 0) -> List[tor
         return tensors
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for _, idx in _by_dtype(tensors).items():
-        dev = _comm_device(group, tensors[idx[0]])
+        dev = comm_device(group, tensors[idx[0]])
         buf = _pack([tensors[i] for i in idx], dev)
         res = torch.empty(n * buf.numel(), dtype=buf.dtype, device=dev)
         BYTES["all_gather"] += buf.numel() * buf.element_size()
@@ -203,7 +203,7 @@ def all_to_all(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
         return tensors
     out: List[Optional[torch.Tensor]] = [None] * len(tensors)
     for _, idx in _by_dtype(tensors).items():
-        dev = _comm_device(group, tensors[idx[0]])
+        dev = comm_device(group, tensors[idx[0]])
         # Row j of [n, per_rank]: every tensor's columns for rank j.
         parts = []
         for i in idx:
@@ -307,7 +307,7 @@ def _shift_raw(x: torch.Tensor, group, step: int) -> torch.Tensor:
     the first end): the pipeline's ``ppermute`` with ``perm = [(i, i +
     step)]``."""
     n, r = dist.get_world_size(group), dist.get_rank(group)
-    dev = _comm_device(group, x)
+    dev = comm_device(group, x)
     src = x.contiguous().to(dev)
     out = torch.zeros_like(src)
     ops = []

@@ -26,10 +26,10 @@ from typing import Dict, Optional, Tuple
 
 import numpy as np
 import torch
-import torch.distributed as dist
 import torch.nn.functional as F
 from torch.func import functional_call
 
+from olearning_sim_tpu_torch.parallel import collectives
 from olearning_sim_tpu_torch.parallel.mesh import MeshPlan
 
 Params = Dict[str, torch.Tensor]
@@ -86,11 +86,7 @@ def sp_forward(model, params: Params, tokens, plan: MeshPlan) -> torch.Tensor:
     with torch.no_grad():
         # Replicated over sp after the model's pooled sum over sp_group.
         logits = functional_call(model, params, (tok,), {"sp_group": plan.sp_group})
-        if plan.dp_group is None:
-            return logits
-        parts = [torch.empty_like(logits) for _ in range(plan.dp)]
-        dist.all_gather(parts, logits.contiguous(), group=plan.dp_group)
-        return torch.cat(parts)
+        return collectives.all_gather([logits], plan.dp_group)[0]
 
 
 def sp_train_step(model, params: Params, opt_state, tokens, labels, optimizer,
@@ -124,8 +120,7 @@ def sp_train_step(model, params: Params, opt_state, tokens, labels, optimizer,
     grads = torch.autograd.grad(loss_d, list(leaves.values()))
 
     flat = torch.cat([g.reshape(-1) for g in grads] + [loss_d.detach().reshape(1)])
-    dist.all_reduce(flat, group=plan.world_group)
-    flat /= plan.dp * plan.sp
+    flat = collectives.psum([flat], plan.world_group)[0] / (plan.dp * plan.sp)
     grad_dict, at = {}, 0
     for (k, p), g in zip(params.items(), grads):
         grad_dict[k] = flat[at:at + g.numel()].view_as(p)

@@ -28,6 +28,7 @@ import torch.distributed as dist
 import torch.nn as nn
 
 from olearning_sim_tpu_torch.ops import flash_attention_stats
+from olearning_sim_tpu_torch.parallel import collectives
 
 NEG_INF = -1e30
 
@@ -47,13 +48,15 @@ def _shift(tensors: Sequence[torch.Tensor], group, step: int):
     p, r = dist.get_world_size(group), dist.get_rank(group)
     dst = dist.get_global_rank(group, (r + step) % p)
     src = dist.get_global_rank(group, (r - step) % p)
-    tensors = [t.contiguous() for t in tensors]
-    outs = [torch.empty_like(t) for t in tensors]
-    ops = [dist.P2POp(dist.isend, t, dst, group) for t in tensors]
+    # On the backend's device: gloo moves the chunks through the host.
+    dev = collectives.comm_device(group, tensors[0])
+    sent = [t.contiguous().to(dev) for t in tensors]
+    outs = [torch.empty_like(t) for t in sent]
+    ops = [dist.P2POp(dist.isend, t, dst, group) for t in sent]
     ops += [dist.P2POp(dist.irecv, o, src, group) for o in outs]
     for req in dist.batch_isend_irecv(ops):
         req.wait()
-    return outs
+    return [o.to(t.device) for o, t in zip(outs, tensors)]
 
 
 class _RingRotate(torch.autograd.Function):
@@ -84,15 +87,19 @@ class _AllReduceSum(torch.autograd.Function):
     @staticmethod
     def forward(ctx, group, x):
         ctx.group = group
-        y = x.clone()
-        dist.all_reduce(y, group=group)
-        return y
+        return _summed(x, group)
 
     @staticmethod
     def backward(ctx, dy):
-        dx = dy.clone()
-        dist.all_reduce(dx, group=ctx.group)
-        return None, dx
+        return None, _summed(dy, ctx.group)
+
+
+def _summed(x: torch.Tensor, group) -> torch.Tensor:
+    """``x`` summed over ``group``, a new tensor on ``x``'s device (the sum
+    on the backend's device)."""
+    y = x.to(collectives.comm_device(group, x), copy=True)
+    dist.all_reduce(y, group=group)
+    return y.to(x.device)
 
 
 def all_reduce_sum(x: torch.Tensor, group) -> torch.Tensor:

@@ -224,6 +224,9 @@ class TaskManager:
         self._migrating: set = set()
         # (task_id, data_name) -> staged device-shard path (hybrid split)
         self._device_paths: dict = {}
+        # task_id -> the temporary directories its local halves were staged
+        # in, removed at the task's release
+        self._staging_dirs: Dict[str, list] = {}
         self._lock = threading.RLock()
         self._stop = threading.Event()
         self._threads = []
@@ -482,6 +485,12 @@ class TaskManager:
                 td.dataPath, frac, transfer_type=transfer, repo=repo,
             )
             self._device_paths[(tc.taskID.taskID, td.dataName)] = device_path
+            if repo is None:
+                # Both halves sit in a temporary directory of their own.
+                import os
+
+                self._staging_dirs.setdefault(tc.taskID.taskID, []).append(
+                    os.path.dirname(logical_path))
             td.dataPath = logical_path
             self.logger.info(
                 task_id=tc.taskID.taskID, system_name="TaskMgr",
@@ -502,6 +511,16 @@ class TaskManager:
                     os.remove(path)
                 except OSError:
                     pass
+
+    def _remove_staging_dirs(self, task_id: str) -> None:
+        """Remove the directories the task's local halves were staged in,
+        the logical half with them. Only at the release: a fenced task's
+        reclaimer may still build its runner from the logical half. The JAX
+        manager leaves them in the temporary directory."""
+        import shutil
+
+        for d in self._staging_dirs.pop(task_id, []):
+            shutil.rmtree(d, ignore_errors=True)
 
     def _submit_device_half(self, tc: TaskConfig) -> bool:
         """Launch the phone (device-simulation) sub-job when the allocation
@@ -955,6 +974,7 @@ class TaskManager:
             self._task_repo.release_lease(task_id, self.owner_id)
             self._own_jobs.pop(task_id, None)
             self._cleanup_hybrid_staging(task_id)
+            self._remove_staging_dirs(task_id)
             if self._pool is not None:
                 self._pool.on_finished(task_id)
             # Series retention: the finished task's per-task label series

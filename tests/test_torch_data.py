@@ -2,17 +2,19 @@
 tests write from a seed in the published layouts: every format parser, the
 partitioners, ``load_population`` (a holdout, a test split, zip and tar),
 the archive guards (zip traversal, tar links with and without
-``filter="data"``, the CIFAR pickle), the ingest cache (its bound, and the
-reference's cache key, copied as it is), the hybrid split, the bridge's
-populations and eval sets on MNIST and Sent140 archives (local and over
-HTTP), a runner and a round on real data against JAX's, the manager's
-hybrid staging, and a real-data task resumed from its checkpoint."""
+``filter="data"``, the CIFAR pickle), the ingest cache (its bound, and its
+key, which the port widens past the reference's), the hybrid split, the
+bridge's populations and eval sets on MNIST and Sent140 archives (local and
+over HTTP), a runner and a round on real data against JAX's, the manager's
+hybrid staging, a real-data task resumed from its checkpoint, and the
+removal of a task's scratch directories (which the reference leaves)."""
 
 import csv
 import importlib
 import io
 import json
 import os
+import pathlib
 import pickle
 import tarfile
 import tempfile
@@ -47,8 +49,8 @@ GOOD, BAD = ["love", "great", "happy"], ["hate", "awful", "sad"]
 @pytest.fixture(autouse=True)
 def _fresh_caches(tmp_path, monkeypatch):
     """Empty ingest caches, and the archives both packages extract (into
-    ``tempfile.mkdtemp`` directories they never remove) kept under the
-    test's own directory."""
+    ``tempfile.mkdtemp`` directories the JAX package never removes) kept
+    under the test's own directory."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
     jing.clear_cache()
     ting.clear_cache()
@@ -453,18 +455,30 @@ def test_ingest_cache_is_bounded_alike(tmp_path, monkeypatch):
 def test_cache_key_ignores_text_settings_in_both(tmp_path):
     """The reference's cache key is (path, split) only: a second read of the
     same archive at another seq_len (or over another transfer type) gets
-    the first read's arrays. The port copies this (ROADMAP.md section C)."""
+    the first read's arrays. The port keys on the text settings, the
+    transfer type and the store too: its second read equals a fresh JAX
+    read made after ``clear_cache()``, beside JAX's stale one."""
     write_sent140(tmp_path / "train.csv", 12, 3, 0, extra_bad_rows=False)
-    shapes = []
-    for _, _, ing, _, _ in PACKAGES:
-        first = ing.load_arrays(str(tmp_path), "train", seq_len=8, vocab_size=97)
-        second = ing.load_arrays(str(tmp_path), "train", transfer_type=1, seq_len=16,
-                                 vocab_size=50)
-        assert second is first
-        ing.clear_cache()
-        fresh = ing.load_arrays(str(tmp_path), "train", seq_len=16, vocab_size=50)
-        shapes.append((first[0].shape, second[0].shape, fresh[0].shape))
-    assert shapes[0] == shapes[1] == ((12, 8), (12, 8), (12, 16))
+    jfirst = jing.load_arrays(str(tmp_path), "train", seq_len=8, vocab_size=97)
+    jsecond = jing.load_arrays(str(tmp_path), "train", transfer_type=1, seq_len=16,
+                               vocab_size=50)
+    assert jsecond is jfirst  # the reference's stale arrays
+    jing.clear_cache()
+    jfresh = jing.load_arrays(str(tmp_path), "train", seq_len=16, vocab_size=50)
+    tfirst = ting.load_arrays(str(tmp_path), "train", seq_len=8, vocab_size=97)
+    tsecond = ting.load_arrays(str(tmp_path), "train", transfer_type=1, seq_len=16,
+                               vocab_size=50)
+    assert tsecond is not tfirst
+    _same(tfirst, jfirst)
+    _same(tsecond, jfresh)
+    assert (jsecond[0].shape, tsecond[0].shape) == ((12, 8), (12, 16))
+    # The same settings hit the port's cache; another store or bucket misses.
+    assert ting.load_arrays(str(tmp_path), "train", transfer_type=1, seq_len=16,
+                            vocab_size=50) is tsecond
+    other = ting.load_arrays(str(tmp_path), "train", transfer_type=1, seq_len=16,
+                             vocab_size=50, storage_settings={"bucket": "b2"})
+    assert other is not tsecond
+    _same(other, tsecond)
 
 
 # ------------------------------------------------------------ hybrid split
@@ -851,3 +865,108 @@ def test_manager_runs_the_logical_half_on_its_shard(tmp_path):
     mgr.release_once()
     assert repo.get_item_value("hybrid_run", "task_status") == "SUCCEEDED"
     assert not os.path.exists(staged) and not mgr._device_paths
+
+
+# ------------------------------------------------------- scratch directories
+SCRATCH_PREFIXES = ("olsdata_", "op_", "ext_op_", "olshybrid_")
+
+
+def _scratch(root):
+    """The task scratch directories under ``root`` (the tests' temporary
+    directory): fetched and extracted archives, fetched operator code, an
+    external operator's save root, staged hybrid halves."""
+    return sorted(p.name for p in pathlib.Path(root).iterdir()
+                  if p.is_dir() and p.name.startswith(SCRATCH_PREFIXES))
+
+
+def _operator_zip(tmp_path):
+    """A zip of external operator code that succeeds for every client."""
+    root = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+    zp = tmp_path / "opcode.zip"
+    with zipfile.ZipFile(zp, "w") as zf:
+        zf.writestr("entry.py", f"import sys\nsys.path.insert(0, {root!r})\n"
+                    "from olearning_sim_tpu_torch.operators import OperatorABC\n\n"
+                    "class Ok(OperatorABC):\n    def run(self):\n        return 0\n\n"
+                    "Ok().main()\n")
+    return str(zp)
+
+
+def test_direct_bridge_run_removes_its_scratch_directories(archives, tmp_path):
+    """A task built by the bridge from a zipped archive, with external
+    operator code from a zip, and run directly: the archive's extraction is
+    gone once it is parsed, the operator's fetched code and save root are
+    there while the task runs and gone when its run ends (the JAX bridge
+    leaves all three). A second task on the same archive hits the cache."""
+    from test_torch_operators import _with_external
+
+    task = _with_external(real_task("scratch_direct", archives["mnist"], MNIST_PARAMS),
+                          _operator_zip(tmp_path))
+    assert _scratch(tmp_path) == []
+    runner = build_runner_from_taskconfig(task, device="cpu")
+    held = _scratch(tmp_path)
+    assert [n.split("_")[0] for n in held] == ["ext", "op"], held
+    hist = runner.run()
+    assert hist[-1]["ext"]["data_0"] == {"success": 12, "failed": 0}
+    assert _scratch(tmp_path) == []
+    # The cache holds parsed arrays: the second task builds and trains on
+    # the same population with the first task's directories gone.
+    again = build_runner_from_taskconfig(real_task("scratch_again", archives["mnist"],
+                                                   MNIST_PARAMS), device="cpu")
+    assert _scratch(tmp_path) == []
+    a, b = _host_ds(again.populations[0].dataset), _host_ds(runner.populations[0].dataset)
+    for f in a:
+        _same(a[f], b[f])
+    again.run()
+    # A build that fails after fetching the operator code removes it.
+    bad = _with_external(real_task("scratch_bad", archives["mnist"], MNIST_PARAMS),
+                         _operator_zip(tmp_path))
+    bad["target"]["data"][0]["data_path"] = str(tmp_path / "gone.zip")
+    with pytest.raises(FileNotFoundError):
+        build_runner_from_taskconfig(bad, device="cpu")
+    assert _scratch(tmp_path) == []
+
+
+def test_platform_task_leaves_no_scratch_directory(tmp_path):
+    """A hybrid task with external operator code from a zip, submitted to a
+    port manager: the staged halves' directory and the operator's
+    directories exist while it runs, and none is left after the release."""
+    from olearning_sim_tpu_torch.phonemgr import SimulatedPhoneFarm
+    from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from test_taskmgr import make_task_json
+    from test_torch_operators import _with_external
+    from test_torch_taskmgr import join, side
+
+    path = _archive(tmp_path, "npz_holdout")
+    task = _with_external(make_task_json("scratch_run", rounds=1, num_clients=20),
+                          _operator_zip(tmp_path))
+    td = task["target"]["data"][0]
+    td.update(data_split_type=True, data_path=path)
+    td["allocation"].update(logical_simulation=[15], device_simulation=[5])
+    op = task["operatorflow"]["operators"][0]["logical_simulation"]
+    params = json.loads(op["operator_params"])
+    params["model"]["overrides"]["num_classes"] = 4
+    params["model"]["input_shape"] = [6]
+    params["data"] = {"real": {"n_local": 6, "scheme": "iid"}, "eval_n": 8}
+    op["operator_params"] = json.dumps(params)
+    task["device_simulation"]["resource_request"] = [{"name": "data_0", "devices": ["high"],
+                                                      "num_request": [5]}]
+    repo = TaskTableRepo()
+    port = side("port")
+    rm = port.ResourceManager(topology=port.topology(),
+                              phone_provider=lambda: {"user1": {"high": 5}})
+    mgr = TaskManager(task_repo=repo, resource_manager=rm, schedule_interval=3600,
+                      device="cpu",
+                      phone_client=SimulatedPhoneFarm(inventory={"user1": {"high": 5}},
+                                                      speedup=1e9))
+    before = _scratch(tmp_path)
+    assert mgr.submit_task(task)
+    assert mgr.schedule_once() == "scratch_run"
+    assert any(n.startswith("olshybrid_") for n in _scratch(tmp_path))
+    assert join(mgr._launcher, repo.get_item_value("scratch_run", "job_id")) \
+        .name == "SUCCEEDED"
+    result = json.loads(repo.get_item_value("scratch_run", "logical_result"))
+    assert result["logical_result"][0]["simulation_target"]["success_num"] == [15]
+    mgr.release_once()
+    assert repo.get_item_value("scratch_run", "task_status") == "SUCCEEDED"
+    assert before == [] and _scratch(tmp_path) == []

@@ -54,7 +54,8 @@ OP_SOURCE = textwrap.dedent("""
 @pytest.fixture(autouse=True)
 def _scratch_in_tmp_path(tmp_path, monkeypatch):
     """The operators' scratch and fetched code (``tempfile.mkdtemp``
-    directories both packages leave behind) under the test's directory."""
+    directories; the JAX package leaves them behind) under the test's
+    directory."""
     monkeypatch.setattr(tempfile, "tempdir", str(tmp_path))
 
 

@@ -80,6 +80,10 @@ def test_port_imports_no_jax():
         "    flow, dispatcher, durable_rooms, outbound, service, DeviceFlowService)\n"
         "from olearning_sim_tpu_torch.taskmgr import pool\n"
         "from olearning_sim_tpu_torch.clustermgr import slice_manager, ClusterManager\n"
+        "from olearning_sim_tpu_torch.clustermgr import (launcher, worker, targets, elastic,\n"
+        "    ElasticWorldRunner, MultiHostLauncher, DistributedConfig)\n"
+        "from olearning_sim_tpu_torch.analysis import convergence_gate\n"
+        "from olearning_sim_tpu_torch.engine.convergence import run_convergence_task\n"
         "from olearning_sim_tpu_torch.services import session, SimulatorSession\n"
         "from olearning_sim_tpu_torch import config, __main__\n"
         "from olearning_sim_tpu_torch import data, operators, storage\n"
