@@ -176,8 +176,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        trained, the ``stream`` record, the phase times and the step's peak
        device memory; held bitwise against the same task run resident (the
        JSON without ``stream_block_rows``);
-    11b clients 100 -> STREAM_CLIENTS (two stream blocks), 2 rounds
-       streamed and 2 resident, held bitwise; the stream records'
+    11b clients 100 -> STREAM_CLIENTS (two stream blocks), 1 round
+       streamed and 1 resident, held bitwise (11a and 11c carry streamed
+       state across rounds); the stream records'
        transfer bytes, waits and overlap, both runs' peak memory; then one
        streamed round with the staging thread and one without, in turns
        (held bitwise against each other);
@@ -393,11 +394,40 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        the card; printed: ``overhead_summary()`` (spawn, torch import,
        joining the world, restore, first round and checkpoint seconds per
        segment: the time to rescale; the step's bytes, the modules the
-       first round imported).
+       first round imported). 18b's worlds run beside 18c's segments
+       (their processes share the host's cores and the card).
+
+19. The repository checks on the card (K1 is on this path, in 19c):
+    19a every dp-1 variant of the analysis grid
+       (``analysis/grid.py``: the JAX package's variant names at its tiny
+       shapes, mlp2 8-16-3 on 16 clients; plain, deadline, attack,
+       defense, maximal, async, async_defense with both server-update
+       layouts, the streamed round, and a tiny DistilBERT's flash
+       evaluate), each run under its two knob settings inside the
+       operation recorder; held: the two operation sequences equal, the
+       CUDA kernel launches equal (``torch.profiler``'s host-side launch
+       records between two marks, by correlation id), the host syncs
+       ``torch.cuda.set_sync_debug_mode("warn")`` reports equal to the CPU
+       recorder's count (``analysis/budgets.json``); printed: launches,
+       syncs, the round's peak memory, its parameter and state bytes;
+    19b two faults planted in cores the phase builds: the deadline read
+       through a Python branch (the retrace and the launch count must
+       fail) and a ``float()`` of the round's weight sum (the sync count
+       and the audit must fail);
+    19c the flash evaluate's K1 launches: depth x eval batches a run, and
+       its values at that shape (B 8, H 2, L 8, D 8): the evaluate's
+       logits on rows with padded tails within EVAL_LOGITS_ATOL of the
+       same core's with K1's plain version, and the same check failing K1
+       with its key mask dropped and with uniform weights;
+    19d ``python -m olearning_sim_tpu_torch.analysis.check_all --skip
+       convergence`` on this machine's Python and torch (started in the
+       background before phase 8, after the headline's times), which must
+       exit 0.
 
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
-is zeroed again just before 17a's flash evaluate and read just after it;
+is zeroed again just before 17a's flash evaluate and read just after it,
+and again just before 19a's flash evaluate and read just after it;
 each 18b worker zeroes and reads its own K2 count around its ring forward.
 The last lines are the
 script's seconds, the ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
@@ -406,6 +436,8 @@ script's seconds, the ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": tru
 
 from __future__ import annotations
 
+import bisect
+import contextlib
 import dataclasses
 import json
 import math
@@ -636,6 +668,7 @@ RAGGED_CASES = [
     (4, 2, 33, 130, 96),     # ragged D above 64
     (2, 3, 100, 77, 36),     # D not a multiple of 8: the wrapper pads bf16 D to 40
     (2, 4, 300, 1000, 64),   # Lq != Lk over several 128-key tiles, ragged last tile
+    (8, 2, 8, 8, 8),         # phase 19c's tiny DistilBERT: D 8 under the 16-wide bf16 k-step
 ]
 
 
@@ -2232,12 +2265,12 @@ def stream_path(dev, shrink=None):
     del runner_r
 
     # 11b: two stream blocks (clients cut up to STREAM_CLIENTS), streamed
-    # and resident, 2 rounds each.
+    # and resident, one round each.
     peaks_b, peaks_c = [], []
-    runner_b, hist_b = run_task("11b streamed", name, dev, 2, clients=STREAM_CLIENTS,
+    runner_b, hist_b = run_task("11b streamed", name, dev, 1, clients=STREAM_CLIENTS,
                                 shrink=shrink, peaks=peaks_b)
     _stream_lines("11b streamed", hist_b, peaks_b)
-    runner_c, _ = run_task("11b resident", name, dev, 2, clients=STREAM_CLIENTS,
+    runner_c, _ = run_task("11b resident", name, dev, 1, clients=STREAM_CLIENTS,
                            shrink=shrink, edit=resident, peaks=peaks_c)
     same("11b streamed vs resident", runner_b.states["data_0"].params,
          runner_c.states["data_0"].params)
@@ -3780,7 +3813,7 @@ def platform_path(dev, shrink=None):
 # INGEST_SEED in its published layout; the sizes are module constants so a
 # CPU rehearsal can cut them.
 INGEST_SEED = 15
-INGEST_ROUNDS = 3
+INGEST_ROUNDS = 2
 SENT140_ROWS = 160_000       # the training CSV's 1,600,000 rows, cut 10x
 SENT140_USERS = 16_000       # about 10 tweets per user, as in the full file
 SENT140_TEST_ROWS = 2_048    # fedadam_sent140_distilbert's eval_n
@@ -4371,7 +4404,7 @@ def _transfer_edit(kind):
     return edit
 
 
-ELASTIC_SEGMENT_ROUNDS = 2
+ELASTIC_SEGMENT_ROUNDS = 1
 ELASTIC_WORLDS = (1, 2, 1)
 # 18c: the rescaled run against the fixed world, relative L2 over all
 # parameters (the same draws; dp 2 sums the clients' deltas in another
@@ -4394,8 +4427,12 @@ def cluster_path(dev):
         # The workers share the card with this process: hand back what its
         # allocator caches from earlier phases.
         torch.cuda.empty_cache()
-    worlds_on_card(dev, card)
-    elastic_on_card(dev, card)
+    with ThreadPoolExecutor(1) as pool:
+        worlds = pool.submit(worlds_on_card, dev, card)
+        try:
+            elastic_on_card(dev, card)
+        finally:
+            worlds.result()
     log(f"phase 18 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
@@ -4499,6 +4536,320 @@ def elastic_on_card(dev, card):
         raise AssertionError("18c: the elastic run differs from the fixed world")
 
 
+# Phase 19: the repository checks on the card. 19d's check_all must exit
+# within this of phase 19's start (it records the grid on the CPU, its dp-2
+# and dp-2 x mp-2 worlds in spawned processes).
+CHECK_ALL_TIMEOUT_S = 300
+SYNC_WARNING = "called a synchronizing CUDA operation"
+
+
+class CardProbe:
+    """19a's counters on the card, one ``torch.profiler`` session over all
+    of phase 19's recorded runs. Per run (``probe()``, a context manager
+    entered inside the recorded window; one entry in ``runs``): the CUDA
+    kernels launched and the memory copies and sets, the host syncs
+    ``torch.cuda.set_sync_debug_mode("warn")`` reported, and the peak
+    device memory above what was allocated when the run began.
+
+    Launches are counted from the profiler's host-side records of the
+    launch calls, not from its device events: in a long process the
+    profiler drops some device events of every session, more the older
+    the process (``analysis/profiler_clock.py``; PERF.md), and it kept
+    every launch record. A run is the records between its two marks, by
+    correlation id (CUPTI numbers the calls in the order they are made);
+    a mark is a spin kernel launched alone inside a ``record_function``
+    annotation, MARK_PAD_S of nothing on either side of it, so that its
+    launch record is the one launch inside the annotation."""
+
+    MARK = "chip_smoke.19a.mark"
+    MARK_PAD_S = 0.005
+    MARK_CYCLES = 1_000  # about a microsecond
+    COPY_NAMES = ("cudaMemcpy", "cudaMemset", "cuMemcpy", "cuMemset")
+
+    def __init__(self, dev):
+        self.dev = dev
+        self.runs = []
+        self._prof = None
+
+    def __enter__(self):
+        from torch.profiler import ProfilerActivity, profile
+
+        self._prof = profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA])
+        self._prof.__enter__()
+        return self
+
+    def __exit__(self, *exc):
+        self._prof.__exit__(*exc)
+        if exc[0] is None:
+            self._count()
+        return False
+
+    def _mark(self):
+        import torch
+        from torch.profiler import record_function
+
+        with record_function(self.MARK):
+            time.sleep(self.MARK_PAD_S)
+            torch.cuda._sleep(self.MARK_CYCLES)
+            time.sleep(self.MARK_PAD_S)
+
+    @contextlib.contextmanager
+    def probe(self):
+        import warnings
+
+        import torch
+
+        torch.cuda.synchronize(self.dev)
+        torch.cuda.reset_peak_memory_stats(self.dev)
+        held = torch.cuda.memory_allocated(self.dev)
+        self._mark()  # the run's start
+        with warnings.catch_warnings(record=True) as caught:
+            warnings.simplefilter("always")
+            torch.cuda.set_sync_debug_mode("warn")
+            try:
+                yield
+            finally:
+                torch.cuda.set_sync_debug_mode(0)
+        self._mark()  # the run's end
+        torch.cuda.synchronize(self.dev)
+        self.runs.append({
+            "syncs": sum(SYNC_WARNING in str(w.message) for w in caught),
+            "peak": torch.cuda.max_memory_allocated(self.dev) - held,
+        })
+
+    def _count(self):
+        from torch.autograd import DeviceType
+
+        from olearning_sim_tpu_torch.analysis.profiler_clock import LAUNCH_NAMES
+
+        # The raw events: building the profiler's event tree over the
+        # runs' hundred thousand CPU operations costs minutes.
+        events = list(self._prof.profiler.kineto_results.events())
+        host = [e for e in events if e.device_type() != DeviceType.CUDA]
+        calls = sorted((e.correlation_id(), e.start_ns(), e.name()) for e in host
+                       if e.name().startswith(LAUNCH_NAMES + self.COPY_NAMES))
+        launches = sorted((t, cid) for cid, t, name in calls if name.startswith(LAUNCH_NAMES))
+        times = [t for t, _ in launches]
+        marks = []
+        for s, e in sorted((e.start_ns(), e.end_ns()) for e in host if e.name() == self.MARK):
+            inside = [cid for _, cid in launches[bisect.bisect_left(times, s):
+                                                  bisect.bisect_right(times, e)]]
+            if len(inside) != 1:
+                raise AssertionError(f"19a: a mark annotation holds {len(inside)} launch "
+                                     f"records, not its spin kernel's one")
+            marks += inside
+        if len(marks) != 2 * len(self.runs):
+            raise AssertionError(f"19a: the profiler kept {len(marks)} of the runs' "
+                                 f"{2 * len(self.runs)} marks")
+        for i, run in enumerate(self.runs):
+            lo, hi = marks[2 * i], marks[2 * i + 1]
+            names = [name for cid, _, name in calls if lo < cid < hi]
+            copies = sum(n.startswith(self.COPY_NAMES) for n in names)
+            run.update(kernels=len(names) - copies, copies=copies)
+        # What the device events alone would have counted.
+        seen = {e.correlation_id() for e in events if e.device_type() == DeviceType.CUDA}
+        self.device_kept = (sum(cid in seen for _, cid in launches), len(launches))
+
+
+def grid_flash_rows(model):
+    """19c's rows: the grid's flash-evaluate rows of ``model`` with seeded padded tails
+    (row i keeps 1 to all of its tokens), so what K1 computes depends on
+    its key mask."""
+    import numpy as np
+
+    from olearning_sim_tpu_torch.analysis import grid
+    from olearning_sim_tpu_torch.engine import make_central_text_eval_set
+
+    spec = grid.GRID_MODELS[model]
+    L = spec["input_shape"][0]
+    x, _ = make_central_text_eval_set(0, grid.FLASH_EVAL_ROWS, L,
+                                      vocab_size=spec["overrides"]["vocab_size"])
+    keep = np.random.default_rng(PAD_SEED).integers(1, L + 1, size=len(x))
+    return np.where(np.arange(L)[None, :] < keep[:, None], x, 0).astype(x.dtype)
+
+
+def eval_logits_with(core, params, x, attention):
+    """:func:`eval_logits` with the transformer's attention swapped for
+    ``attention`` (K1's plain version: the reference)."""
+    from olearning_sim_tpu_torch.models import transformer
+
+    real = transformer.flash_attention
+    transformer.flash_attention = attention
+    try:
+        return eval_logits(core, params, x)
+    finally:
+        transformer.flash_attention = real
+
+
+def plant_knob_branch(core, variant):
+    """19b's first fault: the deadline read on the host through a Python
+    branch, so the two knob settings dispatch different operations."""
+    inner = core.round_step
+
+    def round_step(state, ds, **kw):
+        if kw.get("deadline", 0.0) > 1.0:
+            kw = dict(kw, completion_time=kw["completion_time"] * 1.0)
+        return inner(state, ds, **kw)
+    core.round_step = round_step
+
+
+def plant_item(core, variant):
+    """19b's second fault: a host read of the round's weight sum inside
+    the round."""
+    inner = core._finish_round
+
+    def finish(state, sums, *args, **kwargs):
+        float(sums.sum_w)
+        return inner(state, sums, *args, **kwargs)
+    core._finish_round = finish
+
+
+class CheckAll:
+    """19d's ``check_all --skip convergence`` in a background process, its
+    output in a temporary file; ``main`` starts it before phase 8, so that
+    its CPU recording overlaps the host-bound phases. ``stop()`` ends the
+    process if it still runs."""
+
+    def __init__(self):
+        import tempfile
+
+        self.out = tempfile.TemporaryFile(mode="w+")
+        self.proc = subprocess.Popen(
+            [sys.executable, "-m", "olearning_sim_tpu_torch.analysis.check_all",
+             "--skip", "convergence"], cwd=ROOT, stdout=self.out,
+            stderr=subprocess.STDOUT, text=True)
+
+    def wait(self, timeout):
+        """(exit code, check_all's report lines)."""
+        rc = self.proc.wait(timeout=timeout)
+        self.out.seek(0)
+        return rc, [ln for ln in self.out.read().splitlines()
+                    if ln.startswith("check_all:") or ln.startswith("  ")]
+
+    def stop(self):
+        if self.proc.poll() is None:
+            self.proc.kill()
+            self.proc.wait()
+        self.out.close()
+
+
+def analysis_path(dev, check_all=None):
+    """Phase 19: every dp-1 variant of the analysis grid on the card under
+    both knob settings (operation sequences, kernel launches, host syncs,
+    peak memory), two planted faults that must fail those checks, the
+    flash evaluate's K1 launches and values, and ``check_all`` on the
+    card machine's Python and torch (a :class:`CheckAll`, started here
+    when not given)."""
+    from olearning_sim_tpu_torch.analysis import grid, op_audit, retrace
+    from olearning_sim_tpu_torch.analysis.op_trace import first_diff
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+    from olearning_sim_tpu_torch.ops.flash_attention import flash_attention_reference
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    if check_all is None:
+        check_all = CheckAll()
+    try:
+        budgets = op_audit.load_budgets()["variants"]
+        done = []
+        with CardProbe(dev) as session:
+            for v in (v for v in grid.variant_grid() if v.dp * v.mp == 1):
+                if v.program == grid.FLASH_EVAL:
+                    flash_attention.launches = flash_attention_stats.launches = 0
+                first = len(session.runs)
+                t0 = time.perf_counter()
+                art = grid.record_variant(v, device=dev, probe=session.probe)
+                done.append((v, art, first, time.perf_counter() - t0))
+                if v.program == grid.FLASH_EVAL:
+                    # Read just after: the warm-up run and both recorded runs.
+                    counts = (flash_attention.launches, flash_attention_stats.launches)
+                    flash = (v, art, budgets[v.name])
+            # 19b: the two planted faults, each in a core the phase builds.
+            planted = []
+            for name, plant in (("deadline/shard0/dp1", plant_knob_branch),
+                                ("plain/shard0/dp1", plant_item)):
+                first = len(session.runs)
+                v = grid.variant_by_name(name)
+                planted.append((v, grid.record_variant(v, device=dev, plant=plant,
+                                                       probe=session.probe), first))
+        log(f"19a one profiler session over {len(session.runs)} runs: launches counted "
+            f"from the launch records; the profiler kept the device events of "
+            f"{session.device_kept[0]} of the session's {session.device_kept[1]} launches | "
+            f"{card}")
+        problems = []
+        for v, art, first, secs in done:
+            a, b = art["a"], art["b"]
+            ra, rb = session.runs[first:first + 2]
+            cpu = budgets[v.name]["host_syncs"]
+            diff = first_diff(a, b)
+            log(f"19a {v.name}: ops {len(a.ops)}/{len(b.ops)} "
+                f"({'equal' if diff is None else diff}), kernel launches "
+                f"{ra['kernels']}/{rb['kernels']}, copies {ra['copies']}/{rb['copies']}, "
+                f"host syncs {ra['syncs']}/{rb['syncs']} (CPU recorder {cpu}, card recorder "
+                f"{a.syncs}), the round's peak memory {ra['peak']}/{rb['peak']} B, params "
+                f"{art['params_bytes']} B, state {art['state_bytes']} B, {secs:.2f} s "
+                f"(build, warm-up, both runs) | {card}")
+            if diff is not None:
+                problems.append(f"{v.name}: operations differ between A and B: {diff}")
+            if ra["kernels"] != rb["kernels"]:
+                problems.append(f"{v.name}: kernel launches {ra['kernels']} vs {rb['kernels']}")
+            if not ra["syncs"] == rb["syncs"] == cpu == a.syncs:
+                problems.append(f"{v.name}: host syncs on the card {ra['syncs']}/{rb['syncs']}, "
+                                f"CPU recorder {cpu}, card recorder {a.syncs}")
+        if problems:
+            raise AssertionError(f"19a: {problems}")
+
+        (v, art, first), (v2, art2, first2) = planted
+        found = retrace.compare_variant(art)
+        ka, kb = session.runs[first]["kernels"], session.runs[first + 1]["kernels"]
+        log(f"19b knob in a Python branch ({v.name}): retrace {len(found)} finding(s) "
+            f"({found[0][:160] if found else ''}), kernel launches {ka}/{kb} | {card}")
+        if not found or ka == kb:
+            raise AssertionError("19b: the knob branch passed the retrace or launch check")
+        found = op_audit.compare(v2.name, op_audit.measure(art2), budgets[v2.name],
+                                 program=v2.program)
+        syncs = session.runs[first2]["syncs"]
+        log(f"19b .item() in the round ({v2.name}): host syncs on the card {syncs} (budget "
+            f"{budgets[v2.name]['host_syncs']}), audit {len(found)} finding(s) "
+            f"({found[0][:160] if found else ''}) | {card}")
+        if syncs == budgets[v2.name]["host_syncs"] or not found:
+            raise AssertionError("19b: the planted .item() passed the sync checks")
+
+        # 19c: K1 in the tiny DistilBERT's flash evaluate.
+        v, art, budget = flash
+        depth = grid.GRID_MODELS["distilbert"]["overrides"]["depth"]
+        batches = -(-grid.FLASH_EVAL_ROWS // grid.FLASH_EVAL_BATCH)
+        launches = [art["info"][s]["flash_launches"] for s in ("a", "b")]
+        log(f"19c flash evaluate (depth {depth}, {batches} eval batches): K1 launches "
+            f"{launches[0]}/{launches[1]} a run, {counts[0]} over the warm-up and both runs "
+            f"(K2 {counts[1]}), wrapper calls {art['info']['a']['flash_calls']} (CPU budget "
+            f"{budget['flash_calls']}) | {card}")
+        want = depth * batches if dev.type == "cuda" else 0
+        if launches != [want] * 2 or counts != (3 * want, 0) \
+                or budget["flash_calls"] != depth * batches:
+            raise AssertionError(f"19c: K1 launched {launches} ({counts}), expected {want}")
+        # K1's values at this shape (D 8, 8 keys): the evaluate's logits on
+        # rows with padded tails against the same core's with K1's plain
+        # version, after the counts were read.
+        core, state = grid._core(v, dev)[:2]
+        x = grid_flash_rows(v.model)
+        want = eval_logits_with(core, state.params, x, flash_attention_reference)
+        hold_k1_by_logits("19c", core, state.params, x, want, card)
+
+        # 19d: check_all on this machine.
+        t0 = time.perf_counter()
+        rc, lines = check_all.wait(max(1.0, CHECK_ALL_TIMEOUT_S - (t0 - t_phase)))
+    finally:
+        check_all.stop()
+    for ln in lines:
+        log(f"19d {ln}")
+    log(f"19d check_all --skip convergence: exit {rc} (waited {time.perf_counter() - t0:.1f} s "
+        f"after 19a-19c) | {card}")
+    if rc != 0:
+        raise AssertionError(f"19d: check_all exited {rc}")
+    log(f"phase 19 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -4520,17 +4871,22 @@ def main() -> int:
     k1["launches"] = main_path(dev)
     k2["launches"] = long_context_path(dev)
     headline_path(dev)
-    task_path(dev)
-    robust_path(dev)
-    families_path(dev)
-    stream_path(dev)
-    async_path(dev)
-    dp_path(dev)
-    mp_path(dev)
-    control_path(dev)
-    platform_path(dev)
-    ingest_path(dev)
-    cluster_path(dev)
+    check_all = CheckAll()  # 19d, in the background from here
+    try:
+        task_path(dev)
+        robust_path(dev)
+        families_path(dev)
+        stream_path(dev)
+        async_path(dev)
+        dp_path(dev)
+        mp_path(dev)
+        control_path(dev)
+        platform_path(dev)
+        ingest_path(dev)
+        cluster_path(dev)
+        analysis_path(dev, check_all)
+    finally:
+        check_all.stop()
     log(f"chip_smoke seconds: {time.perf_counter() - STARTED:.1f}")
     log(json.dumps({"kernels": [k1, k2]}))
     log(smi)

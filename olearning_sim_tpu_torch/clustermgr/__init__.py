@@ -9,10 +9,15 @@ process per rank over ``torch.distributed`` (the JAX package's
 ``jax.distributed`` launcher), :mod:`worker` is each process's entry
 point, :mod:`targets` the multi-process smoke targets, and
 :class:`ElasticWorldRunner` rescales a running task by
-checkpoint-restart. The Kubernetes job builder is not ported
-(ROADMAP A11e)."""
+checkpoint-restart, and :mod:`k8s_api` builds and drives the Kubernetes
+Job that runs such a world on GPU nodes (``deploy/k8s/gpu-pod-job.yaml``)."""
 
 from olearning_sim_tpu_torch.clustermgr.elastic import ElasticWorldRunner
+from olearning_sim_tpu_torch.clustermgr.k8s_api import (
+    GpuPodJobApi,
+    GpuPodJobBuilder,
+    K8sClusterManager,
+)
 from olearning_sim_tpu_torch.clustermgr.launcher import (
     DistributedConfig,
     MultiHostLauncher,
@@ -25,4 +30,5 @@ from olearning_sim_tpu_torch.clustermgr.slice_manager import (
 )
 
 __all__ = ["ClusterManager", "SliceSpec", "SliceStatus", "DistributedConfig",
-           "MultiHostLauncher", "initialize_distributed", "ElasticWorldRunner"]
+           "MultiHostLauncher", "initialize_distributed", "ElasticWorldRunner",
+           "GpuPodJobApi", "GpuPodJobBuilder", "K8sClusterManager"]

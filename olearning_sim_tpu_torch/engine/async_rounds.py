@@ -370,6 +370,16 @@ def check_round(core, ds, plan: AsyncRoundPlan, *, personal=None, control=None,
         )
 
 
+def _to_device(arr: np.ndarray, dev: torch.device) -> torch.Tensor:
+    """A host array on ``dev`` without waiting for the card: a copy from
+    pageable memory synchronizes the host, so on a card it is made from
+    pinned memory, asynchronously on the current stream."""
+    t = torch.from_numpy(arr)
+    if dev.type == "cuda":
+        return t.pin_memory().to(dev, non_blocking=True)
+    return t.to(dev)
+
+
 def window_weights(window: torch.Tensor, weight: torch.Tensor, num_windows: int):
     """``[n, W]``: each client's weight in its window's column, 0 elsewhere.
     Contracted with ``[n, ...]`` deltas it sums each window's weighted
@@ -415,7 +425,7 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
 
     # Per-window staleness discount [W]: uniform within a window (staleness
     # == window index == commits since dispatch), entirely data.
-    window = torch.from_numpy(np.asarray(plan.window[rows], np.int32)).to(dev)
+    window = _to_device(np.asarray(plan.window[rows], np.int32), dev)
     max_stale = torch.full((), float(acfg.max_staleness) if acfg.max_staleness is not None
                            else _NO_MAX_STALENESS, **f32)
     widx = torch.arange(W, **f32)
@@ -433,7 +443,7 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
     weight = torch.where(stale_ok, weight, 0.0)
     # Non-members sit in window 0 with weight 0.
     wclamp = torch.clamp(window, 0, W - 1).long()
-    score = (torch.from_numpy(np.asarray(plan.score[rows], np.float32)).to(dev)
+    score = (_to_device(np.asarray(plan.score[rows], np.float32), dev)
              if acfg.schedule == "score" else None)
 
     sums = core._round_sums(state.params, C, clipping=defense is not None,
@@ -515,7 +525,7 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
     p = core._my_shard(core._flat(params)) if shard_update else params
     # Adam's step count becomes a device integer (int32, as optax keeps it):
     # whether a commit counts is decided on the device.
-    op = {k: torch.tensor(v, dtype=torch.int32, device=dev) if isinstance(v, int) else v
+    op = {k: torch.full((), v, dtype=torch.int32, device=dev) if isinstance(v, int) else v
           for k, v in state.opt_state.items()}
     gates = []
     for w in range(W):

@@ -764,6 +764,8 @@ class FedCore:
         the draw is the whole population's, sliced, so a client's indices
         do not depend on which rank holds it."""
         cfg = self.config
+        # lint: allow-host-sync — the draw is the CPU generator's (the RNG
+        # contract); round_step(indices=...) keeps it out of the round.
         n = torch.clamp(num_samples.cpu(), min=1)
         total = n.shape[0] if total is None else int(total)
         u = torch.rand((total, cfg.max_local_steps, cfg.batch_size),

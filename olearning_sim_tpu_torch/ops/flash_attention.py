@@ -206,13 +206,15 @@ def flash_attention(
       scale: default 1/sqrt(D).
 
     Returns [B, H, Lq, D] in q's dtype. ``flash_attention.launches`` counts
-    the CUDA kernel's launches (CPU calls do not count)."""
+    the CUDA kernel's launches (CPU calls do not count);
+    ``flash_attention.calls`` counts every call, on either device."""
     if torch.is_grad_enabled() and any(t.requires_grad for t in (q, k, v)):
         raise RuntimeError(
             "flash_attention is forward-only (as is the TPU kernel it ports): "
             "call it under torch.no_grad() or on tensors that do not require grad"
         )
     _check(q, k, v, kv_mask, "flash_attention")
+    flash_attention.calls += 1
     if scale is None:
         scale = 1.0 / math.sqrt(q.shape[-1])
     if _device_of(q) == "cpu":
@@ -223,6 +225,7 @@ def flash_attention(
 
 
 flash_attention.launches = 0
+flash_attention.calls = 0
 
 
 class _FlashStats(torch.autograd.Function):

@@ -32,14 +32,16 @@ backward.
 :data:`BYTES` counts, per collective, the bytes each call hands to the
 backend on this rank (the flat buffer's size): the per-round traffic that
 ``chip_smoke.py`` prints. The model-parallel ops count under their axis
-(``mp_psum``, ``ep_psum``, ``pp_psum``, ``pp_hop``).
+(``mp_psum``, ``ep_psum``, ``pp_psum``, ``pp_hop``). :data:`RECORDER`, when
+set (``analysis/op_trace.py`` sets it while it records), sees every such
+call too.
 """
 
 from __future__ import annotations
 
 import contextlib
 import warnings
-from typing import Dict, List, Optional, Sequence
+from typing import Callable, Dict, List, Optional, Sequence
 
 import torch
 import torch.distributed as dist
@@ -48,9 +50,21 @@ BYTES: Dict[str, int] = {"psum": 0, "psum_scatter": 0, "all_gather": 0, "all_to_
                          "pmax": 0, "mp_psum": 0, "ep_psum": 0, "pp_psum": 0, "pp_hop": 0}
 
 
+# Called as RECORDER(name, bytes sent, bytes received) for every call
+# counted in BYTES; None when nothing records.
+RECORDER: Optional[Callable[[str, int, int], None]] = None
+
+
 def reset_bytes() -> None:
     for k in BYTES:
         BYTES[k] = 0
+
+
+def _count(name: str, sent: torch.Tensor, received: torch.Tensor) -> None:
+    n = sent.numel() * sent.element_size()
+    BYTES[name] += n
+    if RECORDER is not None:
+        RECORDER(name, n, received.numel() * received.element_size())
 
 
 def size(group) -> int:
@@ -99,7 +113,7 @@ def _all_reduce(tensors: Sequence[torch.Tensor], group, name: str,
     for _, idx in _by_dtype(tensors).items():
         dev = comm_device(group, tensors[idx[0]])
         buf = _pack([tensors[i] for i in idx], dev)
-        BYTES[name] += buf.numel() * buf.element_size()
+        _count(name, buf, buf)
         dist.all_reduce(buf, op=op, group=group)
         off = 0
         for i in idx:
@@ -150,7 +164,7 @@ def psum_scatter(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
                  .transpose(0, 1).reshape(n, -1) for i in idx]
         buf = torch.cat(parts, dim=1).contiguous()
         res = torch.empty(buf.shape[1], dtype=buf.dtype, device=dev)
-        BYTES["psum_scatter"] += buf.numel() * buf.element_size()
+        _count("psum_scatter", buf, res)
         with _quiet():
             dist.reduce_scatter_tensor(res, buf.reshape(-1), group=group)
         off = 0
@@ -175,7 +189,7 @@ def all_gather(tensors: Sequence[torch.Tensor], group, dim: int = 0) -> List[tor
         dev = comm_device(group, tensors[idx[0]])
         buf = _pack([tensors[i] for i in idx], dev)
         res = torch.empty(n * buf.numel(), dtype=buf.dtype, device=dev)
-        BYTES["all_gather"] += buf.numel() * buf.element_size()
+        _count("all_gather", buf, res)
         with _quiet():
             dist.all_gather_into_tensor(res, buf, group=group)
         res = res.reshape(n, buf.numel())
@@ -214,7 +228,7 @@ def all_to_all(tensors: Sequence[torch.Tensor], group) -> List[torch.Tensor]:
             parts.append(t.reshape(c, n, d // n).transpose(0, 1).reshape(n, -1))
         buf = torch.cat(parts, dim=1).contiguous()
         res = torch.empty_like(buf)
-        BYTES["all_to_all"] += buf.numel() * buf.element_size()
+        _count("all_to_all", buf, res)
         dist.all_to_all_single(res, buf, group=group)
         off = 0
         for i, part in zip(idx, parts):
@@ -313,7 +327,7 @@ def _shift_raw(x: torch.Tensor, group, step: int) -> torch.Tensor:
     ops = []
     if 0 <= r + step < n:
         ops.append(dist.P2POp(dist.isend, src, dist.get_global_rank(group, r + step), group))
-        BYTES["pp_hop"] += src.numel() * src.element_size()
+        _count("pp_hop", src, src)
     if 0 <= r - step < n:
         ops.append(dist.P2POp(dist.irecv, out, dist.get_global_rank(group, r - step), group))
     if ops:

@@ -166,8 +166,8 @@ class TaskSupervisor:
         ``{"renewed": [...], "resumed": [...], "failed": [...],
         "finalized": [...]}`` for tests and operators. ``now`` overrides
         wall-clock for deterministic tests."""
-        # Wall clock: expiry scans compare lease_expires timestamps
-        # persisted by the owning worker process.
+        # lint: allow-wall-clock — expiry scans compare lease_expires
+        # wall-clock timestamps persisted by the owning worker process.
         now = time.time() if now is None else now
         digest: Dict[str, Any] = {"renewed": [], "resumed": [], "failed": [],
                                   "finalized": [], "fenced": []}

@@ -666,8 +666,8 @@ class TaskManager:
         ``adopt_stranded_after``). Returns how many were adopted."""
         if self._adopt_stranded_after is None:
             return 0
-        # Wall clock: in_queue_time is a wall-clock timestamp persisted
-        # by (possibly dead) sibling processes.
+        # lint: allow-wall-clock — in_queue_time is a wall-clock timestamp
+        # persisted by (possibly dead) sibling processes.
         now = time.time() if now is None else now
         if now - self._last_adopt_scan < self._adopt_stranded_after:
             return 0
@@ -999,8 +999,8 @@ class TaskManager:
         fence ourselves by stopping the job, so exactly one process ever
         drives a task (the reclaimer's resumed job is now the task of
         record)."""
-        # Wall clock: renewals compare/extend the repo's persisted
-        # cross-process lease timestamps (see task_repo).
+        # lint: allow-wall-clock — renewals compare/extend the repo's
+        # persisted cross-process lease timestamps (see task_repo).
         now = now if now is not None else time.time()
         # Scope: jobs THIS manager launched (not the row's job_id column —
         # a supervisor reclaim overwrites that, and fencing must still see
@@ -1069,8 +1069,8 @@ class TaskManager:
     def interrupt_once(self, now: Optional[float] = None) -> None:
         """Watchdog (reference ``interruptTask``, ``task_manager.py:1150-1200``):
         kill tasks queued or running beyond their timeouts."""
-        # Wall clock: compared against in_queue_time / submit_task_time,
-        # wall-clock strings persisted by other processes.
+        # lint: allow-wall-clock — compared against in_queue_time /
+        # submit_task_time, wall-clock strings persisted by other processes.
         now = now if now is not None else time.time()
         for row in self._task_repo.query_all():
             task_id = row["task_id"]

@@ -124,8 +124,8 @@ class TaskTableRepo:
                     now: Optional[float] = None) -> bool:
         """Take (or extend) the task's lease. Succeeds when the task is
         unowned, already ours, or its lease expired before ``now``."""
-        # Wall clock: lease_expires is persisted and compared by other
-        # processes; monotonic clocks have per-process epochs.
+        # lint: allow-wall-clock — lease_expires is persisted and compared
+        # by OTHER processes; monotonic clocks have per-process epochs.
         now = time.time() if now is None else now
         return self.backend.claim_row(
             "task_id", task_id, "owner_id", owner_id,
@@ -137,8 +137,8 @@ class TaskTableRepo:
         """Extend the lease iff we still own it. A False answer means
         another process reclaimed the task — the caller must fence itself
         (stop its job), not keep running a task it no longer owns."""
-        # Wall clock: renewals extend the same cross-process persisted
-        # lease timestamp claim_lease wrote.
+        # lint: allow-wall-clock — renewals extend the same cross-process
+        # persisted wall-clock lease timestamp claim_lease wrote.
         now = time.time() if now is None else now
         return self.backend.claim_row(
             "task_id", task_id, "owner_id", owner_id,

@@ -83,6 +83,10 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.clustermgr import (launcher, worker, targets, elastic,\n"
         "    ElasticWorldRunner, MultiHostLauncher, DistributedConfig)\n"
         "from olearning_sim_tpu_torch.analysis import convergence_gate\n"
+        "from olearning_sim_tpu_torch.analysis import (ast_rules, check_all, check_metrics,\n"
+        "    check_event_kinds, check_injection_points, collectives_check, grid, op_audit,\n"
+        "    op_trace, profiler_clock, retrace, tp_coverage, run_analyzers)\n"
+        "from olearning_sim_tpu_torch.clustermgr import k8s_api, GpuPodJobBuilder\n"
         "from olearning_sim_tpu_torch.engine.convergence import run_convergence_task\n"
         "from olearning_sim_tpu_torch.services import session, SimulatorSession\n"
         "from olearning_sim_tpu_torch import config, __main__\n"
