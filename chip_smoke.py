@@ -9,7 +9,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 
 1. The card: ``nvidia-smi`` name and power limit, ``torch.cuda.get_device_name``.
 2. Build every kernel under ``olearning_sim_tpu_torch/csrc`` with ``nvcc``
-   (one process per source, all started together) and print the build time.
+   through ``ops._build.build_all`` (one process per source, all started
+   together; the GPU image's build step) and print the build time.
 3. Kernel phase: each kernel (K1 ``flash_attention``, K2
    ``flash_attention_stats``) against its plain PyTorch version on the card,
    at its path's shape and at ragged, multi-tile and masked shapes, in bf16
@@ -17,7 +18,8 @@ Phases (any failure exits non-zero; no phase's exception is caught):
    instance, f32 the SIMT one); K2's stats over two K/V halves, folded by
    the ring merge, against the whole; then kernel, plain and library times
    at each path's shape beside the card's least possible time (the bound),
-   and the f32 instance's time there.
+   and in f32 the SIMT instance's time, the library's on the same f32
+   inputs and mask (with the backend it picks) and the f32 bound.
 4. Main path: two full-width DistilBERT FedAdam rounds (768/12/6/3072,
    vocab 30522, L 64; dense attention) on 16 synthetic clients, then
    ``evaluate`` on 2048 held-out rows (their tails padded from PAD_SEED).
@@ -424,11 +426,32 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        background before phase 8, after the headline's times), which must
        exit 0.
 
+20. The port's examples (``olearning_sim_tpu_torch/examples/``, no kernel of
+    the repo is on their path: none uses flash attention), each at the JAX
+    example's sizes, seeds and rounds, each holding its own checks:
+    20a in this process: ``library_quickstart`` (mlp2 FedAvg, 256 clients,
+       10 rounds, the central eval), ``custom_operator`` (a user operator's
+       accounting, 16 of 16 a round), ``queue_submit`` (a task through the
+       SQLite intake queue) and ``platform_submit`` (a task submitted to a
+       session and polled to SUCCEEDED), their lines and seconds printed;
+    20b the multi-rank ones, one process a rank sharing the card over gloo,
+       started beside phase 10: ``tensor_pipeline_parallel`` (world 8: mp 1
+       and 2 rounds within 2e-2, ``sharded_fraction``, dp 2 x pp 4 GPipe),
+       ``moe_expert_parallel`` (dp 2 x ep 4, the loss falling),
+       ``long_context_training`` (dp 2 x sp 4, ring and dense accuracy
+       within 0.02) and ``elastic_rescale`` (2 -> 4 workers, its
+       ``overhead_summary()``);
+    20c ``python -m olearning_sim_tpu_torch.ops._build`` (the GPU image's
+       build step) in a fresh process beside 20a, which must build or find
+       exactly the libraries this process loaded in phase 2.
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
 is zeroed again just before 17a's flash evaluate and read just after it,
 and again just before 19a's flash evaluate and read just after it;
-each 18b worker zeroes and reads its own K2 count around its ring forward.
+each 18b worker zeroes and reads its own K2 count around its ring forward;
+both are zeroed just before 20a and read just after it (0: no example runs
+flash attention).
 The last lines are the
 script's seconds, the ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Exits non-zero without CUDA.
@@ -558,16 +581,17 @@ def card_line() -> str:
 
 
 def build_all():
+    """Phase 2: ``ops._build.build_all`` (the GPU image's build step), then
+    each library loaded into this process."""
     from olearning_sim_tpu_torch.ops import _build
 
-    sources = sorted(p.name for p in _build.CSRC.glob("*.cu"))
     t0 = time.perf_counter()
-    with ThreadPoolExecutor(max_workers=max(1, len(sources))) as pool:
-        libs = list(pool.map(_build.build, sources))
-    for src in sources:
+    libs = _build.build_all()
+    for src in libs:
         _build.load(src)
-    log(f"build: {len(sources)} kernel source(s) in {time.perf_counter() - t0:.1f} s: "
-        + ", ".join(str(p) for p in libs))
+    log(f"build: {len(libs)} kernel source(s) in {time.perf_counter() - t0:.1f} s: "
+        + ", ".join(f"{lib} ({'built' if built else 'found'})"
+                    for lib, built in libs.values()))
     for src, text in _build.build_logs.items():
         kernel = ""
         for line in text.splitlines():
@@ -672,13 +696,32 @@ RAGGED_CASES = [
 ]
 
 
+def sdpa_backend(q, k, v, mask) -> str:
+    """The backend ``scaled_dot_product_attention`` picks for these inputs."""
+    import torch
+    from torch.nn.attention import SDPBackend
+
+    return SDPBackend(int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False))).name
+
+
+def attention_bound(B, H, Lq, Lk, D, itemsize, stats_bytes, flops_per_s):
+    """The least time (ms) the card could take for one attention call, and
+    what bounds it: the bytes the function must move (q, k, v and the mask
+    read once; o, and K2's m and l, written once) over 3.35 TB/s against
+    its 4*B*H*Lq*Lk*D operations over ``flops_per_s``."""
+    nbytes = 2 * (B * H * Lq * D + B * H * Lk * D) * itemsize + B * Lk * 4 + stats_bytes
+    flops = 4 * B * H * Lq * Lk * D
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
+    return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
+
+
 def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, dev):
     """Kernel, plain and library times (ms) at ``slice_shape`` in bf16 with
-    every key real, and the bound: the larger of the bytes the function must
-    move (q, k, v and the mask read once; o, and K2's m and l, written once)
-    over 3.35 TB/s and its 4*B*H*Lq*Lk*D operations over the bf16 peak; the
-    roofline share bound / kernel time; the design of each dtype's instance
-    and the f32 instance's time at the same shape."""
+    every key real, and the bound (``attention_bound`` over the bf16 tensor
+    peak); the roofline share bound / kernel time; the design of each
+    dtype's instance; and at the same shape in f32: the kernel's (SIMT)
+    time, the library's on the same f32 inputs and mask with the backend it
+    picks, and the f32 bound (over the f32 peak outside the tensor cores)."""
     import torch
 
     from olearning_sim_tpu_torch.ops.flash_attention import plan_launch
@@ -694,22 +737,30 @@ def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, de
         library_ms = cuda_time_ms(lambda: library(q, k, v, attn_mask=bool_mask))
         qf, kf, vf = q.float(), k.float(), v.float()
         f32_ms = cuda_time_ms(lambda: kernel(qf, kf, vf, kv_mask=mask), iters=5, warmup=1)
+        library_f32_ms = cuda_time_ms(lambda: library(qf, kf, vf, attn_mask=bool_mask),
+                                      iters=5, warmup=1)
+    f32_backend = sdpa_backend(qf, kf, vf, bool_mask)
     design = {str(dt).split(".")[-1]: plan_launch(dt, D, Lk).design
               for dt in (torch.bfloat16, torch.float32)}
     stats_bytes = 2 * B * H * Lq * 4 if name == "flash_attention_stats" else 0
-    nbytes = 2 * (B * H * Lq * D * 2 + B * H * Lk * D * 2) + B * Lk * 4 + stats_bytes
-    flops = 4 * B * H * Lq * Lk * D
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / BF16_FLOPS * 1e3
-    bound_ms = max(t_bytes, t_ops)
-    bound_by = "bytes" if t_bytes >= t_ops else "operations"
+    bound_ms, bound_by, nbytes, flops = attention_bound(B, H, Lq, Lk, D, 2, stats_bytes,
+                                                        BF16_FLOPS)
+    f32_bound_ms, f32_bound_by, f32_bytes, _ = attention_bound(B, H, Lq, Lk, D, 4,
+                                                               stats_bytes, F32_FLOPS)
     log(f"time {name} bf16 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel {ms:.4f} ms, "
         f"plain {plain_ms:.4f} ms, library ({library_name}) {library_ms:.4f} ms, "
         f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP), roofline share {bound_ms / ms:.4f}; f32 kernel "
-        f"{f32_ms:.4f} ms; design {design}")
+        f"{flops / 1e9:.2f} GFLOP), roofline share {bound_ms / ms:.4f}; design {design}")
+    log(f"time {name} f32 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel (SIMT) {f32_ms:.4f} ms, "
+        f"library (scaled_dot_product_attention, backend {f32_backend}) "
+        f"{library_f32_ms:.4f} ms, f32 bound {f32_bound_ms:.4f} ms ({f32_bound_by}: "
+        f"{f32_bytes / 1e6:.1f} MB over {HBM_BYTES_PER_S / 1e12:g} TB/s, "
+        f"{flops / 1e9:.2f} GFLOP over {F32_FLOPS / 1e12:g} TFLOP/s), roofline share "
+        f"{f32_bound_ms / f32_ms:.4f}")
     return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
             "library_ms": library_ms, "roofline_share": bound_ms / ms, "design": design,
-            "f32_ms": f32_ms}
+            "f32_ms": f32_ms, "f32_bound_ms": f32_bound_ms, "f32_bound_by": f32_bound_by,
+            "f32_library_ms": library_f32_ms, "f32_library_backend": f32_backend}
 
 
 def kernel_phase(dev):
@@ -4850,6 +4901,99 @@ def analysis_path(dev, check_all=None):
     log(f"phase 19 seconds: {time.perf_counter() - t_phase:.1f}")
 
 
+# Phase 20: the port's examples (``olearning_sim_tpu_torch/examples/``), the
+# JAX package's eight at their own sizes, seeds, rounds and worlds. 20a runs
+# the in-process ones here; 20b the multi-rank ones, one process a rank
+# sharing the card over gloo, started beside phase 10 (on an H100 80GB
+# HBM3 at 700.00 W they took 156 s alone, each world's ranks paying the
+# interpreter and torch's import again, and beside phases 18-19 slowed 18
+# by 55 s). Each example's own checks hold inside its ``run``.
+EXAMPLES_IN_PROCESS = ("library_quickstart", "custom_operator", "queue_submit",
+                       "platform_submit")
+EXAMPLES_WORLDS = ("tensor_pipeline_parallel", "moe_expert_parallel", "long_context_training",
+                   "elastic_rescale")
+
+
+def run_example(label, name, dev, card) -> float:
+    """One example's ``run`` on ``dev``: its lines printed, its seconds
+    returned."""
+    import importlib
+
+    module = importlib.import_module(f"olearning_sim_tpu_torch.examples.{name}")
+    t0 = time.perf_counter()
+    result = module.run(dev)
+    secs = time.perf_counter() - t0
+    for line in module.report(result):
+        log(f"{label} {name}: {line}")
+    log(f"{label} {name}: {secs:.1f} s | {card}")
+    return secs
+
+
+def example_worlds(dev, card) -> float:
+    """20b: the multi-rank examples in turn; returns their wall seconds."""
+    t0 = time.perf_counter()
+    for name in EXAMPLES_WORLDS:
+        run_example("20b", name, dev, card)
+    return time.perf_counter() - t0
+
+
+def start_prebuilt():
+    """20c's process: ``python -m olearning_sim_tpu_torch.ops._build`` (the
+    GPU image's build step), started beside 20a."""
+    return subprocess.Popen([sys.executable, "-m", "olearning_sim_tpu_torch.ops._build"],
+                            cwd=ROOT, stdout=subprocess.PIPE, stderr=subprocess.PIPE,
+                            text=True), time.perf_counter()
+
+
+def prebuilt_check(started, card):
+    """20c: the build entry (``start_prebuilt``'s process) must build or find
+    exactly the libraries this process loaded in phase 2."""
+    from olearning_sim_tpu_torch.ops import _build
+
+    loaded = {src: pathlib.Path(_build.load(src)._name).resolve() for src in _build.sources()}
+    proc, t0 = started
+    stdout, stderr = proc.communicate(timeout=600)
+    secs = time.perf_counter() - t0
+    if proc.returncode != 0:
+        raise AssertionError(f"20c: the kernel build exited {proc.returncode}:\n"
+                             f"{stdout}{stderr}")
+    fresh = {}
+    for line in stdout.splitlines():
+        src, word, lib = line.split(" ", 2)
+        fresh[src] = pathlib.Path(lib).resolve()
+        log(f"20c {src}: {word} {lib} (loaded here: {loaded.get(src)})")
+    log(f"20c python -m olearning_sim_tpu_torch.ops._build: {secs:.1f} s from its start "
+        f"beside 20a | {card}")
+    if fresh != loaded:
+        raise AssertionError(f"20c: the build entry's libraries {fresh} are not the loaded "
+                             f"ones {loaded}")
+
+
+def examples_path(dev, worlds, t_worlds):
+    """Phase 20: 20a here with 20c's process beside it, then 20b's worlds
+    (``worlds``, a future started at ``t_worlds``) awaited, then 20c's
+    check. K1's and K2's counts are zeroed before 20a and read after it
+    (no example runs flash attention: the long-context example's ring
+    combines in plain PyTorch, as the JAX example's; 20b's counts are its
+    ranks')."""
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    prebuilt = start_prebuilt()
+    flash_attention.launches = flash_attention_stats.launches = 0
+    secs = {name: run_example("20a", name, dev, card) for name in EXAMPLES_IN_PROCESS}
+    log(f"20a K1 launches {flash_attention.launches}, K2 launches "
+        f"{flash_attention_stats.launches}; seconds {json.dumps(secs)}")
+    t_wait = time.perf_counter()
+    wall = worlds.result()
+    log(f"20b the four worlds: {wall:.1f} s from their start beside phase 10, "
+        f"{time.perf_counter() - t_wait:.1f} s waited after 20a")
+    prebuilt_check(prebuilt, card)
+    log(f"phase 20 seconds: {time.perf_counter() - t_phase:.1f} after phase 19 "
+        f"(20b started {t_phase - t_worlds:.1f} s before, beside phase 10 on)")
+
+
 def main() -> int:
     import torch
 
@@ -4875,16 +5019,22 @@ def main() -> int:
     try:
         task_path(dev)
         robust_path(dev)
-        families_path(dev)
-        stream_path(dev)
-        async_path(dev)
-        dp_path(dev)
-        mp_path(dev)
-        control_path(dev)
-        platform_path(dev)
-        ingest_path(dev)
-        cluster_path(dev)
-        analysis_path(dev, check_all)
+        with ThreadPoolExecutor(1) as pool:
+            t_worlds = time.perf_counter()
+            # 20b, beside phase 10 on (mostly one busy core: resnet18's
+            # rounds wait on the card, vit_tiny's on one launching thread).
+            worlds = pool.submit(example_worlds, dev, card_line())
+            families_path(dev)
+            stream_path(dev)
+            async_path(dev)
+            dp_path(dev)
+            mp_path(dev)
+            control_path(dev)
+            platform_path(dev)
+            ingest_path(dev)
+            cluster_path(dev)
+            analysis_path(dev, check_all)
+            examples_path(dev, worlds, t_worlds)
     finally:
         check_all.stop()
     log(f"chip_smoke seconds: {time.perf_counter() - STARTED:.1f}")

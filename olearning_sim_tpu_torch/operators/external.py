@@ -14,8 +14,10 @@ differences. Its ok mask spans the population's whole padded client axis
 part; at one rank it is the JAX module's ``num_clients``. Over several
 ranks (the core's plan), each rank runs every world-th batch and the ranks
 sum their masks, so each client's code runs once a round, as in the JAX
-package's one process. The batch size, the concurrency, the timeout and the
-interpreter are the JAX module's defaults, as constants: no task sets them.
+package's one process. The concurrency, the timeout and the interpreter
+are the JAX module's defaults, as constants: no caller sets them. The batch
+size is the constant BATCH_SIZE unless the operator is given its own, as
+the custom-operator example gives 4 (a task sets none).
 """
 
 from __future__ import annotations
@@ -27,7 +29,7 @@ import subprocess
 import sys
 import tempfile
 from concurrent.futures import ThreadPoolExecutor
-from typing import Any, Dict, List
+from typing import Any, Dict, List, Optional
 
 import numpy as np
 
@@ -47,6 +49,7 @@ class ExternalOperator:
     code_dir: str
     entry_file: str
     operator_params: str = ""  # opaque JSON string handed to the operator
+    batch_size: Optional[int] = None  # clients per subprocess; None: BATCH_SIZE
 
     def __post_init__(self):
         entry = os.path.join(self.code_dir, self.entry_file)
@@ -113,9 +116,10 @@ class ExternalOperator:
         me, world = collectives.rank(group), collectives.size(group)
         p = population
         real = p.dataset.num_real_clients
+        size = self.batch_size or BATCH_SIZE
         batches = [
-            list(range(s, min(s + BATCH_SIZE, real)))
-            for s in range(0, real, BATCH_SIZE)
+            list(range(s, min(s + size, real)))
+            for s in range(0, real, size)
         ]
         mine = range(me, len(batches), world)
         params_list = [
@@ -144,16 +148,17 @@ def external_operator_spec(name: str, code_dir: str, entry_file: str,
                            operator_params: str = "",
                            use_deviceflow: bool = False,
                            deviceflow_strategy: str = "",
-                           inputs=None):
+                           inputs=None, batch_size: Optional[int] = None):
     """Build an OperatorSpec running external user code (the task-bridge
     path for non-``builtin:`` operatorCodePath values). Deviceflow lifecycle
     flags carry over so legacy operators keep their NotifyStart/Complete
-    semantics. The operator's save root is the spec's scratch directory,
-    removed when its runner's run ends."""
+    semantics. ``batch_size`` clients share one subprocess. The operator's
+    save root is the spec's scratch directory, removed when its runner's
+    run ends."""
     from olearning_sim_tpu_torch.engine.runner import OperatorSpec
 
     fn = ExternalOperator(code_dir=code_dir, entry_file=entry_file,
-                          operator_params=operator_params)
+                          operator_params=operator_params, batch_size=batch_size)
     return OperatorSpec(
         name=name,
         kind="custom",

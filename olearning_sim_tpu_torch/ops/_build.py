@@ -7,6 +7,12 @@ at first use, inside the call that needs the kernel, into
 ``<repo>/build/kernels/`` (listed in ``.gitignore``). The library's file
 name carries a hash of its source and flags, so an edited source is rebuilt
 and a current one is reused.
+
+``python -m olearning_sim_tpu_torch.ops._build`` builds every source ahead
+of time (:func:`build_all`; ``nvcc`` needs no card to compile for
+``sm_90a``), as the GPU image does (``deploy/Dockerfile.gpu``), so a
+process that later loads a kernel finds its library and compiles nothing.
+It prints one line per source: ``<source> built|found <library path>``.
 """
 
 from __future__ import annotations
@@ -17,8 +23,10 @@ import os
 import pathlib
 import shutil
 import subprocess
+import sys
 import threading
-from typing import Dict, Tuple
+from concurrent.futures import ThreadPoolExecutor
+from typing import Dict, List, Tuple
 
 CSRC = pathlib.Path(__file__).resolve().parent.parent / "csrc"
 BUILD_DIR = pathlib.Path(__file__).resolve().parent.parent.parent / "build" / "kernels"
@@ -82,3 +90,29 @@ def load(source: str) -> ctypes.CDLL:
             lib = ctypes.CDLL(str(build(source)))
             _loaded[source] = lib
         return lib
+
+
+def sources() -> List[str]:
+    """Every kernel source of the package, by file name."""
+    return sorted(p.name for p in CSRC.glob("*.cu"))
+
+
+def build_all() -> Dict[str, Tuple[pathlib.Path, bool]]:
+    """Build every source (one ``nvcc`` each, all started together) unless
+    its current library exists. Returns ``source -> (library path, built)``,
+    ``built`` False where the library was found."""
+    names = sources()
+    found = {name: library_path(name)[1].exists() for name in names}
+    with ThreadPoolExecutor(max_workers=max(1, len(names))) as pool:
+        libs = list(pool.map(build, names))
+    return {name: (lib, not found[name]) for name, lib in zip(names, libs)}
+
+
+def main() -> int:
+    for name, (lib, built) in build_all().items():
+        print(f"{name} {'built' if built else 'found'} {lib}", flush=True)
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())
