@@ -14,12 +14,13 @@ Phases (any failure exits non-zero; no phase's exception is caught):
 3. Kernel phase: each kernel (K1 ``flash_attention``, K2
    ``flash_attention_stats``) against its plain PyTorch version on the card,
    at its path's shape and at ragged, multi-tile and masked shapes, in bf16
-   and f32, with the tolerance stated (bf16 runs the wgmma + TMA
-   instance, f32 the SIMT one); K2's stats over two K/V halves, folded by
-   the ring merge, against the whole; then kernel, plain and library times
-   at each path's shape beside the card's least possible time (the bound),
-   and in f32 the SIMT instance's time, the library's on the same f32
-   inputs and mask (with the backend it picks) and the f32 bound.
+   and f32, with the tolerance stated (both run the wgmma + TMA kernel
+   template, f32 in split-precision TF32, three TF32 products per k-step);
+   K2's stats over two K/V halves, folded by the ring merge, against the
+   whole; then, per input type at each path's shape, kernel, plain and
+   library times (the library's backend named) beside the card's least
+   possible time (the bound: bf16 operations at the bf16 tensor-core peak,
+   f32 three TF32 products at the TF32 peak) and the roofline share.
 4. Main path: two full-width DistilBERT FedAdam rounds (768/12/6/3072,
    vocab 30522, L 64; dense attention) on 16 synthetic clients, then
    ``evaluate`` on 2048 held-out rows (their tails padded from PAD_SEED).
@@ -445,13 +446,28 @@ Phases (any failure exits non-zero; no phase's exception is caught):
        build step) in a fresh process beside 20a, which must build or find
        exactly the libraries this process loaded in phase 2.
 
+21. f32 attention on the card (run after phase 6, since it reuses phase 5's
+    model): 21a phase 5's trained DistilBERT in f32 compute with flash
+    attention, built as a task builds it (``model_overrides`` holding
+    ``"dtype": "float32"``), evaluates phase 5's 2048 rows, which must
+    launch K1's f32 instance 12 times (6 layers x 2 eval batches), held by
+    its logits within F32_EVAL_LOGITS_ATOL of the dense f32 model's, with
+    K1's two wrong kernels failing the same check; 21b phase 6 in f32
+    compute (``dtype="float32"``): two forwards and an SGD step through
+    K2's f32 instance, 6 launches per forward, held by logits and
+    gradients against the dense-combine ring in f32 (LC_TOL).
+
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
 is zeroed again just before 17a's flash evaluate and read just after it,
 and again just before 19a's flash evaluate and read just after it;
 each 18b worker zeroes and reads its own K2 count around its ring forward;
 both are zeroed just before 20a and read just after it (0: no example runs
-flash attention).
+flash attention), and just before 21a's flash evaluate, K1's read just
+after it; 21b zeroes and reads them as phase 6 does. The ``kernels`` JSON
+has one entry per instance: ``flash_attention`` and ``flash_attention_stats``
+(bf16, launches from phases 5 and 6) and their ``_f32`` entries (launches
+from 21a and 21b).
 The last lines are the
 script's seconds, the ``kernels`` JSON, the ``nvidia-smi`` line and ``{"ok": true, "device":
 {...}}``. Exits non-zero without CUDA.
@@ -493,6 +509,13 @@ EVAL_LOGITS_ATOL = 5e-2
 # gradients: ||g_flash - g_dense|| / ||g_dense|| over all parameters.
 LC_LOGITS_ATOL = 5e-2
 LC_GRAD_REL = 5e-2
+# Phase 21, f32 compute on both sides: the kernels' split-precision TF32
+# products (about 2^-22 of each; one TF32 product keeps 2^-11) and summation
+# order through 6 layers. K1's flash model against the dense model by
+# logits (absolute; the two wrong kernels must still fail it), K2's ring
+# against the dense-combine ring by logits and gradients as above.
+F32_EVAL_LOGITS_ATOL = 1e-3
+LC_TOL = {"bfloat16": (LC_LOGITS_ATOL, LC_GRAD_REL), "float32": (1e-3, 1e-3)}
 # Phase 7, a round on the card against the same round on the CPU (same
 # parameters, data and indices, bf16 compute with f32 accumulation on both,
 # TF32 off): the two differ where cuDNN/cuBLAS and the CPU accumulate in
@@ -565,7 +588,7 @@ REPLACES_STATS = "olearning_sim_" "tpu/ops/flash_attention.py:52"
 KERNEL_SOURCE = "olearning_sim_tpu_torch/csrc/flash_attention.cu"
 HBM_BYTES_PER_S = 3.35e12        # H100 SXM
 BF16_FLOPS = 989e12              # H100 SXM dense bf16 tensor-core peak
-F32_FLOPS = 67e12                # H100 SXM f32 outside the tensor cores
+TF32_FLOPS = 495e12              # H100 SXM dense TF32 tensor-core peak
 
 
 def log(*args):
@@ -596,8 +619,9 @@ def build_all():
         kernel = ""
         for line in text.splitlines():
             if "Compiling entry function" in line:
-                found = re.search(r"(attn_\w+?_kernel)ILi(\d+)ELb(\d)", line)
-                kernel = f" {found[1]}<{found[2]}, {found[3]}>" if found else ""
+                found = re.search(r"(attn_\w+?_kernel)I(f|13__nv_bfloat16)Li(\d+)ELb(\d)", line)
+                kernel = (f" {found[1]}<{'float' if found[2] == 'f' else 'bf16'}, {found[3]}, "
+                          f"{found[4]}>" if found else "")
             if "registers" in line or "spill" in line:
                 log(f"  ptxas {src}{kernel}: {line.strip()}")
 
@@ -704,24 +728,28 @@ def sdpa_backend(q, k, v, mask) -> str:
     return SDPBackend(int(torch._fused_sdp_choice(q, k, v, mask, 0.0, False))).name
 
 
-def attention_bound(B, H, Lq, Lk, D, itemsize, stats_bytes, flops_per_s):
+def attention_bound(B, H, Lq, Lk, D, itemsize, stats_bytes, flops_per_s, products=1):
     """The least time (ms) the card could take for one attention call, and
     what bounds it: the bytes the function must move (q, k, v and the mask
     read once; o, and K2's m and l, written once) over 3.35 TB/s against
-    its 4*B*H*Lq*Lk*D operations over ``flops_per_s``."""
+    its ``products`` x 4*B*H*Lq*Lk*D operations over ``flops_per_s``.
+    In bf16 one product at the bf16 tensor-core peak; f32-accurate work
+    on the tensor cores is three TF32 products at the TF32 peak."""
     nbytes = 2 * (B * H * Lq * D + B * H * Lk * D) * itemsize + B * Lk * 4 + stats_bytes
-    flops = 4 * B * H * Lq * Lk * D
+    flops = products * 4 * B * H * Lq * Lk * D
     t_bytes, t_ops = nbytes / HBM_BYTES_PER_S * 1e3, flops / flops_per_s * 1e3
     return max(t_bytes, t_ops), ("bytes" if t_bytes >= t_ops else "operations"), nbytes, flops
 
 
+# Per input type: the element size and the bound's products and peak.
+BOUND_OF = {"bfloat16": (2, 1, BF16_FLOPS), "float32": (4, 3, TF32_FLOPS)}
+
+
 def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, dev):
-    """Kernel, plain and library times (ms) at ``slice_shape`` in bf16 with
-    every key real, and the bound (``attention_bound`` over the bf16 tensor
-    peak); the roofline share bound / kernel time; the design of each
-    dtype's instance; and at the same shape in f32: the kernel's (SIMT)
-    time, the library's on the same f32 inputs and mask with the backend it
-    picks, and the f32 bound (over the f32 peak outside the tensor cores)."""
+    """For each input type (bf16, f32) at ``slice_shape`` with every key
+    real: kernel, plain and library times (ms), the backend the library
+    picks, the bound (``attention_bound``) and the roofline share bound /
+    kernel time, and the instance's design. Returns ``{dtype name: times}``."""
     import torch
 
     from olearning_sim_tpu_torch.ops.flash_attention import plan_launch
@@ -731,36 +759,40 @@ def time_kernel(name, slice_shape, kernel, plain, library, library_name, gen, de
                for L in (Lq, Lk, Lk))
     mask = torch.ones((B, Lk), dtype=torch.float32, device=dev)
     bool_mask = (mask > 0)[:, None, None, :]
-    with torch.no_grad():
-        ms = cuda_time_ms(lambda: kernel(q, k, v, kv_mask=mask))
-        plain_ms = cuda_time_ms(lambda: plain(q, k, v, kv_mask=mask))
-        library_ms = cuda_time_ms(lambda: library(q, k, v, attn_mask=bool_mask))
-        qf, kf, vf = q.float(), k.float(), v.float()
-        f32_ms = cuda_time_ms(lambda: kernel(qf, kf, vf, kv_mask=mask), iters=5, warmup=1)
-        library_f32_ms = cuda_time_ms(lambda: library(qf, kf, vf, attn_mask=bool_mask),
-                                      iters=5, warmup=1)
-    f32_backend = sdpa_backend(qf, kf, vf, bool_mask)
-    design = {str(dt).split(".")[-1]: plan_launch(dt, D, Lk).design
-              for dt in (torch.bfloat16, torch.float32)}
     stats_bytes = 2 * B * H * Lq * 4 if name == "flash_attention_stats" else 0
-    bound_ms, bound_by, nbytes, flops = attention_bound(B, H, Lq, Lk, D, 2, stats_bytes,
-                                                        BF16_FLOPS)
-    f32_bound_ms, f32_bound_by, f32_bytes, _ = attention_bound(B, H, Lq, Lk, D, 4,
-                                                               stats_bytes, F32_FLOPS)
-    log(f"time {name} bf16 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel {ms:.4f} ms, "
-        f"plain {plain_ms:.4f} ms, library ({library_name}) {library_ms:.4f} ms, "
-        f"bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB, "
-        f"{flops / 1e9:.2f} GFLOP), roofline share {bound_ms / ms:.4f}; design {design}")
-    log(f"time {name} f32 B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel (SIMT) {f32_ms:.4f} ms, "
-        f"library (scaled_dot_product_attention, backend {f32_backend}) "
-        f"{library_f32_ms:.4f} ms, f32 bound {f32_bound_ms:.4f} ms ({f32_bound_by}: "
-        f"{f32_bytes / 1e6:.1f} MB over {HBM_BYTES_PER_S / 1e12:g} TB/s, "
-        f"{flops / 1e9:.2f} GFLOP over {F32_FLOPS / 1e12:g} TFLOP/s), roofline share "
-        f"{f32_bound_ms / f32_ms:.4f}")
-    return {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
-            "library_ms": library_ms, "roofline_share": bound_ms / ms, "design": design,
-            "f32_ms": f32_ms, "f32_bound_ms": f32_bound_ms, "f32_bound_by": f32_bound_by,
-            "f32_library_ms": library_f32_ms, "f32_library_backend": f32_backend}
+    out = {}
+    for dtype in (torch.bfloat16, torch.float32):
+        dt = str(dtype).split(".")[-1]
+        qd, kd, vd = q.to(dtype), k.to(dtype), v.to(dtype)
+        iters, warmup = (20, 3) if dtype == torch.bfloat16 else (10, 2)
+        with torch.no_grad():
+            ms = cuda_time_ms(lambda: kernel(qd, kd, vd, kv_mask=mask), iters, warmup)
+            plain_ms = cuda_time_ms(lambda: plain(qd, kd, vd, kv_mask=mask), iters, warmup)
+            library_ms = cuda_time_ms(lambda: library(qd, kd, vd, attn_mask=bool_mask), iters,
+                                      warmup)
+        backend = sdpa_backend(qd, kd, vd, bool_mask)
+        itemsize, products, peak = BOUND_OF[dt]
+        bound_ms, bound_by, nbytes, flops = attention_bound(B, H, Lq, Lk, D, itemsize,
+                                                            stats_bytes, peak, products)
+        design = plan_launch(dtype, D, Lk).design
+        log(f"time {name} {dt} B={B} H={H} Lq={Lq} Lk={Lk} D={D}: kernel ({design}) "
+            f"{ms:.4f} ms, plain {plain_ms:.4f} ms, library ({library_name}, backend {backend}) "
+            f"{library_ms:.4f} ms, bound {bound_ms:.4f} ms ({bound_by}: {nbytes / 1e6:.1f} MB "
+            f"over {HBM_BYTES_PER_S / 1e12:g} TB/s, {flops / 1e9:.2f} GFLOP over "
+            f"{peak / 1e12:g} TFLOP/s), roofline share {bound_ms / ms:.4f}")
+        out[dt] = {"ms": ms, "plain_ms": plain_ms, "bound_ms": bound_ms, "bound_by": bound_by,
+                   "library_ms": library_ms, "library_backend": backend,
+                   "roofline_share": bound_ms / ms, "design": design}
+    return out
+
+
+def kernel_entries(name, replaces, errs, times):
+    """The ``kernels`` JSON entries of one kernel: one per instance, bf16
+    under the kernel's name and f32 under ``<name>_f32``; each gets its
+    path's ``launches`` later."""
+    return {dt: {"name": name if dt == "bfloat16" else f"{name}_f32", "route": "cuda",
+                 "source": KERNEL_SOURCE, "replaces": replaces, "max_abs_err": errs[dt],
+                 **times[dt]} for dt in ("bfloat16", "float32")}
 
 
 def kernel_phase(dev):
@@ -775,17 +807,16 @@ def kernel_phase(dev):
     torch.backends.cudnn.allow_tf32 = False
     gen = torch.Generator().manual_seed(0)
     slice_shape = (1024, 12, 64, 64, 64)  # B, H, Lq, Lk, D of the flash evaluate
-    slice_err = None
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for case in [slice_shape] + RAGGED_CASES:
             err = check_kernel(False, case, dtype, gen, dev)
-            if case == slice_shape and dtype == torch.bfloat16:
-                slice_err = err
+            if case == slice_shape:
+                errs[str(dtype).split(".")[-1]] = err
     times = time_kernel("flash_attention", slice_shape, flash_attention,
                         flash_attention_reference, F.scaled_dot_product_attention,
                         "scaled_dot_product_attention", gen, dev)
-    return {"name": "flash_attention", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES_FLASH, "max_abs_err": slice_err, **times}
+    return kernel_entries("flash_attention", REPLACES_FLASH, errs, times)
 
 
 def stats_kernel_phase(dev):
@@ -800,12 +831,12 @@ def stats_kernel_phase(dev):
 
     gen = torch.Generator().manual_seed(1)
     slice_shape = (8, 12, 2048, 2048, 64)  # B, H, Lq, Lk, D of the long-context forward
-    slice_err = None
+    errs = {}
     for dtype in (torch.bfloat16, torch.float32):
         for case in [slice_shape] + RAGGED_CASES:
             err = check_kernel(True, case, dtype, gen, dev)
-            if case == slice_shape and dtype == torch.bfloat16:
-                slice_err = err
+            if case == slice_shape:
+                errs[str(dtype).split(".")[-1]] = err
 
     # Compose: the kernel's stats over the two K/V halves, folded by the
     # ring merge, against the kernel over the whole (make_mask's rows include
@@ -842,8 +873,7 @@ def stats_kernel_phase(dev):
                         flash_attention_stats_reference, F.scaled_dot_product_attention,
                         "scaled_dot_product_attention: the same o, without m and l",
                         gen, dev)
-    return {"name": "flash_attention_stats", "route": "cuda", "source": KERNEL_SOURCE,
-            "replaces": REPLACES_STATS, "max_abs_err": slice_err, **times}
+    return kernel_entries("flash_attention_stats", REPLACES_STATS, errs, times)
 
 
 # Earlier phases' results on the card, held by phase 13: each entry's
@@ -961,7 +991,7 @@ def main_path(dev):
     flash_core = build_fedcore("distilbert", fedadam(0.01, 0.001), cfg,
                                model_overrides={"attention_impl": "flash"}, device=dev)
     trained = dense_to_flash(state.params)
-    RESULTS["5"] = {"flash": _host(trained)}
+    RESULTS["5"] = {"flash": _host(trained), "dense": _host(state.params)}
     before = flash_attention.launches
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -996,8 +1026,9 @@ def main_path(dev):
     return launches
 
 
-def long_context_path(dev):
-    """Phase 6; returns K2's launches in it."""
+def long_context_path(dev, dtype="bfloat16", label="long-context"):
+    """Phase 6 (bf16 compute) or 21b (``dtype`` "float32", the task path's
+    spelling); returns K2's launches in it."""
     import numpy as np
     import torch
     import torch.nn.functional as F
@@ -1015,8 +1046,9 @@ def long_context_path(dev):
     tok = torch.as_tensor(tokens, dtype=torch.long, device=dev)
     labels = torch.as_tensor(rng.integers(0, 2, size=B), dtype=torch.long, device=dev)
 
+    logits_atol, grad_rel = LC_TOL[dtype]
     models = {use_flash: spec.build(max_len=L, attention_impl="ring",
-                                    ring_use_flash=use_flash)
+                                    ring_use_flash=use_flash, dtype=dtype)
               for use_flash in (True, False)}
     params = models[True].init_params(torch.Generator().manual_seed(0))
     for m in models.values():
@@ -1024,7 +1056,7 @@ def long_context_path(dev):
         m.to(dev)
     n_params = sum(p.numel() for p in params.values())
     depth = len(models[True].blocks)
-    log(f"long-context path: distilbert {n_params} params, ring of one, "
+    log(f"{label} path: distilbert {n_params} params, {dtype} compute, ring of one, "
         f"{B} rows x {L} tokens ({int((tok != 0).sum())} real)")
 
     flash_attention.launches = flash_attention_stats.launches = 0
@@ -1042,12 +1074,13 @@ def long_context_path(dev):
         torch.cuda.synchronize()
     diff = float((logits - ref).abs().max())
     ok = bool(torch.isfinite(logits).all()) and tuple(logits.shape) == (B, 2) \
-        and diff <= LC_LOGITS_ATOL
-    log(f"long-context forward (K2 ring): seconds {fwd_s[0]:.4f} (first), {fwd_s[1]:.4f} "
+        and diff <= logits_atol
+    log(f"{label} forward (K2 ring): seconds {fwd_s[0]:.4f} (first), {fwd_s[1]:.4f} "
         f"(second); logits vs dense-combine ring max|diff| {diff:.3e} "
-        f"(tol {LC_LOGITS_ATOL:g}) -> {'ok' if ok else 'FAIL'}")
+        f"(tol {logits_atol:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the K2 ring model's logits disagree with the dense combine's")
+        raise AssertionError(f"{label}: the K2 ring model's logits disagree with the dense "
+                             "combine's")
 
     def sgd_step(model):
         """One SGD step through the model's ring attention; returns the loss,
@@ -1074,18 +1107,74 @@ def long_context_path(dev):
     num = math.sqrt(sum(float(((g_f[k] - g_d[k]).float() ** 2).sum()) for k in g_d))
     den = math.sqrt(sum(float((g_d[k].float() ** 2).sum()) for k in g_d))
     finite = all(bool(torch.isfinite(g).all()) for g in g_f.values())
-    ok = math.isfinite(loss_f) and finite and num / den <= LC_GRAD_REL
-    log(f"long-context SGD step (lr {lr}): K2 ring loss {loss_f:.6f} in {secs_f:.4f} s, "
+    ok = math.isfinite(loss_f) and finite and num / den <= grad_rel
+    log(f"{label} SGD step (lr {lr}): K2 ring loss {loss_f:.6f} in {secs_f:.4f} s, "
         f"peak {peak_f:.2f} GiB; dense-combine ring loss {loss_d:.6f} in {secs_d:.4f} s, "
         f"peak {peak_d:.2f} GiB; gradient rel L2 diff {num / den:.3e} "
-        f"(tol {LC_GRAD_REL:g}) -> {'ok' if ok else 'FAIL'}")
+        f"(tol {grad_rel:g}) -> {'ok' if ok else 'FAIL'}")
     if not ok:
-        raise AssertionError("the K2 ring step disagrees with the dense-combine step")
+        raise AssertionError(f"{label}: the K2 ring step disagrees with the dense-combine step")
     if launches != depth * forwards:
-        raise AssertionError(f"K2 launched {launches} times, expected {depth} layers x "
-                             f"{forwards} forwards")
-    log(f"long-context K2 launches: {launches} ({depth} layers x {forwards} forwards)")
+        raise AssertionError(f"{label}: K2 launched {launches} times, expected {depth} layers "
+                             f"x {forwards} forwards")
+    log(f"{label} K2 launches: {launches} ({depth} layers x {forwards} forwards)")
     return launches
+
+
+def f32_path(dev):
+    """Phase 21, f32 attention on the card; returns K1's launches in 21a
+    and K2's in 21b. 21a: phase 5's trained model in f32 compute with flash
+    attention, built as a task builds it (``model_overrides`` with
+    ``"dtype": "float32"``), evaluates phase 5's 2048 rows (K1's f32
+    instance, depth x eval batches launches), held by its logits against
+    the dense f32 model's and by the two wrong kernels failing the same
+    check. 21b: phase 6 in f32 compute (K2's f32 instance in the ring)."""
+    import torch
+
+    from olearning_sim_tpu_torch.engine import FedCoreConfig, build_fedcore, fedadam
+    from olearning_sim_tpu_torch.ops import flash_attention, flash_attention_stats
+
+    t_phase = time.perf_counter()
+    card = card_line()
+    cfg = FedCoreConfig(**MAIN_CFG)
+    eval_n = 2048
+    x_eval, y_eval = padded_eval_set(eval_n)
+    cores = {impl: build_fedcore("distilbert", fedadam(0.01, 0.001), cfg,
+                                 model_overrides={"attention_impl": impl, "dtype": "float32"},
+                                 device=dev)
+             for impl in ("dense", "flash")}
+    params = {impl: {k: v.to(dev) for k, v in RESULTS["5"][impl].items()}
+              for impl in ("dense", "flash")}
+    if cores["flash"].model.dtype != torch.float32:
+        raise AssertionError(f"21a: the model computes in {cores['flash'].model.dtype}")
+    dloss, dacc = cores["dense"].evaluate(params["dense"], x_eval, y_eval)
+    dense_logits = eval_logits(cores["dense"], params["dense"], x_eval)
+
+    flash_attention.launches = flash_attention_stats.launches = 0
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    floss, facc = cores["flash"].evaluate(params["flash"], x_eval, y_eval)
+    secs = time.perf_counter() - t0
+    k1 = flash_attention.launches
+    batches = -(-eval_n // cfg.eval_batch_size)
+    depth = len(cores["flash"].model.blocks)
+    log(f"21a f32 flash evaluate on {eval_n}: loss={floss:.6f} acc={facc:.4f} seconds="
+        f"{secs:.4f} (dense f32 {dloss:.6f} / {dacc:.4f}); K1 launches {k1} ({depth} layers x "
+        f"{batches} eval batches)")
+    if k1 != depth * batches or flash_attention_stats.launches != 0:
+        raise AssertionError(f"21a: K1 launched {k1} times, expected {depth} layers x "
+                             f"{batches} eval batches")
+    if not (math.isfinite(floss) and abs(floss - dloss) <= EVAL_LOSS_TOL):
+        raise AssertionError("21a: the f32 flash evaluate loss is not finite or not the "
+                             "dense one's")
+    hold_k1_by_logits("21a", cores["flash"], params["flash"], x_eval, dense_logits, card,
+                      atol=F32_EVAL_LOGITS_ATOL)
+    del cores, params
+    torch.cuda.empty_cache()
+
+    k2 = long_context_path(dev, dtype="float32", label="21b")
+    log(f"phase 21 seconds: {time.perf_counter() - t_phase:.1f}")
+    return k1, k2
 
 
 def fl_rounds(label, core, ds, dev, rounds, x_eval, y_eval, num_steps=None):
@@ -4063,9 +4152,10 @@ def eval_logits(core, params, x):
                           for i in range(0, len(x), bs)])
 
 
-def hold_k1_by_logits(label, flash_core, params, x, want, card, wrong_must_fail=True):
+def hold_k1_by_logits(label, flash_core, params, x, want, card, wrong_must_fail=True,
+                      atol=EVAL_LOGITS_ATOL):
     """K1 held by logits: the flash model's logits over ``x`` within
-    EVAL_LOGITS_ATOL of ``want`` (the dense model's, or the flash model's at
+    ``atol`` of ``want`` (the dense model's, or the flash model's at
     mp 1), and the same check failing two wrong kernels: K1 with its key
     mask dropped (padding attended) and with uniform weights (scores
     zeroed). Their launches are not counted: callers read K1's count first.
@@ -4078,8 +4168,8 @@ def hold_k1_by_logits(label, flash_core, params, x, want, card, wrong_must_fail=
     want = want.to(got.device)
     diff = float((got - want).abs().max())
     log(f"{label} logits max|flash - reference| {diff:.3e} over {len(x)} rows (tol "
-        f"{EVAL_LOGITS_ATOL:g}, reference max|.| {float(want.abs().max()):.3f}) | {card}")
-    if not (bool(torch.isfinite(got).all()) and diff <= EVAL_LOGITS_ATOL):
+        f"{atol:g}, reference max|.| {float(want.abs().max()):.3f}) | {card}")
+    if not (bool(torch.isfinite(got).all()) and diff <= atol):
         raise AssertionError(f"{label}: the flash logits disagree with the reference")
     real_k1 = transformer.flash_attention
     wrong = {"key mask dropped": lambda q, k, v, kv_mask=None: real_k1(q, k, v),
@@ -4093,8 +4183,8 @@ def hold_k1_by_logits(label, flash_core, params, x, want, card, wrong_must_fail=
         finally:
             transformer.flash_attention = real_k1
         log(f"{label} with K1's {what}: logits max|flash - reference| {moves[what]:.3e}, "
-            f"{moves[what] / EVAL_LOGITS_ATOL:.1f}x the tolerance")
-        if wrong_must_fail and not moves[what] > EVAL_LOGITS_ATOL:
+            f"{moves[what] / atol:.1f}x the tolerance")
+        if wrong_must_fail and not moves[what] > atol:
             raise AssertionError(f"{label}: the logits check does not catch K1's {what}")
     return moves
 
@@ -5012,8 +5102,9 @@ def main() -> int:
     build_all()
     k1 = kernel_phase(dev)
     k2 = stats_kernel_phase(dev)
-    k1["launches"] = main_path(dev)
-    k2["launches"] = long_context_path(dev)
+    k1["bfloat16"]["launches"] = main_path(dev)
+    k2["bfloat16"]["launches"] = long_context_path(dev)
+    k1["float32"]["launches"], k2["float32"]["launches"] = f32_path(dev)
     headline_path(dev)
     check_all = CheckAll()  # 19d, in the background from here
     try:
@@ -5038,7 +5129,8 @@ def main() -> int:
     finally:
         check_all.stop()
     log(f"chip_smoke seconds: {time.perf_counter() - STARTED:.1f}")
-    log(json.dumps({"kernels": [k1, k2]}))
+    log(json.dumps({"kernels": [k1["bfloat16"], k1["float32"], k2["bfloat16"],
+                                k2["float32"]]}))
     log(smi)
     log(json.dumps({"ok": True, "device": {
         "platform": "gpu", "kind": torch.cuda.get_device_name(0),

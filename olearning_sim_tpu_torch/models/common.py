@@ -31,6 +31,21 @@ from olearning_sim_tpu_torch.parallel import collectives
 _TRUNC_STD = 0.87962566103423978
 
 
+# The floating types a family's ``dtype`` takes by name, as flax's modules
+# take them: a task JSON's ``model.overrides`` can only carry a name.
+DTYPE_NAMES = {"float32": torch.float32, "bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def resolve_dtype(dtype) -> torch.dtype:
+    """``dtype`` as a ``torch.dtype``: a ``torch.dtype`` as it is, or one of
+    :data:`DTYPE_NAMES`; any other name raises ``ValueError``."""
+    if isinstance(dtype, torch.dtype):
+        return dtype
+    if isinstance(dtype, str) and dtype in DTYPE_NAMES:
+        return DTYPE_NAMES[dtype]
+    raise ValueError(f"dtype {dtype!r} is not a torch.dtype or one of {sorted(DTYPE_NAMES)}")
+
+
 def dense(x: torch.Tensor, lin: nn.Linear, dtype: torch.dtype) -> torch.Tensor:
     """flax ``Dense(dtype=dtype)``: input, kernel and bias are all cast to
     ``dtype`` (so an f32 head computes in f32 from bf16 parameters too)."""

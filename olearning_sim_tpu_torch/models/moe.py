@@ -53,6 +53,7 @@ from olearning_sim_tpu_torch.models.common import (
     dense,
     flax_special,
     lecun_normal_,
+    resolve_dtype,
 )
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.models.transformer import dense_attention, layer_norm
@@ -69,9 +70,10 @@ class SwitchFFN(nn.Module):
     ``num_experts`` expert FFNs, weighted by its gate probability."""
 
     def __init__(self, num_experts: int, width: int, mlp_dim: int,
-                 capacity_factor: float = 1.25, dtype: torch.dtype = torch.bfloat16):
+                 capacity_factor: float = 1.25, dtype: torch.dtype | str = torch.bfloat16):
         super().__init__()
-        self.num_experts, self.capacity_factor, self.dtype = num_experts, capacity_factor, dtype
+        self.num_experts, self.capacity_factor = num_experts, capacity_factor
+        self.dtype = resolve_dtype(dtype)
         E = num_experts
         self.gate = nn.Linear(width, E)
         self.expert_w1 = nn.Parameter(torch.zeros(E, width, mlp_dim))
@@ -140,17 +142,17 @@ class MoEBlock(nn.Module):
     FFN, residual, LayerNorm."""
 
     def __init__(self, width: int, heads: int, mlp_dim: int, num_experts: int,
-                 capacity_factor: float = 1.25, dtype: torch.dtype = torch.bfloat16):
+                 capacity_factor: float = 1.25, dtype: torch.dtype | str = torch.bfloat16):
         super().__init__()
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
-        self.heads, self.dtype = heads, dtype
+        self.heads, self.dtype = heads, resolve_dtype(dtype)
         self.query = nn.Linear(width, width)
         self.key = nn.Linear(width, width)
         self.value = nn.Linear(width, width)
         self.out = nn.Linear(width, width)
         self.norm = nn.ModuleList([nn.LayerNorm(width), nn.LayerNorm(width)])
-        self.switch = SwitchFFN(num_experts, width, mlp_dim, capacity_factor, dtype)
+        self.switch = SwitchFFN(num_experts, width, mlp_dim, capacity_factor, self.dtype)
 
     def forward(self, x: torch.Tensor, pad_mask: torch.Tensor, mp_group=None,
                 ep_group=None) -> Tuple[torch.Tensor, torch.Tensor]:
@@ -172,14 +174,15 @@ class MoETextTransformer(nn.Module):
     def __init__(self, vocab_size: int = 30522, max_len: int = 128, width: int = 256,
                  depth: int = 4, heads: int = 8, mlp_dim: int = 512, num_experts: int = 8,
                  capacity_factor: float = 1.25, num_classes: int = 2, pad_id: int = 0,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype | str = torch.bfloat16):
         super().__init__()
-        self.pad_id, self.dtype, self.heads, self.max_len = pad_id, dtype, heads, max_len
+        self.pad_id, self.heads, self.max_len = pad_id, heads, max_len
+        self.dtype = resolve_dtype(dtype)
         self.embed = nn.Embedding(vocab_size, width)
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))
         self.norm = nn.ModuleList([nn.LayerNorm(width)])
         self.blocks = nn.ModuleList(
-            MoEBlock(width, heads, mlp_dim, num_experts, capacity_factor, dtype)
+            MoEBlock(width, heads, mlp_dim, num_experts, capacity_factor, self.dtype)
             for _ in range(depth))
         self.dense = nn.ModuleList([nn.Linear(width, num_classes)])
 

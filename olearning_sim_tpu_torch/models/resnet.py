@@ -36,6 +36,7 @@ from olearning_sim_tpu_torch.models.common import (
     default_init_params,
     dense,
     flax_special,
+    resolve_dtype,
     same_conv,
     same_pads,
 )
@@ -63,9 +64,9 @@ class ResidualBlock(nn.Module):
     projection shortcut when the block changes the activation's shape."""
 
     def __init__(self, in_features: int, features: int, strides: int = 1, groups: int = 8,
-                 in_hw: Tuple[int, int] = (1, 1), dtype: torch.dtype = torch.bfloat16):
+                 in_hw: Tuple[int, int] = (1, 1), dtype: torch.dtype | str = torch.bfloat16):
         super().__init__()
-        self.strides, self.dtype = strides, dtype
+        self.strides, self.dtype = strides, resolve_dtype(dtype)
         out_hw = tuple(_same_out(n, strides) for n in in_hw)
         self.project = (out_hw, features) != (tuple(in_hw), in_features)
         chans = [(in_features, features, 3), (features, features, 3)]
@@ -91,11 +92,11 @@ class ResNet(nn.Module):
     def __init__(self, stage_features: Sequence[int] = (64, 128, 256, 512),
                  blocks_per_stage: Sequence[int] = (2, 2, 2, 2), num_classes: int = 62,
                  groups: int = 8, small_inputs: bool = True,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype | str = torch.bfloat16,
                  in_shape: Tuple[int, int, int] = (28, 28, 1)):
         super().__init__()
         h, w, c = in_shape
-        self.small_inputs, self.dtype = small_inputs, dtype
+        self.small_inputs, self.dtype = small_inputs, resolve_dtype(dtype)
         stem = stage_features[0]
         self.conv = nn.ModuleList([nn.Conv2d(c, stem, 3 if small_inputs else 7, bias=False)])
         self.norm = nn.ModuleList([_norm(groups, stem)])
@@ -106,7 +107,7 @@ class ResNet(nn.Module):
         for stage, (feats, nblocks) in enumerate(zip(stage_features, blocks_per_stage)):
             for block in range(nblocks):
                 strides = 2 if stage > 0 and block == 0 else 1
-                blocks.append(ResidualBlock(feats_in, feats, strides, groups, (h, w), dtype))
+                blocks.append(ResidualBlock(feats_in, feats, strides, groups, (h, w), self.dtype))
                 h, w, feats_in = _same_out(h, strides), _same_out(w, strides), feats
         self.blocks = nn.ModuleList(blocks)
         self.dense = nn.ModuleList([nn.Linear(feats_in, num_classes)])

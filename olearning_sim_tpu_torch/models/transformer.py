@@ -55,6 +55,7 @@ from olearning_sim_tpu_torch.models.common import dense as _dense
 from olearning_sim_tpu_torch.models.common import (
     default_init_params,
     ffn,
+    resolve_dtype,
     row_dense,
 )
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
@@ -106,14 +107,14 @@ def dense_attention(attn: nn.Module, x: torch.Tensor, pad_mask, heads: int,
 
 class TransformerBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype | str = torch.bfloat16,
                  attention_impl: str = "dense", ring_use_flash: bool = False):
         super().__init__()
         if attention_impl not in ("dense", "flash", "ring"):
             raise ValueError(f"unknown attention_impl {attention_impl!r}")
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
-        self.heads, self.dtype, self.mlp_dim = heads, dtype, mlp_dim
+        self.heads, self.dtype, self.mlp_dim = heads, resolve_dtype(dtype), mlp_dim
         self.attention_impl = attention_impl
         self.ring_use_flash = ring_use_flash
         if attention_impl == "flash":
@@ -157,10 +158,10 @@ class TextTransformer(nn.Module):
     def __init__(self, vocab_size: int = 30522, max_len: int = 128,
                  width: int = 768, depth: int = 6, heads: int = 12,
                  mlp_dim: int = 3072, num_classes: int = 2, pad_id: int = 0,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype | str = torch.bfloat16,
                  attention_impl: str = "dense", ring_use_flash: bool = False):
         super().__init__()
-        self.pad_id, self.dtype, self.heads = pad_id, dtype, heads
+        self.pad_id, self.dtype, self.heads = pad_id, resolve_dtype(dtype), heads
         self.max_len, self.attention_impl = max_len, attention_impl
         self.vocab_size, self.width, self.depth = vocab_size, width, depth
         self.mlp_dim, self.num_classes = mlp_dim, num_classes
@@ -168,7 +169,7 @@ class TextTransformer(nn.Module):
         self.pos_embedding = nn.Parameter(torch.zeros(1, max_len, width))
         self.ln_emb = nn.LayerNorm(width)
         self.blocks = nn.ModuleList(
-            TransformerBlock(width, heads, mlp_dim, dtype, attention_impl, ring_use_flash)
+            TransformerBlock(width, heads, mlp_dim, self.dtype, attention_impl, ring_use_flash)
             for _ in range(depth)
         )
         self.head = nn.Linear(width, num_classes)

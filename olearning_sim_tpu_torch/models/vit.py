@@ -35,18 +35,24 @@ import torch
 import torch.nn as nn
 import torch.nn.functional as F
 
-from olearning_sim_tpu_torch.models.common import default_init_params, dense, ffn, flax_special
+from olearning_sim_tpu_torch.models.common import (
+    default_init_params,
+    dense,
+    ffn,
+    flax_special,
+    resolve_dtype,
+)
 from olearning_sim_tpu_torch.models.registry import ModelSpec, register_model
 from olearning_sim_tpu_torch.models.transformer import dense_attention, layer_norm
 
 
 class EncoderBlock(nn.Module):
     def __init__(self, width: int, heads: int, mlp_dim: int,
-                 dtype: torch.dtype = torch.bfloat16):
+                 dtype: torch.dtype | str = torch.bfloat16):
         super().__init__()
         if width % heads:
             raise ValueError(f"width {width} is not a multiple of heads {heads}")
-        self.heads, self.dtype, self.mlp_dim = heads, dtype, mlp_dim
+        self.heads, self.dtype, self.mlp_dim = heads, resolve_dtype(dtype), mlp_dim
         self.norm = nn.ModuleList([nn.LayerNorm(width), nn.LayerNorm(width)])
         self.query = nn.Linear(width, width)
         self.key = nn.Linear(width, width)
@@ -65,16 +71,16 @@ class EncoderBlock(nn.Module):
 class ViT(nn.Module):
     def __init__(self, patch: int = 4, width: int = 192, depth: int = 12, heads: int = 3,
                  mlp_dim: int = 768, num_classes: int = 100,
-                 dtype: torch.dtype = torch.bfloat16,
+                 dtype: torch.dtype | str = torch.bfloat16,
                  in_shape: Tuple[int, int, int] = (32, 32, 3)):
         super().__init__()
         h, w, c = in_shape
-        self.patch, self.width, self.heads, self.dtype = patch, width, heads, dtype
+        self.patch, self.width, self.heads, self.dtype = patch, width, heads, resolve_dtype(dtype)
         tokens = (h // patch) * (w // patch)
         self.conv = nn.ModuleList([nn.Conv2d(c, width, patch)])
         self.cls = nn.Parameter(torch.zeros(1, 1, width))
         self.pos_embedding = nn.Parameter(torch.zeros(1, 1 + tokens, width))
-        self.blocks = nn.ModuleList(EncoderBlock(width, heads, mlp_dim, dtype)
+        self.blocks = nn.ModuleList(EncoderBlock(width, heads, mlp_dim, self.dtype)
                                     for _ in range(depth))
         self.norm = nn.ModuleList([nn.LayerNorm(width)])
         self.dense = nn.ModuleList([nn.Linear(width, num_classes)])

@@ -4,13 +4,26 @@
 
 :func:`flash_attention` and :func:`flash_attention_stats` take the JAX
 entry points' signatures and layout (``[B, H, L, D]``). On CUDA tensors
-they launch the hand-written Hopper kernels in ``csrc/flash_attention.cu``
-(two entries; bf16 runs the wgmma + TMA instance, f32 the SIMT one, as
-:func:`plan_launch` records, with bf16 D zero-padded to a multiple of 8 by
-:func:`pad_inputs`); on CPU tensors they run the plain
-PyTorch versions of the same arithmetic, :func:`flash_attention_reference`
-and :func:`flash_attention_stats_reference`. There is no fall-back from one
-to the other.
+they launch the hand-written Hopper kernel in ``csrc/flash_attention.cu``
+(two entries, one wgmma + TMA kernel template over the input type), as
+:func:`plan_launch` records; on CPU tensors they run the plain PyTorch
+versions of the same arithmetic, :func:`flash_attention_reference` and
+:func:`flash_attention_stats_reference`. There is no fall-back from one to
+the other.
+
+bf16 runs on the tensor cores in bf16 (128-key tiles, D zero-padded to a
+multiple of 8 by :func:`pad_inputs`). f32 runs on them in split-precision
+TF32 ("3xTF32", 64-key tiles, D padded to a multiple of 4): each operand x
+is split into ``big = tf32(x)`` and ``small = tf32(x - big)``, and each
+product is ``small*big + big*small + big*big`` in an f32 accumulator,
+which keeps about 2^-22 of each product where one TF32 product keeps
+2^-11 (the f32 tolerance of the checks is 1e-4). TF32 products take both
+operands with the contracted dimension contiguous, so the kernel splits and
+transposes each V tile in shared memory, with the keys of each 8-key group
+permuted so that a thread's score registers are already its P operand
+(the source's note has the layouts). The kernel's time is bound by bytes
+for K1 at its path's shape and by operations for K2 at the long-context
+shape, in both types.
 
 :func:`flash_attention` is forward only, like its TPU kernel (``jax.grad``
 through it fails): the wrapper refuses inputs that would need a gradient,
@@ -106,29 +119,31 @@ def _check(q, k, v, kv_mask, name):
             raise ValueError(f"{name} is on {t.device}, q on {q.device}")
 
 
-# Keys per K/V tile of the bf16 kernel: its mask rows are padded to a multiple.
+# Keys per K/V tile of the kernel in bf16 and in f32 (at head dim 64; 32 at
+# 128): its mask rows are padded to a multiple.
 KV_TILE = 128
+KV_TILE_F32 = 64
 
 
 class LaunchPlan(NamedTuple):
     """How :func:`_launch` hands a call to ``csrc/flash_attention.cu``."""
 
-    design: str     # "wgmma+tma" (bf16) or "simt" (f32): the kernel instance
-    d_pad: int      # head dim the kernel sees (bf16: D zero-padded to a multiple of 8)
+    design: str     # the kernel instance: "wgmma+tma" (bf16) or "wgmma+tma+3xtf32" (f32)
+    d_pad: int      # head dim the kernel sees: D zero-padded to 16-byte TMA rows
     mask_cols: int  # row length of the f32 mask the kernel reads (zeros past Lk)
 
 
 def plan_launch(dtype: torch.dtype, D: int, Lk: int) -> LaunchPlan:
     """The kernel instance and padding for a call, as the C entries choose
-    them: bf16 takes the wgmma + TMA kernel, whose TMA rows must be a
-    multiple of 16 bytes (D padded to a multiple of 8) and whose mask tiles
-    are 128 keys; f32 takes the SIMT kernel as it is."""
+    them. Both types take the wgmma + TMA kernel, whose TMA rows must be a
+    multiple of 16 bytes (bf16 D padded to a multiple of 8, f32 D to a
+    multiple of 4) and whose mask is read in whole key tiles (128 keys in
+    bf16, 64 in f32); f32 multiplies in split-precision TF32."""
     if D > 128:
         raise ValueError(f"the CUDA kernel takes head dims up to 128, got {D}")
     if dtype == torch.bfloat16:
-        d_pad = -(-D // 8) * 8
-        return LaunchPlan("wgmma+tma", d_pad, -(-Lk // KV_TILE) * KV_TILE)
-    return LaunchPlan("simt", D, Lk)
+        return LaunchPlan("wgmma+tma", -(-D // 8) * 8, -(-Lk // KV_TILE) * KV_TILE)
+    return LaunchPlan("wgmma+tma+3xtf32", -(-D // 4) * 4, -(-Lk // KV_TILE_F32) * KV_TILE_F32)
 
 
 def pad_inputs(q, k, v, kv_mask, plan: LaunchPlan):
