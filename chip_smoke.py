@@ -432,9 +432,9 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     example's sizes, seeds and rounds, each holding its own checks:
     20a in this process: ``library_quickstart`` (mlp2 FedAvg, 256 clients,
        10 rounds, the central eval), ``custom_operator`` (a user operator's
-       accounting, 16 of 16 a round), ``queue_submit`` (a task through the
-       SQLite intake queue) and ``platform_submit`` (a task submitted to a
-       session and polled to SUCCEEDED), their lines and seconds printed;
+       accounting, 16 of 16 a round) and ``queue_submit`` (a task through
+       the SQLite intake queue, the session in process), their lines and
+       seconds printed (``platform_submit`` goes over gRPC: phase 22e);
     20b the multi-rank ones, one process a rank sharing the card over gloo,
        started beside phase 10: ``tensor_pipeline_parallel`` (world 8: mp 1
        and 2 rounds within 2e-2, ``sharded_fraction``, dp 2 x pp 4 GPipe),
@@ -456,6 +456,33 @@ Phases (any failure exits non-zero; no phase's exception is caught):
     compute (``dtype="float32"``): two forwards and an SGD step through
     K2's f32 instance, 6 launches per forward, held by logits and
     gradients against the dense-combine ring in f32 (LC_TOL).
+
+22. The gRPC wire (``proto/``, ``taskmgr/grpc_service.py``,
+    ``services/grpc_services.py``; no kernel of the repo is on its path),
+    after phase 20. It prints whether ``grpc`` and ``google.protobuf``
+    import, and which branch ran.
+    22a on every machine, where they do not import (here, or in a child
+       process with both blocked where they do):
+       ``SimulatorSession(address="127.0.0.1:0").start()``, ``python -m
+       olearning_sim_tpu_torch --config <ini> --print-port`` and a flow
+       with a ``grpc`` outbound must each fail with an error naming
+       grpcio, none serving or carrying on in process; 16a's platform,
+       whose INI says ``address = none``, is the in-process session that
+       ran its task on the card.
+    22b-22e only where both import; otherwise printed as not run on this
+       machine. 22b the platform booted in a subprocess on the card from
+       an INI with ``--print-port``: a ``TaskMgrClient`` submits 16a's
+       task over the wire and polls ``getTaskStatus`` to SUCCEEDED, then
+       calls ``getTaskQueue``, ResourceMgr's ``getResource`` and
+       PerformanceMgr's ``getMetrics``; held: the row's ``logical_result``
+       and last model file equal 16a's direct run's (the file byte for
+       byte); printed: the boot and submit-to-end seconds and the median
+       ``getTaskStatus`` round trip. 22c DeviceFlow alone in a second
+       process, a task manager on the card driving it over the wire:
+       16a's task SUCCEEDED and released, its result equal 16a's. 22d
+       FLOW_MESSAGES messages of 16c's flow delivered to a gRPC
+       ``OutboundSink`` in this process equal the in-memory collector's
+       batches. 22e the ``platform_submit`` example over the wire.
 
 Both launch counts are zeroed just before phase 4 and again just before
 phase 6; K1's is read just after phase 5, K2's just after phase 6; K1's
@@ -3721,7 +3748,7 @@ def platform_path(dev, shrink=None):
     ini = os.path.join(tmp.name, "platform.ini")
     with open(ini, "w") as f:
         f.write("[session]\nservices = taskmgr, resourcemgr, deviceflow, phonemgr, slicemgr, "
-                "performancemgr\n\n[taskmgr]\nscheduler_sleep_time = 0.02\n"
+                "performancemgr\naddress = none\n\n[taskmgr]\nscheduler_sleep_time = 0.02\n"
                 f"release_sleep_time = 0.02\n\n[repos]\nsqlite_path = {db}\n"
                 f"intake_queue_path = {intake}\n\n[deviceflow]\npoll_interval = 0.01\n")
     style = "{task_id}_{round}_result_model.msgpack"
@@ -3824,6 +3851,10 @@ def platform_path(dev, shrink=None):
         f"run's byte for byte equal: {files['platform'] == files['direct']} (tol 0)")
     if files["platform"] != files["direct"]:
         raise AssertionError("16a: the platform's last model file differs from the direct run's")
+    # Phase 22 submits the same task over the wire and holds it to these.
+    RESULTS["16a"] = {"task": json.loads(json.dumps(task)), "status": status, "style": style,
+                      "logical_result": want, "last_model": files["direct"],
+                      "end_s": marks["end"]}
     del direct
 
     # 16b: the chip-pool scheduler on the card.
@@ -4998,8 +5029,7 @@ def analysis_path(dev, check_all=None):
 # HBM3 at 700.00 W they took 156 s alone, each world's ranks paying the
 # interpreter and torch's import again, and beside phases 18-19 slowed 18
 # by 55 s). Each example's own checks hold inside its ``run``.
-EXAMPLES_IN_PROCESS = ("library_quickstart", "custom_operator", "queue_submit",
-                       "platform_submit")
+EXAMPLES_IN_PROCESS = ("library_quickstart", "custom_operator", "queue_submit")
 EXAMPLES_WORLDS = ("tensor_pipeline_parallel", "moe_expert_parallel", "long_context_training",
                    "elastic_rescale")
 
@@ -5084,6 +5114,440 @@ def examples_path(dev, worlds, t_worlds):
         f"(20b started {t_phase - t_worlds:.1f} s before, beside phase 10 on)")
 
 
+# Phase 22: the gRPC wire. 22a runs on every machine; 22b-22e where grpc and
+# google.protobuf import (the image deploy/Dockerfile.gpu builds has both).
+WIRE_BOOT_S = 120
+WIRE_TASK_S = 300
+WIRE_NOT_RUN = "not run on this machine (no grpcio/protobuf)"
+
+
+def wire_imports():
+    """``{"grpc": True or the import error, "google.protobuf": ...}``."""
+    import importlib
+
+    out = {}
+    for name in ("grpc", "google.protobuf"):
+        try:
+            importlib.import_module(name)
+            out[name] = True
+        except ImportError as e:
+            out[name] = f"{type(e).__name__}: {e}"
+    return out
+
+
+class _Errors:
+    """A deviceflow logger keeping its error lines."""
+
+    def __init__(self):
+        self.lines = []
+
+    def info(self, *args, **kw):
+        pass
+
+    warning = info
+
+    def error(self, *args, **kw):
+        self.lines.append(kw.get("message", " ".join(map(str, args))))
+
+
+def _child_env():
+    import os
+
+    return dict(os.environ, PYTHONPATH=str(ROOT) + os.pathsep + os.environ.get("PYTHONPATH", ""))
+
+
+def _entry_cmd(ini, dev, block=False):
+    """``python -m olearning_sim_tpu_torch --config ini --print-port``, with
+    grpc and google.protobuf made unimportable first when ``block``."""
+    args = ["--config", ini, "--print-port"]
+    if dev.type != "cuda":
+        args += ["--device", dev.type]
+    if not block:
+        return [sys.executable, "-m", "olearning_sim_tpu_torch"] + args
+    code = ("import sys, runpy\nsys.modules['grpc'] = sys.modules['google.protobuf'] = None\n"
+            "sys.argv = ['olearning_sim_tpu_torch'] + sys.argv[1:]\n"
+            "runpy.run_module('olearning_sim_tpu_torch', run_name='__main__')\n")
+    return [sys.executable, "-c", code] + args
+
+
+def wire_refusals(dev):
+    """22a: a session asked for an address, the entry point's
+    ``--print-port`` and a ``grpc`` outbound flow each fail naming grpcio
+    (run where grpc and google.protobuf do not import; where this process
+    blocked them in ``sys.modules``, the entry point's child blocks them
+    too)."""
+    import os
+    import tempfile
+
+    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
+    from olearning_sim_tpu_torch.deviceflow.outbound import make_outbound_factory
+    from olearning_sim_tpu_torch.services import SimulatorSession
+
+    def refused(what, fn):
+        try:
+            fn()
+        except ImportError as e:
+            if "grpcio" not in str(e):
+                raise AssertionError(f"22a {what}: the error names no grpcio: {e}") from e
+            log(f"22a {what}: refused: {e}")
+            return
+        raise AssertionError(f"22a {what}: did not fail without grpcio")
+
+    session = SimulatorSession(address="127.0.0.1:0", device=dev)
+    refused("SimulatorSession(address='127.0.0.1:0').start()", session.start)
+    if session.port is not None or session.task_manager._threads or session.deviceflow._threads:
+        raise AssertionError("22a: the refused session serves a port or runs its daemons")
+    with tempfile.TemporaryDirectory(prefix="chip_smoke_22a_") as tmp:
+        ini = os.path.join(tmp, "platform.ini")
+        with open(ini, "w") as f:
+            f.write("[session]\nservices = taskmgr, resourcemgr, deviceflow\n"
+                    "address = 127.0.0.1:0\n")
+        block = any(sys.modules.get(m, "") is None for m in ("grpc", "google.protobuf"))
+        proc = subprocess.run(_entry_cmd(ini, dev, block), cwd=str(ROOT), env=_child_env(),
+                              capture_output=True, text=True, timeout=WIRE_BOOT_S)
+    tail = proc.stderr.strip().splitlines()[-1] if proc.stderr.strip() else ""
+    log(f"22a python -m olearning_sim_tpu_torch --config <ini> --print-port: exit "
+        f"{proc.returncode}, stdout {proc.stdout!r}, last stderr line {tail!r}")
+    if proc.returncode == 0 or proc.stdout.strip() or "grpcio" not in proc.stderr:
+        raise AssertionError(f"22a: --print-port did not fail naming grpcio: {proc.stderr}")
+    refused("make_outbound_factory()(flow, {'type': 'grpc'})", lambda: make_outbound_factory()(
+        "wire_op_0", {"type": "grpc", "target": "127.0.0.1:1"}))
+    errors = _Errors()
+    svc = DeviceFlowService(poll_interval=0.005, outbound_factory=make_outbound_factory(),
+                            logger=errors)
+    svc.start()
+    try:
+        svc.register_task("wire", ["logical_simulation"])
+        strategy = json.dumps({"real_time_dispatch": {"use_strategy": True,
+                                                      "dispatch_batch_sizes": [4]}})
+        ok, msg = svc.notify_start("wire", "wire_op_0", "logical_simulation", strategy,
+                                   outbound_service={"type": "grpc", "target": "127.0.0.1:1"})
+        if not ok:
+            raise AssertionError(f"22a: notify_start refused: {msg}")
+        for i in range(8):
+            svc.publish("wire_op_0", "logical_simulation", {"u": i})
+        svc.notify_complete("wire", "wire_op_0", "logical_simulation")
+        _wait(lambda: "wire_op_0" in svc._dispatch_failed, 30, "22a: the grpc flow to fail")
+        failed = [ln for ln in errors.lines if "wire_op_0" in ln]
+        finished = svc.check_dispatch_finished("wire")
+        delivered = svc.delivered.get("wire_op_0", [])
+    finally:
+        svc.stop()
+    log(f"22a a flow with outbound grpc: failed, dispatch finished {finished}, delivered in "
+        f"process {len(delivered)}; logged {failed}")
+    if finished or delivered or not any("grpcio" in ln for ln in failed):
+        raise AssertionError("22a: the grpc flow carried on or failed without naming grpcio")
+
+
+def _start_platform(tmp, name, dev, services, extra=""):
+    """A platform child booted from an INI serving ``services`` on an
+    ephemeral port with ``--print-port``, and a thread stamping the port
+    line when it comes: ``{"proc", "err", "started", "line"}``."""
+    import os
+    import threading
+
+    ini = os.path.join(tmp, f"{name}.ini")
+    with open(ini, "w") as f:
+        f.write(f"[session]\nservices = {services}\naddress = 127.0.0.1:0\n{extra}")
+    err = os.path.join(tmp, f"{name}.err")
+    with open(err, "w") as f:
+        started = time.perf_counter()
+        proc = subprocess.Popen(_entry_cmd(ini, dev), cwd=str(ROOT), env=_child_env(),
+                                stdout=subprocess.PIPE, stderr=f, text=True)
+    line = []
+    threading.Thread(target=lambda: line.append((proc.stdout.readline(), time.perf_counter())),
+                     daemon=True).start()
+    return {"proc": proc, "err": err, "started": started, "line": line}
+
+
+def _port_of(child, what):
+    """A platform child's port and its boot seconds (process start to the
+    port line)."""
+    _wait(lambda: bool(child["line"]) or child["proc"].poll() is not None, WIRE_BOOT_S,
+          f"{what}: the platform's port")
+    if not child["line"] or not child["line"][0][0].strip().isdigit():
+        with open(child["err"]) as f:
+            raise AssertionError(f"{what}: no port (exit {child['proc'].poll()}): {f.read()}")
+    text, at = child["line"][0]
+    return int(text), at - child["started"]
+
+
+def _stop_platform(proc, err, label):
+    """SIGTERM, which must end the platform with exit 0."""
+    import signal
+
+    proc.send_signal(signal.SIGTERM)
+    try:
+        rc = proc.wait(timeout=60)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        proc.wait()
+        raise AssertionError(f"{label}: the platform did not exit on SIGTERM")
+    if rc != 0:
+        with open(err) as f:
+            raise AssertionError(f"{label}: the platform exited {rc}: {f.read()}")
+
+
+def _wire_task(tmp, name):
+    """16a's task, exporting its model files under ``tmp/name``."""
+    import os
+
+    task = json.loads(json.dumps(RESULTS["16a"]["task"]))
+    model_edit(os.path.join(tmp, name), model_update_style=RESULTS["16a"]["style"])(task)
+    return task
+
+
+def _held_to_16a(label, tmp, name, task_id, logical_result):
+    """The run's result and last model file against 16a's direct run."""
+    import os
+
+    last = RESULTS["16a"]["style"].format(task_id=task_id, round=PLATFORM_ROUNDS - 1)
+    model = pathlib.Path(os.path.join(tmp, name), last).read_bytes()
+    same = (logical_result == RESULTS["16a"]["logical_result"],
+            model == RESULTS["16a"]["last_model"])
+    log(f"{label} logical_result equal to 16a's direct run's: {same[0]}; last model file "
+        f"{len(model)} bytes, byte for byte equal: {same[1]} (tol 0)")
+    if not all(same):
+        raise AssertionError(f"{label}: the result or the model differs from 16a's direct run")
+
+
+def wire_platform(dev, card, started):
+    """22b: 16a's task over the wire to the platform child."""
+    import statistics
+
+    from olearning_sim_tpu_torch.services.grpc_services import (PerformanceMgrClient,
+                                                                ResourceMgrClient)
+    from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+    from olearning_sim_tpu_torch.taskmgr.grpc_service import TaskMgrClient
+    from olearning_sim_tpu_torch.taskmgr.proto_codec import taskconfig_to_proto
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.utils.wire import load_wire
+
+    grpc = load_wire("grpc", "phase 22")
+    tmp, db, child = started["tmp"].name, started["db"], started["platform"]
+    port, boot = _port_of(child, "22b")
+    task = _wire_task(tmp, "models_22b")
+    tid = task["task_id"]
+    repo = TaskTableRepo(sqlite_path=db)
+    rtts = []
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        client = TaskMgrClient(ch)
+        t_submit = time.perf_counter()
+        ok = client.submitTask(taskconfig_to_proto(json2taskconfig(task))).is_success
+
+        def ended():
+            t0 = time.perf_counter()
+            status = TaskStatus(client.getTaskStatus(tid).taskStatus)
+            rtts.append(time.perf_counter() - t0)
+            if status in (TaskStatus.SUCCEEDED, TaskStatus.FAILED, TaskStatus.STOPPED) and \
+                    str(repo.get_item_value(tid, "resource_occupied")) == "0":
+                return status.name  # SUCCEEDED is 0: _wait takes a name
+            return None
+
+        status = TaskStatus[_wait(ended, WIRE_TASK_S, "22b: the task over the wire",
+                                  poll=0.005)]
+        end = time.perf_counter() - t_submit
+        queue = [t.taskID for t in client.getTaskQueue().tasks]
+        resource = ResourceMgrClient(ch).get_resource()
+        ctype, body = PerformanceMgrClient(ch).get_metrics()
+    row = {k: repo.get_item_value(tid, k) for k in ("task_status", "logical_round",
+                                                     "logical_result")}
+    log(f"22b platform on 127.0.0.1:{port}: boot {boot:.3f} s (process start to its port, "
+        f"{started['beside']}), "
+        f"submitTask {ok}, {status.name} and released {end:.3f} s after the submit (16a, the "
+        f"intake in process: {RESULTS['16a']['end_s']:.3f} s), getTaskStatus round trip "
+        f"median {1e3 * statistics.median(rtts):.3f} ms over {len(rtts)} calls; getTaskQueue "
+        f"{queue}, getResource logical {resource['logical_simulation']} on "
+        f"{resource['topology'].get('device_kinds')}, getMetrics {ctype.split(';')[0]} "
+        f"{len(body)} bytes | {card}")
+    if not ok or status != TaskStatus.SUCCEEDED or int(row["logical_round"]) != PLATFORM_ROUNDS:
+        raise AssertionError(f"22b: row {row}")
+    if "ols_taskmgr_state_transitions_total" not in body or queue:
+        raise AssertionError("22b: the platform's metrics or queue are not what ran")
+    _stop_platform(child["proc"], child["err"], "22b")
+    log("22b SIGTERM: exit 0")
+    _held_to_16a("22b", tmp, "models_22b", tid, row["logical_result"])
+
+
+def wire_remote_deviceflow(dev, card, started):
+    """22c: DeviceFlow in its own process, a task manager here driving it."""
+    from olearning_sim_tpu_torch.resourcemgr import DeviceTopology, ResourceManager
+    from olearning_sim_tpu_torch.services.grpc_services import DeviceFlowClient
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
+    from olearning_sim_tpu_torch.taskmgr.task_manager import TaskManager
+    from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.utils.wire import load_wire
+
+    grpc = load_wire("grpc", "phase 22")
+    tmp, child = started["tmp"].name, started["deviceflow"]
+    port, boot = _port_of(child, "22c")
+    log(f"22c deviceflow process on 127.0.0.1:{port}: boot {boot:.3f} s (beside 22b's, "
+        f"{started['beside']})")
+    task = _wire_task(tmp, "models_22c")
+    tid = task["task_id"]
+    repo = TaskTableRepo()
+    with grpc.insecure_channel(f"127.0.0.1:{port}") as ch:
+        remote = DeviceFlowClient(ch)
+        mgr = TaskManager(task_repo=repo, deviceflow=remote, schedule_interval=0.02,
+                          release_interval=0.02,
+                          resource_manager=ResourceManager(topology=DeviceTopology.detect(dev)),
+                          device=dev)
+        mgr.start()
+        try:
+            t_submit = time.perf_counter()
+            if not mgr.submit_task(task):
+                raise AssertionError("22c: the task was refused")
+
+            def released():
+                status = mgr.get_task_status(tid)
+                if status in (TaskStatus.SUCCEEDED, TaskStatus.FAILED) and \
+                        str(repo.get_item_value(tid, "resource_occupied")) == "0":
+                    return status.name
+                return None
+
+            status = TaskStatus[_wait(released, WIRE_TASK_S,
+                                      "22c: the task against the remote deviceflow")]
+            end = time.perf_counter() - t_submit
+            finished = remote.check_dispatch_finished(tid)
+        finally:
+            mgr.stop()
+    log(f"22c {tid} against the deviceflow process: {status.name} and released "
+        f"{end:.3f} s after the submit, the remote dispatch finished {finished} | {card}")
+    if status != TaskStatus.SUCCEEDED or not finished:
+        raise AssertionError("22c: the task did not finish and release over the wire")
+    _stop_platform(child["proc"], child["err"], "22c")
+    _held_to_16a("22c", tmp, "models_22c", tid, repo.get_item_value(tid, "logical_result"))
+
+
+def wire_sink(card):
+    """22d: 16c's flow delivered to a gRPC OutboundSink here against the
+    in-memory collector."""
+    from concurrent import futures
+
+    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
+    from olearning_sim_tpu_torch.deviceflow.outbound import make_outbound_factory
+    from olearning_sim_tpu_torch.services.grpc_services import (OutboundSinkServicer,
+                                                                add_service_to_server)
+    from olearning_sim_tpu_torch.utils.wire import load_wire
+
+    grpc = load_wire("grpc", "phase 22")
+
+    strategy = json.dumps({"real_time_dispatch": {
+        "use_strategy": True, "dispatch_batch_sizes": [FLOW_BATCH],
+        "drop_simulation": {"drop_probability": FLOW_DROP}}})
+    sink = OutboundSinkServicer()
+    server = grpc.server(futures.ThreadPoolExecutor(max_workers=4))
+    add_service_to_server(sink, server)
+    port = server.add_insecure_port("127.0.0.1:0")
+    server.start()
+    svc = DeviceFlowService(poll_interval=0.005, seed=FLOW_SEED,
+                            outbound_factory=make_outbound_factory(on_failure="raise"))
+    svc.register_task("df", ["logical_simulation"])
+    svc.start()
+    try:
+        ok, msg = svc.notify_start("df", "df_train_0", "logical_simulation", strategy,
+                                   outbound_service={"type": "grpc",
+                                                     "target": f"127.0.0.1:{port}"})
+        if not ok:
+            raise AssertionError(f"22d: notify_start refused: {msg}")
+        t0 = time.perf_counter()
+        for i in range(FLOW_MESSAGES):
+            svc.publish("df_train_0", "logical_simulation", {"client": i, "update": [i, -i]})
+        svc.notify_complete("df", "df_train_0", "logical_simulation")
+        _wait(lambda: svc.check_dispatch_finished("df"), 120, "22d: the flow to finish")
+        rate = FLOW_MESSAGES / (time.perf_counter() - t0)
+    finally:
+        svc.stop()
+        server.stop(None)
+    got = [[json.loads(m) for m in msgs] for _, msgs in sink.batches]
+    memory, _ = _flow_run(None, strategy)
+    flows = {fid for fid, _ in sink.batches}
+    log(f"22d {FLOW_MESSAGES} messages to a gRPC OutboundSink: {sum(map(len, got))} in "
+        f"{len(got)} batches at {rate:.1f} messages/s, flow ids {sorted(flows)}; equal to the "
+        f"in-memory collector's batches {got == memory} | {card}")
+    if got != memory or flows != {"df_train_0"}:
+        raise AssertionError("22d: the gRPC sink's batches differ from the in-memory ones")
+
+
+def wire_start(dev, beside):
+    """Phase 22's children where the wire imports (None elsewhere): 22a's
+    child with grpc and google.protobuf blocked, 22b's platform and 22c's
+    deviceflow, each booting from its INI ``beside`` what runs meanwhile
+    (their torch imports and card starts kept off 22b's clock)."""
+    import os
+    import tempfile
+
+    if not all(v is True for v in wire_imports().values()):
+        return None
+    tmp = tempfile.TemporaryDirectory(prefix="chip_smoke_22_")
+    db = os.path.join(tmp.name, "state.db")
+    refusals = subprocess.Popen(
+        [sys.executable, "-c", "import sys\nsys.modules['grpc'] = None\n"
+         "sys.modules['google.protobuf'] = None\nimport torch, chip_smoke\n"
+         f"chip_smoke.wire_refusals(torch.device({str(dev)!r}))\n"],
+        cwd=str(ROOT), env=_child_env(), stdout=subprocess.PIPE, stderr=subprocess.STDOUT,
+        text=True)
+    platform = _start_platform(
+        tmp.name, "platform", dev, "taskmgr, resourcemgr, deviceflow, phonemgr, slicemgr, "
+        "performancemgr", f"\n[taskmgr]\nscheduler_sleep_time = 0.02\nrelease_sleep_time = "
+        f"0.02\n\n[repos]\nsqlite_path = {db}\n\n[deviceflow]\npoll_interval = 0.01\n")
+    deviceflow = _start_platform(tmp.name, "deviceflow", dev, "deviceflow",
+                                 "\n[deviceflow]\npoll_interval = 0.01\n")
+    return {"tmp": tmp, "db": db, "refusals": refusals, "platform": platform,
+            "deviceflow": deviceflow, "beside": beside}
+
+
+def wire_stop(started):
+    """Every child of ``wire_start`` ended, its directory removed."""
+    if started is None:
+        return
+    for proc in (started["refusals"], started["platform"]["proc"],
+                 started["deviceflow"]["proc"]):
+        if proc.poll() is None:
+            proc.kill()
+            proc.wait()
+    started["tmp"].cleanup()
+
+
+def wire_path(dev, started=None):
+    """Phase 22: the wire, after phase 20 (16a's results in RESULTS);
+    ``started`` is ``wire_start``'s, else it starts the children here."""
+    t_phase = time.perf_counter()
+    card = card_line() if dev.type == "cuda" else "cpu"
+    imports = wire_imports()
+    log(f"22 grpc imports: {imports['grpc']}; google.protobuf imports: "
+        f"{imports['google.protobuf']}")
+    log(f"22a 16a's platform (INI address = none) ran in process, its task "
+        f"{RESULTS['16a']['status']} on {card}")
+    if not all(v is True for v in imports.values()):
+        log(f"22 branch: no wire here. 22a in this process; 22b-22e {WIRE_NOT_RUN}")
+        wire_refusals(dev)
+        for label in ("22b", "22c", "22d", "22e"):
+            log(f"{label}: {WIRE_NOT_RUN}")
+        log(f"phase 22 seconds: {time.perf_counter() - t_phase:.1f}")
+        return
+    log("22 branch: the wire imports. 22a in a child process with grpc and google.protobuf "
+        "blocked; 22b-22e here")
+    if started is None:
+        started = wire_start(dev, "started at phase 22's start")
+    try:
+        wire_platform(dev, card, started)
+        wire_remote_deviceflow(dev, card, started)
+        wire_sink(card)
+        run_example("22e", "platform_submit", dev, card)
+        refusals = started["refusals"]
+        out, _ = refusals.communicate(timeout=WIRE_BOOT_S)
+        for line in out.splitlines():
+            log(line)
+        if refusals.returncode != 0:
+            raise AssertionError(f"22a: the child with grpc blocked exited "
+                                 f"{refusals.returncode}")
+    finally:
+        wire_stop(started)
+    log(f"phase 22 seconds: {time.perf_counter() - t_phase:.1f}")
+
+
 def main() -> int:
     import torch
 
@@ -5107,6 +5571,7 @@ def main() -> int:
     k1["float32"]["launches"], k2["float32"]["launches"] = f32_path(dev)
     headline_path(dev)
     check_all = CheckAll()  # 19d, in the background from here
+    wire = None
     try:
         task_path(dev)
         robust_path(dev)
@@ -5125,9 +5590,13 @@ def main() -> int:
             ingest_path(dev)
             cluster_path(dev)
             analysis_path(dev, check_all)
+            # Phase 22's children boot beside phase 20.
+            wire = wire_start(dev, "started beside phase 20")
             examples_path(dev, worlds, t_worlds)
+            wire_path(dev, wire)
     finally:
         check_all.stop()
+        wire_stop(wire)
     log(f"chip_smoke seconds: {time.perf_counter() - STARTED:.1f}")
     log(json.dumps({"kernels": [k1["bfloat16"], k1["float32"], k2["bfloat16"],
                                 k2["float32"]]}))

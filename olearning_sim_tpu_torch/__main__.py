@@ -1,12 +1,15 @@
-"""``python -m olearning_sim_tpu_torch --config platform.ini`` — stand up
+"""``python -m olearning_sim_tpu_torch --config platform.yaml`` — stand up
 the platform (the reference's per-service ``test/*/..._srv.py`` entry
 points + ``config/config.conf`` wiring, as one command).
 
-The JAX package's ``__main__.py`` for the port: the session serves no gRPC
-port (tasks enter through the intake queue the config names), so
-``--print-port`` is refused, and ``--device`` (``cuda``, the default, or
-``cpu``) takes the place of the JAX package's ``--platform``. SIGINT or
-SIGTERM stops the session and exits 0."""
+The JAX package's ``__main__.py`` for the port: the session serves gRPC on
+the config's ``session.address`` (``configs/platform.yaml`` says
+``0.0.0.0:50051``), and ``--print-port`` prints the bound port on stdout
+once it serves; a config whose address is ``none`` runs in process and
+serves no port, so ``--print-port`` is refused there. ``--device``
+(``cuda``, the default, or ``cpu``) takes the place of the JAX package's
+``--platform``. Serving without grpcio or protobuf fails at boot with an
+error naming both. SIGINT or SIGTERM stops the session and exits 0."""
 
 from __future__ import annotations
 
@@ -23,18 +26,21 @@ def main(argv=None) -> int:
     )
     ap.add_argument("--config", required=True, help="platform INI or YAML file")
     ap.add_argument(
+        "--print-port", action="store_true",
+        help="print the bound gRPC port on stdout once serving",
+    )
+    ap.add_argument(
         "--device", default="cuda", choices=("cuda", "cpu"),
         help="where the platform runs (cuda fails without a card)",
     )
-    ap.add_argument("--print-port", action="store_true", help=argparse.SUPPRESS)
     args = ap.parse_args(argv)
-    if args.print_port:
-        ap.error("--print-port: the PyTorch port serves no gRPC port; push "
-                 "task JSON onto the intake queue (repos.intake_queue_path)")
 
     from olearning_sim_tpu_torch.config import session_from_file
 
     session = session_from_file(args.config, device=args.device)
+    if args.print_port and session.address is None:
+        ap.error("--print-port: the config's session address is none (in process), "
+                 "so the platform serves no port")
     stop = threading.Event()
 
     def _sig(_signum, _frame):
@@ -42,12 +48,20 @@ def main(argv=None) -> int:
 
     signal.signal(signal.SIGINT, _sig)
     signal.signal(signal.SIGTERM, _sig)
-    session.start()
+    try:
+        session.start()
+    except ImportError as e:  # serving without grpcio/protobuf
+        print(f"olearning_sim_tpu_torch: {e}", file=sys.stderr, flush=True)
+        return 1
+    where = (f"serving on port {session.port}" if session.address is not None
+             else "running in process (no port)")
     print(
-        f"olearning_sim_tpu_torch platform running on {session.device} "
+        f"olearning_sim_tpu_torch platform {where} on {session.device} "
         f"(services: {', '.join(session.services)})",
         file=sys.stderr, flush=True,
     )
+    if args.print_port:
+        print(session.port, flush=True)
     stop.wait()
     session.stop()
     return 0

@@ -9,6 +9,7 @@ timer spellings) consumed by :func:`build_session`::
 
     session:
       services: [taskmgr, resourcemgr, deviceflow, phonemgr, slicemgr, performancemgr]
+      address: "0.0.0.0:50051"      # gRPC; null or none -> in process
     taskmgr:
       schedule_interval: 5          # config.conf scheduler_sleep_time
       release_interval: 10          # config.conf release_sleep_time
@@ -37,10 +38,12 @@ Entry point: ``python -m olearning_sim_tpu_torch --config platform.ini``.
 A copy of the JAX package's ``config.py``: the same parser, the same
 environment overrides (``OLS_SQLITE_PATH``, ``OLS_INTAKE_QUEUE_PATH``, the
 ``OLS_STORAGE_*`` exports) and the same wiring, building the port's
-:class:`~olearning_sim_tpu_torch.services.session.SimulatorSession`, which
-serves no gRPC port (``address`` and ``max_workers`` are read by nothing).
-YAML needs PyYAML, imported only when a ``.yaml`` file is read; INI needs
-only ``configparser``.
+:class:`~olearning_sim_tpu_torch.services.session.SimulatorSession`.
+``session.address`` (default ``"127.0.0.1:0"``, as JAX's) is where it
+serves gRPC with ``session.max_workers`` threads (default 16); a null or
+``none`` address runs it in process, serving nothing. YAML needs PyYAML,
+imported only when a ``.yaml`` file is read; INI needs only
+``configparser``.
 """
 
 from __future__ import annotations
@@ -127,6 +130,9 @@ def build_session(cfg: Dict[str, Any], device="cuda"):
 
     session_cfg = dict(cfg.get("session", {}))
     services = tuple(session_cfg.get("services", ALL_SERVICES))
+    address = session_cfg.get("address", "127.0.0.1:0")
+    if address is None or str(address).strip().lower() in ("none", "null"):
+        address = None
 
     repos = cfg.get("repos", {})
     # OLS_SQLITE_PATH overrides the config file's path so one shared config
@@ -254,11 +260,13 @@ def build_session(cfg: Dict[str, Any], device="cuda"):
 
     return SimulatorSession(
         services=services,
+        address=address,
         task_manager=task_manager,
         resource_manager=resource_manager,
         deviceflow=deviceflow,
         phone_farm=phone_farm,
         performance_manager=performance_manager,
+        max_workers=int(session_cfg.get("max_workers", 16)),
         device=device,
     )
 

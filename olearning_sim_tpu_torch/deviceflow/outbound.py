@@ -4,12 +4,15 @@ Reference: the gradient house forwards each dispatched batch to the task's
 *outbound service* — a Pulsar producer or a WebSocket producer that wraps
 every payload as ``{"payload": base64(...)}`` (the Pulsar WebSocket-producer
 wire format, ``ols_core/deviceflow/non_grpc/message_producer.py:42-78``) —
-so an external aggregator receives the behavior-shaped stream.
+so an external aggregator receives the behavior-shaped stream. The rebuild
+keeps the WebSocket format byte-compatible and replaces the Pulsar option
+with a gRPC ``OutboundSink`` service (``proto/services.proto``): brokerless,
+and the control plane already speaks gRPC.
 
-A copy of the JAX package's ``deviceflow/outbound.py`` without its gRPC
-``OutboundSink`` producer: the port carries no gRPC stack, so an outbound
-config of type ``grpc`` is refused with an error saying so. The WebSocket
-producer imports ``websocket`` (websocket-client) only when it connects.
+A copy of the JAX package's ``deviceflow/outbound.py``. The WebSocket
+producer imports ``websocket`` (websocket-client) only when it connects;
+the gRPC producer loads the wire (grpcio, protobuf) when it is built, and
+raises an ``ImportError`` naming both where they do not import.
 
 A producer is a callable ``producer(batch: List[Any]) -> None`` (the
 contract ``Dispatcher`` expects); ``close()`` is optional.
@@ -75,6 +78,30 @@ class WebsocketProducer:
                 # failure stays observable for degraded-path debugging.
                 logger.debug("websocket close for %s failed: %s: %s",
                              self.url, type(e).__name__, e)
+
+
+class GrpcOutboundProducer:
+    """Publishes dispatched batches to an external ``OutboundSink`` gRPC
+    service (one RPC per batch, preserving the dispatcher's batching)."""
+
+    def __init__(self, target: str, flow_id: str = "", timeout: float = 10.0):
+        from olearning_sim_tpu_torch.utils.wire import load_wire
+
+        wire = load_wire("olearning_sim_tpu_torch.services.grpc_services",
+                         f"the grpc outbound sink of flow {flow_id or '?'} ({target})")
+        self.flow_id = flow_id
+        self.timeout = timeout
+        self._channel = wire.grpc.insecure_channel(target)
+        self._sink = wire.OutboundSinkClient(self._channel)
+
+    def __call__(self, batch: List[Any]) -> None:
+        ok, message = self._sink.publish_batch(
+            self.flow_id, [_encode(m) for m in batch], timeout=self.timeout)
+        if not ok:
+            raise IOError(f"OutboundSink rejected batch: {message}")
+
+    def close(self) -> None:
+        self._channel.close()
 
 
 class ResilientProducer:
@@ -166,11 +193,11 @@ def make_outbound_factory(
     carries, falling back to ``default_cfg``)::
 
         {"type": "websocket", "url": "ws://aggregator:8765/ws"}
-        {"type": "memory"}   # or anything else but "grpc" -> ``fallback``
+        {"type": "grpc", "target": "aggregator:50070"}
+        {"type": "memory"}   # or anything else -> ``fallback``
 
-    ``{"type": "grpc"}`` raises :class:`ValueError`: the port has no gRPC
-    outbound. ``fallback`` handles unrecognized/absent configs (the
-    service's in-memory collector by default). Network producers are
+    ``fallback`` handles unrecognized/absent configs (the service's
+    in-memory collector by default). Network producers (websocket/grpc) are
     wrapped in :class:`ResilientProducer` — send failures are retried per
     ``retry_policy`` and then degrade (logged + counted, batch dropped)
     instead of crashing the dispatcher; pass ``on_failure="raise"`` to keep
@@ -198,10 +225,10 @@ def make_outbound_factory(
                 eff["url"], timeout=float(eff.get("timeout", 10.0))
             )
         elif kind == "grpc":
-            raise ValueError(
-                f"outbound service type 'grpc' for flow {flow_id}: gRPC is "
-                f"not in the PyTorch port (no grpc or protobuf); use "
-                f"'websocket' or the in-memory collector")
+            producer = GrpcOutboundProducer(
+                eff.get("target") or eff["url"], flow_id,
+                timeout=float(eff.get("timeout", 10.0)),
+            )
         elif fallback is not None:
             return fallback(flow_id, eff)
         else:

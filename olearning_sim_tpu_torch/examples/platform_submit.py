@@ -1,14 +1,13 @@
 """Full-platform flow: boot a session from a config, submit a
-reference-schema task JSON and poll it to completion (the reference's
-submitTask -> schedule -> run -> getTaskStatus loop).
+reference-schema task JSON over gRPC and poll it to completion (the
+reference's submitTask -> schedule -> run -> getTaskStatus loop).
 
-The port of the JAX package's ``examples/platform_submit.py``. The port
-serves no gRPC (its services are reached in process), so the task goes in
-through ``TaskManager.submit_task`` and its status comes from
-``TaskManager.get_task_status``: the two calls the JAX package's gRPC
-``TaskMgr`` handlers (``submitTask``, ``getTaskStatus``) make. The task
-table is a SQLite file in a temporary directory, read back once the task
-is released::
+The port of the JAX package's ``examples/platform_submit.py``: the session
+serves on ``127.0.0.1:0``, and the example opens a channel to
+``session.port``, submits through ``TaskMgrClient.submitTask`` and polls
+``getTaskStatus`` until the task ends. It needs grpcio and protobuf. The
+task table is a SQLite file in a temporary directory, read back once the
+task is released::
 
     python -m olearning_sim_tpu_torch.examples.platform_submit [--device cpu]
 """
@@ -91,11 +90,13 @@ def make_task(task_id: str) -> dict:
 
 
 def session_config(workdir: str, services=("taskmgr", "resourcemgr", "phonemgr",
-                                           "performancemgr")) -> dict:
-    """The example's platform: the JAX example's services, intervals and
-    phone inventory, with the task table in ``workdir/state.db``."""
+                                           "performancemgr"),
+                   address="127.0.0.1:0") -> dict:
+    """The example's platform: the JAX example's services, address,
+    intervals and phone inventory, with the task table in
+    ``workdir/state.db``."""
     return {
-        "session": {"services": list(services)},
+        "session": {"services": list(services), "address": address},
         "taskmgr": {"schedule_interval": 0.2, "release_interval": 0.2,
                     "interrupt_interval": 3600},
         "repos": {"sqlite_path": os.path.join(workdir, "state.db")},
@@ -104,10 +105,10 @@ def session_config(workdir: str, services=("taskmgr", "resourcemgr", "phonemgr",
     }
 
 
-def wait_released(session, rows, task_id: str) -> List[str]:
-    """Poll the task's status until it ends, then until the manager has
-    released it (its row final). Returns the statuses seen, in order, each
-    once."""
+def wait_released(status_of, rows, task_id: str) -> List[str]:
+    """Poll ``status_of(task_id)`` (a ``TaskStatus``) until the task ends,
+    then until the manager has released it (its row final). Returns the
+    statuses seen, in order, each once."""
     from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
     from olearning_sim_tpu_torch.utils.clocks import Deadline
 
@@ -117,7 +118,7 @@ def wait_released(session, rows, task_id: str) -> List[str]:
     seen: List[str] = []
     st = None
     while not deadline.expired():
-        st = session.task_manager.get_task_status(task_id)
+        st = status_of(task_id)
         if not seen or seen[-1] != st.name:
             seen.append(st.name)
         if st in (TaskStatus.SUCCEEDED, TaskStatus.FAILED) and \
@@ -129,27 +130,38 @@ def wait_released(session, rows, task_id: str) -> List[str]:
 
 
 def run(device="cuda") -> dict:
-    """Whether the submit was accepted, the statuses polled, and the task's
-    final row."""
+    """Whether the submit was accepted, the statuses polled over the wire,
+    and the task's final row."""
     from olearning_sim_tpu_torch.config import build_session
     from olearning_sim_tpu_torch.taskmgr.codecs import json2taskconfig
+    from olearning_sim_tpu_torch.taskmgr.status import TaskStatus
     from olearning_sim_tpu_torch.taskmgr.task_repo import TaskTableRepo
+    from olearning_sim_tpu_torch.utils.wire import load_wire
 
+    purpose = "the platform_submit example"
+    grpc = load_wire("grpc", purpose)
+    proto_codec = load_wire("olearning_sim_tpu_torch.taskmgr.proto_codec", purpose)
+    grpc_service = load_wire("olearning_sim_tpu_torch.taskmgr.grpc_service", purpose)
     with tempfile.TemporaryDirectory() as workdir:
         cfg = session_config(workdir)
         session = build_session(cfg, device=device)
         rows = TaskTableRepo(sqlite_path=cfg["repos"]["sqlite_path"])
         with session:
-            platform = f"{session.device} (services: {', '.join(session.services)})"
-            tc = json2taskconfig(json.dumps(make_task(TASK_ID)))
-            submitted = session.task_manager.submit_task(tc)
-            statuses = wait_released(session, rows, TASK_ID)
+            platform = (f"127.0.0.1:{session.port} on {session.device} "
+                        f"(services: {', '.join(session.services)})")
+            with grpc.insecure_channel(f"127.0.0.1:{session.port}") as channel:
+                client = grpc_service.TaskMgrClient(channel)
+                tc = proto_codec.taskconfig_to_proto(json2taskconfig(make_task(TASK_ID)))
+                submitted = client.submitTask(tc).is_success
+                statuses = wait_released(
+                    lambda tid: TaskStatus(client.getTaskStatus(tid).taskStatus),
+                    rows, TASK_ID)
         row = next(r for r in rows.query_all() if r["task_id"] == TASK_ID)
     return {"platform": platform, "submitted": submitted, "statuses": statuses, "row": row}
 
 
 def report(result: dict) -> List[str]:
-    return ([f"platform up in process on {result['platform']}",
+    return ([f"platform up on {result['platform']}",
              f"submitTask: {result['submitted']}"]
             + [f"status: {s}" for s in result["statuses"]]
             + [f"task completed successfully: logical_round "

@@ -27,8 +27,10 @@ TASK_ID = "queued-task"
 
 def queue_config(workdir: str) -> dict:
     """``platform_submit``'s platform without the performance manager (as
-    the JAX example's), draining ``workdir/intake.db``."""
-    cfg = session_config(workdir, services=("taskmgr", "resourcemgr", "phonemgr"))
+    the JAX example's), in process (``address`` none: the intake needs no
+    server), draining ``workdir/intake.db``."""
+    cfg = session_config(workdir, services=("taskmgr", "resourcemgr", "phonemgr"),
+                         address="none")
     cfg["repos"]["intake_queue_path"] = os.path.join(workdir, "intake.db")
     return cfg
 
@@ -52,7 +54,7 @@ def run(device="cuda") -> dict:
         session = build_session(cfg, device=device)
         rows = TaskTableRepo(sqlite_path=cfg["repos"]["sqlite_path"])
         with session:
-            statuses = wait_released(session, rows, TASK_ID)
+            statuses = wait_released(session.task_manager.get_task_status, rows, TASK_ID)
         row = next(r for r in rows.query_all() if r["task_id"] == TASK_ID)
     return {"intake": os.path.basename(intake_path), "statuses": statuses, "row": row}
 

@@ -11,6 +11,12 @@ profiler is ``torch.profiler`` (host activity, and CUDA kernels on a card)
 in place of ``jax.profiler``: a context object, so the manager holds the
 open session between :meth:`PerformanceManager.start_trace` and
 :meth:`PerformanceManager.stop_trace`, which exports its Chrome trace.
+The profiler's session must open and close on one thread (its activity
+profiler registers the thread that starts it), while a served manager gets
+each call on whichever gRPC handler thread takes it: so the session is
+opened, closed and exported on one thread the manager owns, and records
+the operators of every thread (the rounds run on the task manager's job
+threads, not on the thread that asked for the trace).
 """
 
 from __future__ import annotations
@@ -28,6 +34,18 @@ from olearning_sim_tpu_torch.utils.repo import TableRepo
 
 PERF_COLUMNS = ["task_id", "round_idx", "operator", "duration_s",
                 "num_clients", "local_steps", "extra"]
+
+
+def _all_threads_config():
+    """A profiler config that records every thread's operators, or None
+    where this torch's profiler has no such option (it then records the
+    thread that opened the session)."""
+    from torch._C._profiler import _ExperimentalConfig
+
+    try:
+        return _ExperimentalConfig(profile_all_threads=True)
+    except TypeError:
+        return None
 
 
 @dataclasses.dataclass
@@ -113,6 +131,7 @@ class PerformanceManager:
         self._trace_dir: Optional[str] = None
         self._trace_session = None
         self._trace_span_mark: float = 0.0
+        self._profiler_thread = None
 
     # ------------------------------------------------------------- recording
     def record_round(self, timing: RoundTiming) -> None:
@@ -377,6 +396,16 @@ class PerformanceManager:
     TRACE_FILE = "torch_profiler.trace.json"
     RUNNER_SPAN_FILE = "runner_spans.trace.json"
 
+    def _on_profiler_thread(self, fn):
+        """``fn()`` run on the manager's profiler thread; its result or
+        exception returned or raised here."""
+        if self._profiler_thread is None:
+            from concurrent.futures import ThreadPoolExecutor
+
+            self._profiler_thread = ThreadPoolExecutor(
+                max_workers=1, thread_name_prefix="torch-profiler")
+        return self._profiler_thread.submit(fn).result()
+
     def start_trace(self, logdir: str) -> bool:
         """Begin a ``torch.profiler`` trace (host ops, and CUDA kernels when
         a card is present) written to ``logdir`` at :meth:`stop_trace`. One
@@ -399,17 +428,18 @@ class PerformanceManager:
             activities = [ProfilerActivity.CPU]
             if torch.cuda.is_available():
                 activities.append(ProfilerActivity.CUDA)
-            session = profile(activities=activities)
+            session = profile(activities=activities,
+                              experimental_config=_all_threads_config())
             try:
                 os.makedirs(logdir, exist_ok=True)
-                session.__enter__()
+                self._on_profiler_thread(session.__enter__)
             except BaseException:
                 # The profiler may have half-opened its session before
                 # failing; close it so the retry doesn't hit "already
                 # started".
                 self._trace_dir = None
                 with contextlib.suppress(Exception):
-                    session.__exit__(None, None, None)
+                    self._on_profiler_thread(lambda: session.__exit__(None, None, None))
                 raise
             self._trace_session = session
             self._trace_dir = logdir
@@ -425,8 +455,12 @@ class PerformanceManager:
                 return None
             session, self._trace_session = self._trace_session, None
             out, self._trace_dir = self._trace_dir, None
-            session.__exit__(None, None, None)
-        session.export_chrome_trace(os.path.join(out, self.TRACE_FILE))
+
+            def close():
+                session.__exit__(None, None, None)
+                session.export_chrome_trace(os.path.join(out, self.TRACE_FILE))
+
+            self._on_profiler_thread(close)
         # Flush the runner-level spans as Perfetto trace_event JSON next to
         # the profiler's trace, so one directory opens both timelines.
         # Best-effort: span export must never turn a successful capture

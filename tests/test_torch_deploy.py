@@ -3,7 +3,8 @@ Deployment (``deploy/k8s/gpu-platform.yaml``), checked structurally: no
 docker daemon or cluster exists here, so every path the image copies and
 runs must exist, its tag must be the one the manifests and the Job builder
 name, its build step must be the kernel build's own entry point, and the
-Deployment must run the port's platform on one GPU with no gRPC port.
+Deployment must run the port's platform on one GPU, serving gRPC on 50051
+behind a Service of its own.
 ``tests/test_k8s_manifests.py`` holds the manifest to the Kubernetes
 schemas with the others."""
 
@@ -93,7 +94,7 @@ def test_base_image_and_torch_are_cuda_12_8():
     assert first.startswith("FROM nvidia/cuda:12.8") and "devel" in first
     pip = " ".join(ln for ln in _lines() if "pip install" in ln)
     assert "torch==2.11.0" in pip and "whl/cu128" in pip
-    for dep in ("numpy", "scipy", "pyyaml"):
+    for dep in ("numpy", "scipy", "pyyaml", "grpcio==1.76.0", "protobuf==6.33.5"):
         assert dep in pip
     assert not any(j in pip for j in ("jax", "flax", "optax"))
 
@@ -153,15 +154,18 @@ def test_build_entry_fails_without_nvcc(monkeypatch):
 
 
 def test_gpu_platform_runs_the_port_on_one_gpu_without_grpc():
+    """The port's platform on one GPU: its Deployment, its PVC, and (since
+    the port serves the wire) the container's ``grpc`` port 50051 behind a
+    Service of its own, as the JAX platform's."""
     docs = [d for d in yaml.safe_load_all((K8S / "gpu-platform.yaml").read_text()) if d]
-    assert sorted(d["kind"] for d in docs) == ["Deployment", "PersistentVolumeClaim"]
+    assert sorted(d["kind"] for d in docs) == ["Deployment", "PersistentVolumeClaim",
+                                                "Service"]
     dep = next(d for d in docs if d["kind"] == "Deployment")
     assert dep["spec"]["replicas"] == 1
     pod = dep["spec"]["template"]["spec"]
     (c,) = pod["containers"]
     assert c["command"] == ["python", "-m", PORT, "--config", "/etc/ols/platform.yaml"]
     assert "--platform" not in c["command"] and "--print-port" not in c["command"]
-    assert "ports" not in c
     assert str(c["resources"]["limits"]["nvidia.com/gpu"]) == "1"
     # The JAX platform's ConfigMap, and state on a PVC of its own.
     jax_docs = [d for d in yaml.safe_load_all((K8S / "platform.yaml").read_text()) if d]
@@ -180,9 +184,16 @@ def test_gpu_platform_runs_the_port_on_one_gpu_without_grpc():
         assert env[name]["value"].startswith(mounts["state"] + "/")
     for key in ("ENDPOINT", "ACCESS_KEY", "SECRET_KEY", "BUCKET"):
         assert env[f"OLS_STORAGE_{key}"]["valueFrom"]["secretKeyRef"]["name"] == "ols-storage"
-    # No Service selects the platform: it serves no gRPC port.
+    # The JAX platform's container port and Service, under the port's names;
+    # the config it mounts serves that port.
+    jax_c = jax_dep["spec"]["template"]["spec"]["containers"][0]
+    assert c["ports"] == jax_c["ports"] == [{"containerPort": 50051, "name": "grpc"}]
+    svc = next(d for d in docs if d["kind"] == "Service")
+    jax_svc = next(d for d in jax_docs if d["kind"] == "Service")
+    assert svc["spec"]["ports"] == jax_svc["spec"]["ports"]
+    assert svc["metadata"]["name"] != jax_svc["metadata"]["name"]
     labels = dep["spec"]["template"]["metadata"]["labels"]
-    for path in K8S.glob("*.yaml"):
-        for d in yaml.safe_load_all(path.read_text()):
-            if d and d["kind"] == "Service":
-                assert not d["spec"].get("selector", {}).items() <= labels.items(), path
+    assert svc["spec"]["selector"].items() <= labels.items()
+    assert not jax_svc["spec"]["selector"].items() <= labels.items()
+    cfg = yaml.safe_load((REPO / "configs" / "platform.yaml").read_text())
+    assert cfg["session"]["address"].endswith(":50051")

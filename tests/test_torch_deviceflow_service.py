@@ -683,25 +683,6 @@ def test_factory_dispatch_equals_jax():
     assert same(run)[:2] == ("ResilientProducer", "WebsocketProducer")
 
 
-def test_grpc_outbound_is_refused():
-    from olearning_sim_tpu_torch.deviceflow import DeviceFlowService
-    from olearning_sim_tpu_torch.deviceflow.outbound import make_outbound_factory
-
-    with pytest.raises(ValueError, match="gRPC is not in the PyTorch port"):
-        make_outbound_factory()("f", {"type": "grpc", "target": "127.0.0.1:1"})
-    svc = DeviceFlowService(poll_interval=0.005)
-    svc.start()
-    try:
-        svc.register_task("g", ["logical_simulation"])
-        assert svc.notify_start("g", "g_op_0", "logical_simulation", rt_strategy(),
-                                outbound_service={"type": "grpc", "target": "127.0.0.1:1"})[0]
-        svc.notify_complete("g", "g_op_0", "logical_simulation")
-        assert wait_until(lambda: "g_op_0" in svc._dispatch_failed)
-        assert not svc.check_dispatch_finished("g")
-    finally:
-        svc.stop()
-
-
 def test_deviceflow_streams_to_websocket_equals_jax(fake_websocket):
     sink, _ = fake_websocket
 

@@ -257,8 +257,7 @@ def test_manager_rejects_invalid_requests(mgr):
 
 def test_slice_surface_over_k8s_backend(mgr, fake):
     """K8sClusterManager duck-types ClusterManager's slice CRUD, so the
-    platform session serves it as its slicemgr (the port has no gRPC
-    servicer: the card machine has no grpc)."""
+    platform session serves it as its slicemgr."""
     from olearning_sim_tpu_torch.services.session import SimulatorSession
 
     session = SimulatorSession(services=("slicemgr",), cluster_manager=mgr, device="cpu")
@@ -276,6 +275,32 @@ def test_slice_surface_over_k8s_backend(mgr, fake):
         slices.modify_slice("ghost", num_devices=2)
     assert slices.delete_slice("sim-a")
     assert slices.query_slice("sim-a") is None
+
+
+def test_slice_mgr_servicer_over_k8s_backend(mgr, fake):
+    """The SliceMgr servicer serves a K8sClusterManager over the wire
+    unchanged (``tests/test_k8s_api.py``'s servicer case): a refused
+    request (duplicate name -> 409, an unknown slice) comes back a nack."""
+    import grpc
+
+    from olearning_sim_tpu_torch.services.grpc_services import SliceMgrClient
+    from olearning_sim_tpu_torch.services.session import SimulatorSession
+
+    session = SimulatorSession(services=("slicemgr",), cluster_manager=mgr, device="cpu")
+    with session, grpc.insecure_channel(f"127.0.0.1:{session.port}") as ch:
+        slices = SliceMgrClient(ch)
+        assert slices.create_slice("sim-a", 3, user_id="u") == (True, "")
+        assert fake.jobs[("default", "sim-a")]["spec"]["parallelism"] == 3
+        ok, _ = slices.create_slice("sim-a", 4)
+        assert not ok  # duplicate -> 409 -> ValueError -> nack
+        assert slices.modify_slice("sim-a", 6) == (True, "")
+        parsed = slices.query_slice("sim-a")
+        assert parsed["num_pods"] == 6 and parsed["status"] == "PENDING"
+        assert parsed["num_devices"] == 6
+        ok, msg = slices.modify_slice("ghost", 2)
+        assert not ok and "ghost" in msg
+        assert slices.delete_slice("sim-a")
+        assert slices.query_slice("sim-a") is None
 
 
 def test_create_is_idempotent_on_service_conflict(api, fake):

@@ -1,8 +1,11 @@
-"""Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax,
-msgpack, protobuf or grpc (nor anything of the JAX package), builds no
-kernel and imports no triton when imported, brings in none of its optional
-clients (redis, pymysql, yaml, websocket) until they are used, and its GPU
-smoke script refuses to run without a card."""
+"""Package rules of the PyTorch port: it imports no JAX, flax, optax, orbax or
+msgpack (nor anything of the JAX package), builds no kernel and imports no
+triton when imported, brings in none of its optional clients (redis,
+pymysql, yaml, websocket) until they are used, and its GPU smoke script
+refuses to run without a card. Protobuf and grpc are imported at import by
+the wire modules alone (``WIRE_MODULES``), which may also name the wire's
+``olearning_sim_tpu.services.*`` method paths; every other module loads them
+only when asked to serve or send over gRPC."""
 
 import os
 import pathlib
@@ -18,6 +21,18 @@ PORT = REPO / "olearning_sim_tpu_torch"
 FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack|grpc|google)\b|"
                        r"from (jax|flax|optax|orbax|msgpack|grpc|google)\b|"
                        r"olearning_sim_tpu[^_]")
+# The wire modules: the generated protobuf modules, the TaskConfig converter,
+# and the servicers and clients. They import grpc and protobuf, and name the
+# wire's service paths; nothing else of FORBIDDEN.
+WIRE_MODULES = ("olearning_sim_tpu_torch.proto.taskservice_pb2",
+                "olearning_sim_tpu_torch.proto.services_pb2",
+                "olearning_sim_tpu_torch.taskmgr.proto_codec",
+                "olearning_sim_tpu_torch.taskmgr.grpc_service",
+                "olearning_sim_tpu_torch.services.grpc_services")
+WIRE_FORBIDDEN = re.compile(r"import (jax|flax|optax|orbax|msgpack)\b|"
+                            r"from (jax|flax|optax|orbax|msgpack)\b|"
+                            r"olearning_sim_tpu[^_]")
+WIRE_PATH = re.compile(r"olearning_sim_tpu\.services\.")
 
 
 def _run(code, cwd=REPO):
@@ -95,6 +110,9 @@ def test_port_imports_no_jax():
         "from olearning_sim_tpu_torch.operators import base, external\n"
         "from olearning_sim_tpu_torch.storage import fragment_repo\n"
         "from olearning_sim_tpu_torch.taskmgr.operator_flow import WebsocketRoundProvider\n"
+        "import olearning_sim_tpu_torch.proto\n"
+        "from olearning_sim_tpu_torch.utils import wire\n"
+        "from olearning_sim_tpu_torch.examples import platform_submit, queue_submit\n"
         "v = validation.validate_task_parameters(codecs.json2taskconfig(\n"
         "    open('configs/fedavg_mnist_mlp.json').read()))\n"
         "assert v == (True, 'Pass'), v\n"
@@ -106,6 +124,23 @@ def test_port_imports_no_jax():
     )
     assert proc.returncode == 0, proc.stderr
     assert proc.stdout.strip() == "[]"
+
+
+def test_wire_modules_import_grpc_and_protobuf_and_nothing_of_jax():
+    """The wire modules bring in grpc and protobuf (``google``) and none of
+    the other roots the port may not load."""
+    proc = _run(
+        "import sys, importlib\n"
+        "before = set(sys.modules)\n"
+        f"for name in {WIRE_MODULES!r}:\n"
+        "    importlib.import_module(name)\n"
+        "roots = {m.split('.')[0] for m in set(sys.modules) - before}\n"
+        "print(sorted(roots & {'jax', 'flax', 'optax', 'orbax', 'msgpack', 'google',\n"
+        "                      'olearning_sim_tpu', 'triton', 'grpc', 'redis', 'pymysql',\n"
+        "                      'yaml', 'websocket'}))\n"
+    )
+    assert proc.returncode == 0, proc.stderr
+    assert proc.stdout.strip() == "['google', 'grpc']"
 
 
 def test_operators_import_leaves_torch_out():
@@ -131,10 +166,13 @@ def test_operators_import_leaves_torch_out():
 def test_port_sources_name_no_jax():
     files = [REPO / "chip_smoke.py"] + sorted(
         p for p in PORT.rglob("*") if p.suffix in (".py", ".cu", ".cuh"))
+    wire = {REPO.joinpath(*name.split(".")).with_suffix(".py") for name in WIRE_MODULES}
+    assert all(p.exists() for p in wire)
     hits = [f"{p.relative_to(REPO)}:{i}: {line.strip()}"
             for p in files
             for i, line in enumerate(p.read_text().splitlines(), 1)
-            if FORBIDDEN.search(line)]
+            if (WIRE_FORBIDDEN.search(WIRE_PATH.sub("", line)) if p in wire
+                else FORBIDDEN.search(line))]
     assert hits == []
 
 

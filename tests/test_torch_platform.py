@@ -4,10 +4,12 @@
 section and the ``OLS_SQLITE_PATH`` / ``OLS_INTAKE_QUEUE_PATH`` overrides
 act alike, ``build_session`` builds the same services with the same
 intervals, and ``python -m olearning_sim_tpu_torch --config x.ini --device
-cpu`` boots, runs a task pushed onto its intake queue to SUCCEEDED and exits
-0 on SIGTERM. What the port refuses: ``--print-port`` and a ``grpc``
-outbound (it has no gRPC), a YAML file without PyYAML (named), and the CPU
-unless asked for."""
+cpu`` boots in process (``address = none``), runs a task pushed onto its
+intake queue to SUCCEEDED and exits 0 on SIGTERM. What the port refuses: a
+YAML file without PyYAML (named), and the CPU unless asked for. The wire
+(``--print-port``, a ``grpc`` outbound, the servicers) is held against the
+JAX package's in ``tests/test_torch_grpc.py`` and
+``tests/test_torch_grpc_session.py``."""
 
 import json
 import os
@@ -76,7 +78,8 @@ def config_modules():
 def describe(session):
     """What a session was built with, in either package."""
     tm = session.task_manager
-    out = {"services": session.services,
+    out = {"services": session.services, "address": session.address,
+           "max_workers": session._max_workers,
            "managers": {k: getattr(session, k) is not None
                         for k in ("task_manager", "resource_manager", "deviceflow",
                                   "phone_farm", "cluster_manager", "performance_manager",
@@ -230,31 +233,11 @@ def test_session_serves_metrics_and_stops_every_thread():
     assert not session.task_manager._threads and not session.deviceflow._threads
 
 
-def test_grpc_outbound_is_refused_by_the_session(tmp_path):
-    _, tconfig = config_modules()
-    session = tconfig.build_session({
-        "session": {"services": ["deviceflow"]},
-        "deviceflow": {"outbound": {"type": "grpc", "target": "127.0.0.1:1"}}}, device="cpu")
-    with pytest.raises(ValueError, match="gRPC is not in the PyTorch port"):
-        session.deviceflow._outbound_factory("f", {})
-    assert session.deviceflow._outbound_factory("f", {"type": "memory"}) is not None
-
-
 # ------------------------------------------------------------ entry point
 def _env():
     env = dict(os.environ)
     env["PYTHONPATH"] = REPO + os.pathsep + env.get("PYTHONPATH", "")
     return env
-
-
-def test_print_port_is_refused(tmp_path):
-    p = tmp_path / "platform.ini"
-    p.write_text("[session]\nservices = performancemgr\n")
-    proc = subprocess.run([sys.executable, "-m", "olearning_sim_tpu_torch", "--config", str(p),
-                           "--print-port", "--device", "cpu"], cwd=REPO, env=_env(),
-                          capture_output=True, text=True, timeout=120)
-    assert proc.returncode == 2 and "serves no gRPC port" in proc.stderr
-    assert proc.stdout == ""
 
 
 def test_main_runs_an_intake_task_and_exits_on_sigterm(tmp_path):
@@ -267,7 +250,7 @@ def test_main_runs_an_intake_task_and_exits_on_sigterm(tmp_path):
     p = tmp_path / "platform.ini"
     p.write_text(
         "[session]\nservices = taskmgr, resourcemgr, deviceflow, phonemgr, slicemgr, "
-        "performancemgr\n\n[taskmgr]\nscheduler_sleep_time = 0.05\n"
+        "performancemgr\naddress = none\n\n[taskmgr]\nscheduler_sleep_time = 0.05\n"
         f"release_sleep_time = 0.05\n\n[repos]\nsqlite_path = {db}\n"
         f"intake_queue_path = {intake}\n\n[deviceflow]\npoll_interval = 0.01\n")
     task = make_task_json("intake_task", rounds=2, cpus=1, request_units=1)
@@ -283,7 +266,7 @@ def test_main_runs_an_intake_task_and_exits_on_sigterm(tmp_path):
                             stdout=log, stderr=subprocess.STDOUT)
     try:
         deadline = time.monotonic() + 60
-        while "platform running on cpu" not in log_path.read_text():
+        while "platform running in process (no port) on cpu" not in log_path.read_text():
             assert proc.poll() is None and time.monotonic() < deadline, log_path.read_text()
             time.sleep(0.05)
         SqliteQueueRepo(str(intake)).push(json.dumps(task))
