@@ -54,6 +54,7 @@ import numpy as np
 import torch
 
 from olearning_sim_tpu_torch.engine.pacing import DeadlineConfig, arrival_ranks
+from olearning_sim_tpu_torch.telemetry import default_tracer
 
 SCHEDULES = ("constant", "polynomial", "score")
 
@@ -396,31 +397,23 @@ def _tree_where(pred: torch.Tensor, a, b):
 
 def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
                 steps_eff: torch.Tensor, indices: torch.Tensor, attack_scale=None,
-                defense=None, clip_norm=None, trim_fraction=None):
+                defense=None, clip_norm=None, trim_fraction=None, released=None):
     """The buffered round over a resident population (``ds`` this rank's
     shard), after ``FedCore.round_step`` resolved its inputs to this rank's
     rows (``weight`` after participation). The window sums and scalars
     meet over dp at the round's close as the JAX engine's do: a psum, or a
     psum_scatter onto the coordinate shards under the sharded update; a
-    gathering defense re-lays the deltas with one all_to_all. Returns
-    ``(state, RoundMetrics, AsyncStats)``, the same on every rank."""
-    from olearning_sim_tpu_torch.engine.defense import (
-        distance_scores,
-        place_coordinate_shard,
-        robust_aggregate,
-        shard_client_deltas,
-    )
-    from olearning_sim_tpu_torch.engine.fedcore import RoundMetrics, ServerState
-    from olearning_sim_tpu_torch.parallel import collectives
-
+    gathering defense re-lays the deltas with one all_to_all. ``released``
+    — the clients each block releases, counted on the host (the blocks'
+    ``round.block`` spans carry it); the close and the commits are one
+    ``round.server_update`` span. Returns ``(state, RoundMetrics,
+    AsyncStats)``, the same on every rank."""
     cfg = core.config
     acfg = plan.config
     dev = weight.device
     W = int(plan.num_windows)
     C = ds.num_clients
     rows = core.client_rows(ds)
-    group = core.group
-    shard_update = cfg.shard_server_update
     f32 = dict(dtype=torch.float32, device=dev)
 
     # Per-window staleness discount [W]: uniform within a window (staleness
@@ -456,8 +449,31 @@ def async_round(core, state, ds, plan: AsyncRoundPlan, weight: torch.Tensor,
             weight[blk], None if attack_scale is None else attack_scale[blk],
             clip_norm=clip_norm, window=wclamp[blk],
             score=None if score is None else score[blk],
+            released=None if released is None else released[s // cfg.block_clients],
         )
+    with default_tracer().span("round.server_update"):
+        return _close_round(core, state, sums, defense, trim_fraction, wclamp, sw_w,
+                            dropped_stale)
 
+
+def _close_round(core, state, sums, defense, trim_fraction, wclamp: torch.Tensor,
+                 sw_w: torch.Tensor, dropped_stale: torch.Tensor):
+    """:func:`async_round`'s close, once its blocks are summed: the window
+    aggregates meet over dp, and the commits run in window order."""
+    from olearning_sim_tpu_torch.engine.defense import (
+        distance_scores,
+        place_coordinate_shard,
+        robust_aggregate,
+        shard_client_deltas,
+    )
+    from olearning_sim_tpu_torch.engine.fedcore import RoundMetrics, ServerState
+    from olearning_sim_tpu_torch.parallel import collectives
+
+    W = int(sw_w.shape[0])
+    dev = sw_w.device
+    group = core.group
+    shard_update = core.config.shard_server_update
+    f32 = dict(dtype=torch.float32, device=dev)
     keys = list(state.params)
     # Per-window aggregates feeding the commits: robust statistics on
     # coordinate shards, or the weighted window sums normalized by their

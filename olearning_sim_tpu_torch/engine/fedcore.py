@@ -139,7 +139,7 @@ from olearning_sim_tpu_torch.parallel.tp import (
     unshard_params,
     warn_if_unsharded,
 )
-from olearning_sim_tpu_torch.telemetry import instrument
+from olearning_sim_tpu_torch.telemetry import default_tracer, instrument
 
 Params = Dict[str, torch.Tensor]
 
@@ -903,6 +903,27 @@ class FedCore:
                 f"place ds.shard(plan)"
             )
 
+    def _released(self, participate, ds: ClientDataset):
+        """Per block of this rank's rows, the real clients that the
+        participation mask releases (all real clients without one), counted
+        on the host before the mask moves to the device; None for a mask
+        already on the device, which would need a sync to count, and with
+        the default tracer off, whose ``round.block`` spans alone read it."""
+        if not default_tracer().enabled:
+            return None
+        if isinstance(participate, torch.Tensor) and participate.device.type != "cpu":
+            return None
+        rows = self.client_rows(ds)
+        # NumPy, not torch: the round's recorded operations stay its own.
+        on = np.arange(rows.start, rows.stop) < ds.num_real_clients
+        if participate is not None:
+            mask = np.asarray(participate)
+            if mask.shape[0] != ds.padded_clients:
+                return None  # _local_arg refuses it
+            on &= mask[rows] > 0
+        B = self.config.block_clients
+        return [int(on[s:s + B].sum()) for s in range(0, on.shape[0], B)]
+
     def _local_arg(self, name: str, arr, ds: ClientDataset, dev):
         """This rank's rows of a whole-population per-client argument."""
         if arr is None:
@@ -1003,6 +1024,7 @@ class FedCore:
                 "clip_norm only (docs/performance.md has the composition "
                 "matrix)"
             )
+        released = self._released(participate, ds)
         participate = self._local_arg("participate", participate, ds, dev)
         weight = ds.weight if participate is None else ds.weight * participate
         stragglers = None
@@ -1036,7 +1058,7 @@ class FedCore:
         if async_plan is not None:
             return async_rounds.async_round(self, state, ds, async_plan, weight, steps_eff,
                                             indices, attack_scale, defense, clip_norm,
-                                            trim_fraction)
+                                            trim_fraction, released=released)
         # The carry's layout: this rank's shards or stage (the whole model
         # at mp 1 and pp 1); SCAFFOLD's server control alike.
         local = self._to_carry(state.params)
@@ -1054,9 +1076,11 @@ class FedCore:
                 None if attack_scale is None else attack_scale[blk],
                 clip_norm=clip_norm, control=local_control, personal=personal,
                 personal_idx=personal_indices[blk] if alg.personalized else None,
+                released=None if released is None else released[s // cfg.block_clients],
             )
-        return self._finish_round(state, sums, defense, trim_fraction, stragglers,
-                                  control, ds.population)
+        with default_tracer().span("round.server_update"):
+            return self._finish_round(state, sums, defense, trim_fraction, stragglers,
+                                      control, ds.population)
 
     def _check_sync_state(self, C: int, dev, personal, control, personal_indices) -> None:
         """The synchronous round's per-client state: present iff the
@@ -1124,7 +1148,8 @@ class FedCore:
 
     def _train_block(self, sums: "_RoundSums", params: Params, blk: slice, bx, by,
                      bsteps, bidx, bw, batk=None, clip_norm=None, control=None,
-                     personal=None, personal_idx=None, window=None, score=None) -> None:
+                     personal=None, personal_idx=None, window=None, score=None,
+                     released: Optional[int] = None) -> None:
         """One block of ``block_clients`` clients, shared by the resident,
         the streamed and the async round: local training, the attack, the
         finiteness gate, the clip, and the block's terms added to ``sums``
@@ -1134,80 +1159,98 @@ class FedCore:
         participation and the deadline. An async round passes each client's
         commit ``window`` and, under the ``score`` schedule, its ``score``,
         which reweights its delta after the clip; the weighted deltas then
-        land in their window's slot of ``sums.buf``."""
+        land in their window's slot of ``sums.buf``.
+
+        The block is a ``round.block`` span of the default tracer
+        (attributes ``block``, ``clients`` and, where the caller counted
+        them on the host, ``released``), holding a ``round.local_steps``
+        span around each local training and a ``round.aggregate`` span
+        around the rest."""
         cfg = self.config
         alg = self.algorithm
-        start = {k: v.unsqueeze(0).expand((cfg.block_clients,) + v.shape)
-                 for k, v in params.items()}
-        transform = None
-        if alg.control_variates:
-            sc = control.server_control
-            ci = {k: v[blk] for k, v in control.client_controls.items()}
+        tracer = default_tracer()
+        attrs = {}
+        if tracer.enabled:
+            attrs = {"block": blk.start // cfg.block_clients, "clients": cfg.block_clients}
+            if released is not None:
+                attrs["released"] = released
+        with tracer.span("round.block", **attrs):
+            start = {k: v.unsqueeze(0).expand((cfg.block_clients,) + v.shape)
+                     for k, v in params.items()}
+            transform = None
+            if alg.control_variates:
+                sc = control.server_control
+                ci = {k: v[blk] for k, v in control.client_controls.items()}
 
-            def transform(k, g, _p):
-                return g + sc[k] - ci[k]
+                def transform(k, g, _p):
+                    return g + sc[k] - ci[k]
 
-        final, losses = self._masked_sgd(start, bx, by, bsteps, bidx,
-                                         prox_anchor=params, grad_transform=transform)
-        deltas = trained = {k: final[k] - params[k] for k in params}
-        if batk is not None:
-            # The shipped delta; SCAFFOLD's refresh below reads the
-            # trained one, as the JAX engine's local training returns it.
-            deltas = _attack_deltas(trained, batk)
-        ok = self._agree_ok(_finite_client_mask(losses, deltas))
-        bw_eff = torch.where(ok, bw, 0.0)
-        if clip_norm is None and window is None:
-            for k, d in deltas.items():
-                gated = torch.where(_bcast(ok, d), d.float(), 0.0)
-                sums.sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
-        else:
-            d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
-                   for k, d in deltas.items()}
-            if clip_norm is not None:
-                split = {"split": self._split, "group": self.mp_group} if self._split else {}
-                d32, too_big = _clip_client_deltas(d32, clip_norm, **split)
-                sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
-            if window is None:
-                for k, d in d32.items():
-                    sums.sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
-            else:
-                if score is not None:
-                    # Apodotiko contribution scores reweight clients inside
-                    # their buffer (the staleness discount applies per window
-                    # at commit time).
-                    d32 = {k: d * _bcast(score, d) for k, d in d32.items()}
-                onehot = async_rounds.window_weights(window, bw_eff, sums.buf_w.shape[0])
-                sums.buf_w = sums.buf_w + onehot.sum(dim=0)
-                if sums.buf is not None:
-                    for k, d in d32.items():
-                        sums.buf[k] += torch.tensordot(onehot, d, dims=([0], [0]))
-            if sums.gathered is not None:
-                for k, d in d32.items():
-                    sums.gathered[k][blk] = d
-                sums.gathered_w[blk] = bw_eff
-            del d32
-        sums.sum_w = sums.sum_w + bw_eff.sum()
-        sums.sum_loss = sums.sum_loss + torch.where(ok, bw * losses, 0.0).sum()
-        sums.count = sums.count + (bw_eff > 0).sum().float()
-        sums.client_loss.append(losses)
-        if alg.control_variates:
-            # Option II: c_i' - c_i = -c - delta / (K * lr), zero for a
-            # client that ran no step; c_i advances only for participants
-            # that survived the finiteness gate.
-            k_lr = torch.clamp(bsteps, min=1).float() * alg.local_lr
-            ran, active = bsteps > 0, bw_eff > 0
-            for k, d in trained.items():
-                dci = torch.where(_bcast(ran, d), -sc[k] - d / _bcast(k_lr, d), 0.0)
-                sums.new_client_state[k].append(ci[k] + torch.where(_bcast(active, d), dci, 0.0))
-                sums.sum_dc[k] += torch.tensordot(
-                    bw_eff, torch.where(_bcast(ok, d), dci, 0.0), dims=([0], [0]))
-        elif alg.personalized:
-            v_old = {k: v[blk] for k, v in personal.params.items()}
-            new_v, ploss_sum = self._personal_train(
-                v_old, params, bx, by, bsteps, bw, personal_idx)
-            sums.sum_ploss = sums.sum_ploss + ploss_sum
-            for k, v in new_v.items():
-                sums.new_client_state[k].append(v)
+            with tracer.span("round.local_steps"):
+                final, losses = self._masked_sgd(start, bx, by, bsteps, bidx,
+                                                 prox_anchor=params, grad_transform=transform)
+            with tracer.span("round.aggregate"):
+                deltas = trained = {k: final[k] - params[k] for k in params}
+                if batk is not None:
+                    # The shipped delta; SCAFFOLD's refresh below reads the
+                    # trained one, as the JAX engine's local training returns it.
+                    deltas = _attack_deltas(trained, batk)
+                ok = self._agree_ok(_finite_client_mask(losses, deltas))
+                bw_eff = torch.where(ok, bw, 0.0)
+                if clip_norm is None and window is None:
+                    for k, d in deltas.items():
+                        gated = torch.where(_bcast(ok, d), d.float(), 0.0)
+                        sums.sum_delta[k] += torch.tensordot(bw_eff, gated, dims=([0], [0]))
+                else:
+                    d32 = {k: torch.where(_bcast(ok, d), d.float(), 0.0)
+                           for k, d in deltas.items()}
+                    if clip_norm is not None:
+                        split = ({"split": self._split, "group": self.mp_group}
+                                 if self._split else {})
+                        d32, too_big = _clip_client_deltas(d32, clip_norm, **split)
+                        sums.n_clip = sums.n_clip + ((bw_eff > 0) & too_big).sum().float()
+                    if window is None:
+                        for k, d in d32.items():
+                            sums.sum_delta[k] += torch.tensordot(bw_eff, d, dims=([0], [0]))
+                    else:
+                        if score is not None:
+                            # Apodotiko contribution scores reweight clients inside
+                            # their buffer (the staleness discount applies per window
+                            # at commit time).
+                            d32 = {k: d * _bcast(score, d) for k, d in d32.items()}
+                        onehot = async_rounds.window_weights(window, bw_eff, sums.buf_w.shape[0])
+                        sums.buf_w = sums.buf_w + onehot.sum(dim=0)
+                        if sums.buf is not None:
+                            for k, d in d32.items():
+                                sums.buf[k] += torch.tensordot(onehot, d, dims=([0], [0]))
+                    if sums.gathered is not None:
+                        for k, d in d32.items():
+                            sums.gathered[k][blk] = d
+                        sums.gathered_w[blk] = bw_eff
+                    del d32
+                sums.sum_w = sums.sum_w + bw_eff.sum()
+                sums.sum_loss = sums.sum_loss + torch.where(ok, bw * losses, 0.0).sum()
+                sums.count = sums.count + (bw_eff > 0).sum().float()
+                sums.client_loss.append(losses)
+                if alg.control_variates:
+                    # Option II: c_i' - c_i = -c - delta / (K * lr), zero for a
+                    # client that ran no step; c_i advances only for participants
+                    # that survived the finiteness gate.
+                    k_lr = torch.clamp(bsteps, min=1).float() * alg.local_lr
+                    ran, active = bsteps > 0, bw_eff > 0
+                    for k, d in trained.items():
+                        dci = torch.where(_bcast(ran, d), -sc[k] - d / _bcast(k_lr, d), 0.0)
+                        sums.new_client_state[k].append(
+                            ci[k] + torch.where(_bcast(active, d), dci, 0.0))
+                        sums.sum_dc[k] += torch.tensordot(
+                            bw_eff, torch.where(_bcast(ok, d), dci, 0.0), dims=([0], [0]))
+            if alg.personalized and not alg.control_variates:
+                v_old = {k: v[blk] for k, v in personal.params.items()}
+                with tracer.span("round.local_steps"):
+                    new_v, ploss_sum = self._personal_train(
+                        v_old, params, bx, by, bsteps, bw, personal_idx)
+                sums.sum_ploss = sums.sum_ploss + ploss_sum
+                for k, v in new_v.items():
+                    sums.new_client_state[k].append(v)
 
     def _finish_round(self, state: ServerState, sums: "_RoundSums", defense,
                       trim_fraction, stragglers, control, population: int):
@@ -1412,10 +1455,13 @@ class FedCore:
         }
 
     def _gather_stream_block(self, store, prep: dict, i: int, feature_dtype,
-                             generator, indices) -> Tuple[dict, int]:
+                             generator, indices) -> Tuple[dict, int, Optional[list]]:
         """Stream block ``i`` as host tensors in the dtypes the round reads
         (the same values :meth:`round_step` computes on the device from the
-        resident population), and its count of late participants. The
+        resident population), its count of late participants, and the
+        clients each sub-block of ``block_clients`` releases (weight after
+        participation, before the deadline; None with the default tracer
+        off). The
         minibatch indices of the block's rows are drawn from ``generator``,
         so blocks drawn in order draw what one whole-population draw does."""
         cfg = self.config
@@ -1435,6 +1481,9 @@ class FedCore:
         weight = np.asarray(rows["weight"], np.float32)
         if prep["participate"] is not None:
             weight = weight * prep["participate"][lo:hi]
+        B = cfg.block_clients
+        released = ([int((weight[s:s + B] > 0).sum()) for s in range(0, hi - lo, B)]
+                    if default_tracer().enabled else None)
         n_late = 0
         if prep["deadline"] is not None:
             late = prep["completion_time"][lo:hi] > np.float32(prep["deadline"])
@@ -1458,7 +1507,7 @@ class FedCore:
         if prep["attack_scale"] is not None:
             block["attack_scale"] = (torch.from_numpy(prep["attack_scale"][lo:hi]),
                                      torch.float32)
-        return block, n_late
+        return block, n_late, released
 
     def stream_round(self, state: ServerState, store, stream_rows: Optional[int] = None,
                      participate=None, num_steps=None, completion_time=None,
@@ -1496,9 +1545,10 @@ class FedCore:
         resident round at the same padded size bit for bit. ``tracer`` (the
         default tracer when None) gets a ``stream_stage`` span per block
         around the wait for its staging and a ``stream_step`` span around
-        its launches."""
-        from olearning_sim_tpu_torch.telemetry import default_tracer, instrument
-
+        its launches; the sub-blocks' ``round.block`` spans (their
+        ``released`` counted from the staged host weights) and the close's
+        ``round.server_update`` go to the default tracer, as in
+        :meth:`round_step`."""
         tracer = tracer if tracer is not None else default_tracer()
         if stream_rows is None:
             raise ValueError(
@@ -1529,10 +1579,11 @@ class FedCore:
         sums = self._round_sums(state.params, prep["c_pad"], clipping=defense is not None,
                                 gathering=False)
         late = []
+        released = {}
 
         def gather(i):
             def run():
-                block, n_late = self._gather_stream_block(
+                block, n_late, released[i] = self._gather_stream_block(
                     store, prep, i, feature_dtype, generator, indices)
                 late.append(n_late)
                 return block
@@ -1561,14 +1612,17 @@ class FedCore:
                             blk["steps"][sl], blk["indices"][sl], blk["weight"][sl],
                             blk["attack_scale"][sl] if "attack_scale" in blk else None,
                             clip_norm=clip_norm,
+                            released=(None if released[i] is None
+                                      else released[i][s // cfg.block_clients]),
                         )
                 stager.release(i)
         finally:
             stager.close()
         stragglers = (torch.full((), float(sum(late)), dtype=torch.float32, device=dev)
                       if prep["deadline"] is not None else None)
-        new_state, metrics = self._finish_round(state, sums, defense, None, stragglers,
-                                                None, store.population)
+        with default_tracer().span("round.server_update"):
+            new_state, metrics = self._finish_round(state, sums, defense, None, stragglers,
+                                                    None, store.population)
 
         transfer_bytes = sum(stager.staged_bytes)
         block_bytes0 = stager.staged_bytes[0]

@@ -644,26 +644,30 @@ class SimulationRunner:
     def _run_train(self, p: DataPopulation, round_idx: int,
                    operator: OperatorSpec) -> Dict[str, Any]:
         real = p.dataset.num_real_clients
+        tracer = default_tracer()
+        select = f"round.{operator.name}.select"
         with self._phase(operator.name, "select", round_idx):
             # Compiled over real clients only: released slots must never be
             # spent on zero-weight padding clients.
-            trace = compile_trace(
-                json.loads(operator.deviceflow_strategy) if (
-                    operator.use_deviceflow and operator.deviceflow_strategy
-                ) else None,
-                real,
-                round_idx,
-                task_id=self.task_id,
-                operator=operator.name,
-                seed=self.trace_seed,
-            )
+            with tracer.span(f"{select}.dispatch"):
+                trace = compile_trace(
+                    json.loads(operator.deviceflow_strategy) if (
+                        operator.use_deviceflow and operator.deviceflow_strategy
+                    ) else None,
+                    real,
+                    round_idx,
+                    task_id=self.task_id,
+                    operator=operator.name,
+                    seed=self.trace_seed,
+                )
             strace = None
             if self.scenario is not None:
                 # Scenario availability intersects the dispatch trace: a
                 # client participates only if both release it, and arrives
                 # at the later of the two times (pacing sees that).
-                strace = self._scenario_model(p).round_trace(round_idx)
-                trace = combine_traces(trace, strace.as_client_trace())
+                with tracer.span(f"{select}.scenario"):
+                    strace = self._scenario_model(p).round_trace(round_idx)
+                    trace = combine_traces(trace, strace.as_client_trace())
             mask = np.zeros(p.dataset.padded_clients, trace.participate.dtype)
             mask[:real] = trace.participate
             if self._quarantine is not None:
@@ -679,14 +683,16 @@ class SimulationRunner:
                 # in completion-time order: deterministic for (config, trace
                 # seed, operator, population, round), so a rollback or a
                 # resume replays the commit sequence.
-                async_completion = self._completion_times(
-                    p, round_idx, operator, trace, self.async_config.pacing_config())
-                aplan = plan_async_round(self.async_config, async_completion,
-                                         mask[:real] > 0, p.dataset.padded_clients)
+                with tracer.span(f"{select}.pacing"):
+                    async_completion = self._completion_times(
+                        p, round_idx, operator, trace, self.async_config.pacing_config())
+                    aplan = plan_async_round(self.async_config, async_completion,
+                                             mask[:real] > 0, p.dataset.padded_clients)
                 kwargs["async_plan"] = aplan
             pace: Optional[RoundPacing] = None
             if self.deadline is not None:
-                pace = self._plan_pacing(p, round_idx, operator, trace, mask[:real] > 0)
+                with tracer.span(f"{select}.pacing"):
+                    pace = self._plan_pacing(p, round_idx, operator, trace, mask[:real] > 0)
                 if not pace.quorum_met:
                     # Enforced before anything is launched (state untouched):
                     # a starved cohort degrades through the failure policy

@@ -124,6 +124,7 @@ from olearning_sim_tpu_torch.taskmgr.operator_flow import (
     OperatorFlowController,
     require_websocket_client,
 )
+from olearning_sim_tpu_torch.telemetry import default_tracer
 
 BUILTIN_PREFIX = "builtin:"
 
@@ -285,35 +286,39 @@ def build_runner_from_taskconfig(
     ``cost_oracle`` the runner feeds it under :func:`cost_family`'s key.
     ``plan`` — the mesh plan (default: the ``parallel`` block's over every
     rank of the default group, or a world of one); one handed in must
-    realize the block."""
-    if isinstance(tc, (str, dict)):
-        tc = json2taskconfig(tc)
-    dev = resolve_device(device)
-    task_id = tc.taskID.taskID
-    params = _engine_params(tc)
-    _check_blocks(task_id, params)
-    # The block selects the mesh, so it is resolved before the plan, as
-    # the JAX bridge resolves it.
-    parallel = (ParallelConfig.from_dict(params["parallel"])
-                if params.get("parallel") else ParallelConfig())
-    if plan is None:
-        plan = parallel.make_plan() if parallel.enabled else make_mesh_plan()
-    elif parallel.enabled and not parallel.matches(plan):
-        raise ValueError(
-            f"task {task_id}: engine params ask for "
-            f"parallel mp={parallel.mp} pp={parallel.pp} but the supplied "
-            f"mesh plan has mp={plan.mp} pp={plan.pp}"
-        )
-    operators = _operator_specs(tc, storage=params.get("storage"))
-    try:
-        return _assemble(tc, dev, task_id, params, plan, parallel, operators, task_repo=task_repo,
-                         deviceflow=deviceflow, stop_event=stop_event, perf=perf,
-                         cost_oracle=cost_oracle, registry=registry)
-    except BaseException:
-        # The runner that would have removed the operators' scratch
-        # directories at its end was never made.
-        remove_scratch(operators)
-        raise
+    realize the block. The build is a ``bridge.build`` span of the
+    default tracer, holding ``bridge.model``, ``bridge.populations`` and
+    ``bridge.runner``."""
+    with default_tracer().span("bridge.build"):
+        if isinstance(tc, (str, dict)):
+            tc = json2taskconfig(tc)
+        dev = resolve_device(device)
+        task_id = tc.taskID.taskID
+        params = _engine_params(tc)
+        _check_blocks(task_id, params)
+        # The block selects the mesh, so it is resolved before the plan, as
+        # the JAX bridge resolves it.
+        parallel = (ParallelConfig.from_dict(params["parallel"])
+                    if params.get("parallel") else ParallelConfig())
+        if plan is None:
+            plan = parallel.make_plan() if parallel.enabled else make_mesh_plan()
+        elif parallel.enabled and not parallel.matches(plan):
+            raise ValueError(
+                f"task {task_id}: engine params ask for "
+                f"parallel mp={parallel.mp} pp={parallel.pp} but the supplied "
+                f"mesh plan has mp={plan.mp} pp={plan.pp}"
+            )
+        operators = _operator_specs(tc, storage=params.get("storage"))
+        try:
+            return _assemble(tc, dev, task_id, params, plan, parallel, operators,
+                             task_repo=task_repo, deviceflow=deviceflow,
+                             stop_event=stop_event, perf=perf, cost_oracle=cost_oracle,
+                             registry=registry)
+        except BaseException:
+            # The runner that would have removed the operators' scratch
+            # directories at its end was never made.
+            remove_scratch(operators)
+            raise
 
 
 def _assemble(tc, dev, task_id: str, params: Dict[str, Any], plan: MeshPlan, parallel,
@@ -343,15 +348,17 @@ def _assemble(tc, dev, task_id: str, params: Dict[str, Any], plan: MeshPlan, par
     algorithm = algorithm_from_config(algo_cfg.pop("name", "fedavg"), **algo_cfg)
     input_shape = tuple(model_cfg.get("input_shape", [])) or None
 
-    from olearning_sim_tpu_torch.models import get_model
+    tracer = default_tracer()
+    with tracer.span("bridge.model"):
+        from olearning_sim_tpu_torch.models import get_model
 
-    model_name = model_cfg.get("name", "mlp2")
-    # An unknown model raises get_model's KeyError, as in the JAX bridge.
-    spec = get_model(model_name)
-    core = build_fedcore(model_name, algorithm, cfg,
-                         model_overrides=model_cfg.get("overrides"),
-                         input_shape=input_shape, device=dev, plan=plan,
-                         microbatches=parallel.microbatches)
+        model_name = model_cfg.get("name", "mlp2")
+        # An unknown model raises get_model's KeyError, as in the JAX bridge.
+        spec = get_model(model_name)
+        core = build_fedcore(model_name, algorithm, cfg,
+                             model_overrides=model_cfg.get("overrides"),
+                             input_shape=input_shape, device=dev, plan=plan,
+                             microbatches=parallel.microbatches)
 
     syn = data_cfg.get("synthetic", {})
     overrides = model_cfg.get("overrides") or {}
@@ -379,149 +386,151 @@ def _assemble(tc, dev, task_id: str, params: Dict[str, Any], plan: MeshPlan, par
 
     seed = int(syn.get("seed", 0))
     populations = []
-    for td in tc.target.targetData:
-        devices = list(td.totalSimulation.deviceTotalSimulation)
-        # The logical half simulates only its allocated share of devices;
-        # the rest belongs to real phones (hybrid split).
-        alloc = [int(a) for a in td.allocation.allocationLogicalSimulation]
-        if alloc and any(a > 0 for a in alloc):
-            nums = alloc
-        else:
-            nums = [int(n) for n in td.totalSimulation.numTotalSimulation]
-        dynamic = [int(n) for n in td.totalSimulation.dynamicNumTotalSimulation]
-        if not dynamic:
-            dynamic = [0] * len(nums)
-        num_clients = sum(nums)
-        eval_data = None
-        pop_classes = num_classes
-        if td.dataPath:
-            # Real dataset: honour dataPath + dataTransferType (reference
-            # download_data_files, utils_run_task.py:174-325). The archive's
-            # test split (or a held-out tail) is the central eval set.
-            from olearning_sim_tpu_torch.data import load_population
-
-            real_cfg = data_cfg.get("real", {})
-            text_kwargs = ({"vocab_size": vocab_size, "seq_len": int(input_shape[0])}
-                           if is_text else {})
-            ds, eval_data, data_classes = load_population(
-                td.dataPath,
-                num_clients=num_clients,
-                n_local=int(real_cfg.get("n_local", syn.get("n_local", 20))),
-                scheme=real_cfg.get("scheme", "dirichlet"),
-                alpha=float(real_cfg.get("alpha", syn.get("dirichlet_alpha") or 0.5)),
-                seed=seed,
-                transfer_type=td.dataTransferType,
-                storage_settings=params.get("storage"),
-                eval_n=data_cfg.get("eval_n"),
-                **text_kwargs,
-            )
-            if data_classes > model_classes:
-                raise ValueError(
-                    f"dataset at {td.dataPath!r} has {data_classes} classes "
-                    f"but the model's head emits only {model_classes}"
-                )
-            pop_classes = data_classes
-        elif is_text:
-            ds = make_synthetic_text_dataset(
-                seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
-                seq_len=int(input_shape[0]), num_classes=num_classes,
-                vocab_size=vocab_size, dirichlet_alpha=syn.get("dirichlet_alpha"),
-            )
-        else:
-            ds = make_synthetic_dataset(
-                seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
-                input_shape=input_shape, num_classes=num_classes,
-                dirichlet_alpha=syn.get("dirichlet_alpha"),
-                class_sep=float(syn.get("class_sep", 2.0)),
-            )
-        store = None
-        if scenario is not None and scenario.streamed:
-            # Never placed whole: the round streams device-sized blocks
-            # from this host store.
-            store = HostClientStore.from_dataset(ds)
-        else:
-            # Every rank pads alike and keeps its own shard.
-            ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
-        cls = np.zeros(ds.padded_clients, int)
-        start = 0
-        for ci, n in enumerate(nums):
-            cls[start:start + n] = ci
-            start += n
-        if eval_data is None and not td.dataPath and data_cfg.get("eval_n"):
-            if is_text:
-                eval_data = make_central_text_eval_set(
-                    seed, int(data_cfg["eval_n"]), int(input_shape[0]), num_classes,
-                    vocab_size=vocab_size)
+    with tracer.span("bridge.populations"):
+        for td in tc.target.targetData:
+            devices = list(td.totalSimulation.deviceTotalSimulation)
+            # The logical half simulates only its allocated share of devices;
+            # the rest belongs to real phones (hybrid split).
+            alloc = [int(a) for a in td.allocation.allocationLogicalSimulation]
+            if alloc and any(a > 0 for a in alloc):
+                nums = alloc
             else:
-                eval_data = make_central_eval_set(
-                    seed, int(data_cfg["eval_n"]), input_shape, num_classes,
-                    class_sep=float(syn.get("class_sep", 2.0)))
-        # Heterogeneous compute profiles: {"<device class>": local_steps};
-        # unlisted classes run max_local_steps.
-        profiles = data_cfg.get("compute_profiles") or {}
-        num_steps = None
-        if profiles:
-            steps = np.full(ds.padded_clients, cfg.max_local_steps, np.int32)
-            for ci, name in enumerate(devices):
-                if name in profiles:
-                    steps[cls == ci] = int(profiles[name])
-            num_steps = steps
-        populations.append(DataPopulation(
-            name=td.dataName, dataset=ds, device_classes=devices,
-            class_of_client=cls, nums=nums, dynamic_nums=dynamic,
-            eval_data=eval_data, num_steps=num_steps, num_classes=pop_classes,
-            store=store, device=dev,
-        ))
+                nums = [int(n) for n in td.totalSimulation.numTotalSimulation]
+            dynamic = [int(n) for n in td.totalSimulation.dynamicNumTotalSimulation]
+            if not dynamic:
+                dynamic = [0] * len(nums)
+            num_clients = sum(nums)
+            eval_data = None
+            pop_classes = num_classes
+            if td.dataPath:
+                # Real dataset: honour dataPath + dataTransferType (reference
+                # download_data_files, utils_run_task.py:174-325). The archive's
+                # test split (or a held-out tail) is the central eval set.
+                from olearning_sim_tpu_torch.data import load_population
 
-    fs = tc.operatorFlow.flowSetting
-    start_strat = fs.startCondition.logicalSimulationStrategy
-    stop_strat = fs.stopCondition.logicalSimulationStrategy
-    flow = OperatorFlowController(
-        task_id,
-        fs.round,
-        start_params={
-            "strategy": start_strat.strategyCondition,
-            "wait_interval": start_strat.waitInterval,
-            "total_timeout": start_strat.totalTimeout,
-        },
-        stop_params={
-            "strategy": stop_strat.strategyCondition,
-            "wait_interval": stop_strat.waitInterval,
-            "total_timeout": stop_strat.totalTimeout,
-        },
-        strategy_kwargs=params.get("operator_flow", {}),
-        stop_event=stop_event,
-    )
-    resilience = (ResilienceConfig.from_dict(params["resilience"])
-                  if params.get("resilience") else None)
-    quarantine_preseed = (parse_quarantine_params(params["quarantine"])["preseed"]
-                          if params.get("quarantine") else None)
-    ckpt_cfg = params.get("checkpoint")
-    checkpoint_every = int(ckpt_cfg.get("every", 1)) if ckpt_cfg else 1
-    checkpointer = _checkpointer(task_id, ckpt_cfg, registry) if ckpt_cfg else None
-    return SimulationRunner(
-        task_id=task_id,
-        core=core,
-        populations=populations,
-        operators=operators,
-        rounds=fs.round,
-        task_repo=task_repo,
-        deviceflow=deviceflow,
-        operator_flow=flow,
-        stop_event=stop_event,
-        perf=perf,
-        resilience=resilience,
-        quarantine_preseed=quarantine_preseed,
-        cost_oracle=cost_oracle,
-        cost_family=cost_family(tc) if cost_oracle is not None else None,
-        registry=registry,
-        checkpointer=checkpointer,
-        checkpoint_every=checkpoint_every,
-        model_io=model_io,
-        warm_start_path=warm_start_path,
-        convergence=convergence,
-        deadline=deadline,
-        defense=defense,
-        scenario=scenario,
-        async_config=async_config,
-    )
+                real_cfg = data_cfg.get("real", {})
+                text_kwargs = ({"vocab_size": vocab_size, "seq_len": int(input_shape[0])}
+                               if is_text else {})
+                ds, eval_data, data_classes = load_population(
+                    td.dataPath,
+                    num_clients=num_clients,
+                    n_local=int(real_cfg.get("n_local", syn.get("n_local", 20))),
+                    scheme=real_cfg.get("scheme", "dirichlet"),
+                    alpha=float(real_cfg.get("alpha", syn.get("dirichlet_alpha") or 0.5)),
+                    seed=seed,
+                    transfer_type=td.dataTransferType,
+                    storage_settings=params.get("storage"),
+                    eval_n=data_cfg.get("eval_n"),
+                    **text_kwargs,
+                )
+                if data_classes > model_classes:
+                    raise ValueError(
+                        f"dataset at {td.dataPath!r} has {data_classes} classes "
+                        f"but the model's head emits only {model_classes}"
+                    )
+                pop_classes = data_classes
+            elif is_text:
+                ds = make_synthetic_text_dataset(
+                    seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
+                    seq_len=int(input_shape[0]), num_classes=num_classes,
+                    vocab_size=vocab_size, dirichlet_alpha=syn.get("dirichlet_alpha"),
+                )
+            else:
+                ds = make_synthetic_dataset(
+                    seed=seed, num_clients=num_clients, n_local=int(syn.get("n_local", 20)),
+                    input_shape=input_shape, num_classes=num_classes,
+                    dirichlet_alpha=syn.get("dirichlet_alpha"),
+                    class_sep=float(syn.get("class_sep", 2.0)),
+                )
+            store = None
+            if scenario is not None and scenario.streamed:
+                # Never placed whole: the round streams device-sized blocks
+                # from this host store.
+                store = HostClientStore.from_dataset(ds)
+            else:
+                # Every rank pads alike and keeps its own shard.
+                ds = ds.pad_for(plan.dp * cfg.block_clients).shard(plan).to(dev)
+            cls = np.zeros(ds.padded_clients, int)
+            start = 0
+            for ci, n in enumerate(nums):
+                cls[start:start + n] = ci
+                start += n
+            if eval_data is None and not td.dataPath and data_cfg.get("eval_n"):
+                if is_text:
+                    eval_data = make_central_text_eval_set(
+                        seed, int(data_cfg["eval_n"]), int(input_shape[0]), num_classes,
+                        vocab_size=vocab_size)
+                else:
+                    eval_data = make_central_eval_set(
+                        seed, int(data_cfg["eval_n"]), input_shape, num_classes,
+                        class_sep=float(syn.get("class_sep", 2.0)))
+            # Heterogeneous compute profiles: {"<device class>": local_steps};
+            # unlisted classes run max_local_steps.
+            profiles = data_cfg.get("compute_profiles") or {}
+            num_steps = None
+            if profiles:
+                steps = np.full(ds.padded_clients, cfg.max_local_steps, np.int32)
+                for ci, name in enumerate(devices):
+                    if name in profiles:
+                        steps[cls == ci] = int(profiles[name])
+                num_steps = steps
+            populations.append(DataPopulation(
+                name=td.dataName, dataset=ds, device_classes=devices,
+                class_of_client=cls, nums=nums, dynamic_nums=dynamic,
+                eval_data=eval_data, num_steps=num_steps, num_classes=pop_classes,
+                store=store, device=dev,
+            ))
+
+    with tracer.span("bridge.runner"):
+        fs = tc.operatorFlow.flowSetting
+        start_strat = fs.startCondition.logicalSimulationStrategy
+        stop_strat = fs.stopCondition.logicalSimulationStrategy
+        flow = OperatorFlowController(
+            task_id,
+            fs.round,
+            start_params={
+                "strategy": start_strat.strategyCondition,
+                "wait_interval": start_strat.waitInterval,
+                "total_timeout": start_strat.totalTimeout,
+            },
+            stop_params={
+                "strategy": stop_strat.strategyCondition,
+                "wait_interval": stop_strat.waitInterval,
+                "total_timeout": stop_strat.totalTimeout,
+            },
+            strategy_kwargs=params.get("operator_flow", {}),
+            stop_event=stop_event,
+        )
+        resilience = (ResilienceConfig.from_dict(params["resilience"])
+                      if params.get("resilience") else None)
+        quarantine_preseed = (parse_quarantine_params(params["quarantine"])["preseed"]
+                              if params.get("quarantine") else None)
+        ckpt_cfg = params.get("checkpoint")
+        checkpoint_every = int(ckpt_cfg.get("every", 1)) if ckpt_cfg else 1
+        checkpointer = _checkpointer(task_id, ckpt_cfg, registry) if ckpt_cfg else None
+        return SimulationRunner(
+            task_id=task_id,
+            core=core,
+            populations=populations,
+            operators=operators,
+            rounds=fs.round,
+            task_repo=task_repo,
+            deviceflow=deviceflow,
+            operator_flow=flow,
+            stop_event=stop_event,
+            perf=perf,
+            resilience=resilience,
+            quarantine_preseed=quarantine_preseed,
+            cost_oracle=cost_oracle,
+            cost_family=cost_family(tc) if cost_oracle is not None else None,
+            registry=registry,
+            checkpointer=checkpointer,
+            checkpoint_every=checkpoint_every,
+            model_io=model_io,
+            warm_start_path=warm_start_path,
+            convergence=convergence,
+            deadline=deadline,
+            defense=defense,
+            scenario=scenario,
+            async_config=async_config,
+        )

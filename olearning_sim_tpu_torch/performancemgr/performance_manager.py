@@ -26,6 +26,7 @@ import dataclasses
 import json
 import math
 import os
+import re
 import threading
 import time
 from typing import Any, Dict, List, Optional
@@ -46,6 +47,16 @@ def _all_threads_config():
         return _ExperimentalConfig(profile_all_threads=True)
     except TypeError:
         return None
+
+
+def _trace_base_ns(path: str) -> int:
+    """The ``baseTimeNanoseconds`` in the head of a profiler Chrome trace:
+    its ``ts`` values are microseconds after it. A file without one has
+    ``ts`` in Unix microseconds, so its base is 0."""
+    with open(path, "rb") as f:
+        head = f.read(4096)
+    m = re.search(rb'"baseTimeNanoseconds"\s*:\s*(\d+)', head)
+    return int(m.group(1)) if m else 0
 
 
 @dataclasses.dataclass
@@ -448,7 +459,9 @@ class PerformanceManager:
     def stop_trace(self) -> Optional[str]:
         """End the trace: the profiler's Chrome trace goes to
         ``<logdir>/torch_profiler.trace.json`` and the runner spans of the
-        window to ``<logdir>/runner_spans.trace.json``; returns ``logdir``
+        window to ``<logdir>/runner_spans.trace.json``, each ``ts`` on the
+        profiler file's time base (microseconds after its
+        ``baseTimeNanoseconds``), so the two overlay; returns ``logdir``
         (None when no trace is open)."""
         with self._lock:
             if self._trace_dir is None:
@@ -462,13 +475,14 @@ class PerformanceManager:
 
             self._on_profiler_thread(close)
         # Flush the runner-level spans as Perfetto trace_event JSON next to
-        # the profiler's trace, so one directory opens both timelines.
-        # Best-effort: span export must never turn a successful capture
-        # into an error.
+        # the profiler's trace, on its time base, so one directory opens
+        # both timelines and they overlay. Best-effort: span export must
+        # never turn a successful capture into an error.
         from olearning_sim_tpu_torch.telemetry import default_tracer
 
         tracer = self.tracer if self.tracer is not None else default_tracer()
         with contextlib.suppress(Exception):
             tracer.export(os.path.join(out, self.RUNNER_SPAN_FILE),
-                          since_s=self._trace_span_mark)
+                          since_s=self._trace_span_mark,
+                          base_ns=_trace_base_ns(os.path.join(out, self.TRACE_FILE)))
         return out

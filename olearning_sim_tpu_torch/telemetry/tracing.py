@@ -5,8 +5,10 @@ this module answers "what did the *runner* do" — which round, which
 operator, which phase — at host granularity. Both export to the Chrome
 ``trace_event`` JSON format, so a runner-span file opens in
 Perfetto/chrome://tracing beside the profiler's timeline (and
-``PerformanceManager.stop_trace`` writes one beside every captured trace).
-A copy of the JAX package's ``telemetry/tracing.py``.
+``PerformanceManager.stop_trace`` writes one beside every captured trace,
+on the profiler file's time base: :meth:`SpanTracer.unix_ns` puts a span
+on the profiler's clock, Unix nanoseconds). A copy of the JAX package's
+``telemetry/tracing.py``, with that conversion added.
 
 Usage::
 
@@ -40,9 +42,9 @@ class Span:
     thread_id: int = 0
     attrs: Dict[str, Any] = dataclasses.field(default_factory=dict)
 
-    def to_trace_event(self) -> Dict[str, Any]:
+    def to_trace_event(self, offset_us: float = 0.0) -> Dict[str, Any]:
         """Chrome trace_event complete-event (``ph: X``) form; timestamps in
-        microseconds per the spec."""
+        microseconds per the spec, ``offset_us`` added to the start."""
         args = {k: v for k, v in self.attrs.items()}
         args["span_id"] = self.span_id
         if self.parent_id is not None:
@@ -51,7 +53,7 @@ class Span:
             "name": self.name,
             "ph": "X",
             "cat": "runner",
-            "ts": round(self.start_s * 1e6, 3),
+            "ts": round(self.start_s * 1e6 + offset_us, 3),
             "dur": round(self.duration_s * 1e6, 3),
             "pid": os.getpid(),
             "tid": self.thread_id,
@@ -156,33 +158,47 @@ class SpanTracer:
         watermark for windowed exports."""
         return time.perf_counter() - self._epoch
 
+    def unix_ns(self, t: float) -> int:
+        """Tracer time ``t`` (the scale of :meth:`now`) on the profiler's
+        clock: Unix nanoseconds. The two clocks are paired afresh on each
+        call, so the wall clock's adjustments since the tracer's start do
+        not shift the answer."""
+        pc, wall = time.perf_counter_ns(), time.time_ns()
+        return wall - pc + round((self._epoch + t) * 1e9)
+
     # --------------------------------------------------------------- export
     def to_trace_events(
-        self, since_s: Optional[float] = None
+        self, since_s: Optional[float] = None, base_ns: Optional[int] = None
     ) -> List[Dict[str, Any]]:
         """``since_s`` (tracer-relative, from :meth:`now`) limits the export
         to spans started after the watermark — e.g. only the spans inside
-        one profiler window, not the whole process history."""
+        one profiler window, not the whole process history. ``base_ns``
+        (Unix nanoseconds: a profiler file's ``baseTimeNanoseconds``) puts
+        each ``ts`` on that file's time base, microseconds after it;
+        without it ``ts`` is microseconds after the tracer's start."""
+        offset_us = 0.0 if base_ns is None else (self.unix_ns(0.0) - base_ns) / 1e3
         return [
-            s.to_trace_event() for s in self.spans()
+            s.to_trace_event(offset_us) for s in self.spans()
             if since_s is None or s.start_s >= since_s
         ]
 
-    def to_perfetto_json(self, since_s: Optional[float] = None) -> str:
+    def to_perfetto_json(self, since_s: Optional[float] = None,
+                         base_ns: Optional[int] = None) -> str:
         """Chrome/Perfetto ``trace_event`` JSON (object form with
         ``traceEvents``, the shape both UIs accept)."""
         return json.dumps({
-            "traceEvents": self.to_trace_events(since_s),
+            "traceEvents": self.to_trace_events(since_s, base_ns),
             "displayTimeUnit": "ms",
         })
 
-    def export(self, path: str, since_s: Optional[float] = None) -> str:
+    def export(self, path: str, since_s: Optional[float] = None,
+               base_ns: Optional[int] = None) -> str:
         """Write the Perfetto JSON next to (typically) a profiler trace;
         returns ``path``. Parent directories are created."""
         d = os.path.dirname(os.path.abspath(path))
         os.makedirs(d, exist_ok=True)
         with open(path, "w") as f:
-            f.write(self.to_perfetto_json(since_s))
+            f.write(self.to_perfetto_json(since_s, base_ns))
         return path
 
 

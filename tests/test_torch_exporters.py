@@ -236,6 +236,28 @@ def test_profiler_trace_and_runner_spans(tmp_path):
     assert perf.stop_trace() is None
 
 
+def test_runner_spans_share_the_profiler_clock(tmp_path):
+    """The span file's ``ts`` is on the profiler file's time base: a
+    ``record_function`` opened inside a span lies inside it in the two
+    exported files, within 100 us."""
+    import torch
+    from torch.profiler import record_function
+
+    tracer = TTracer()
+    perf = TPerf(registry=ttel.MetricsRegistry(), tracer=tracer)
+    assert perf.start_trace(str(tmp_path / "tr"))
+    with tracer.span("round.probe_holder"):
+        with record_function("probe"):
+            x = torch.ones(64, 64)
+            (x @ x).sum()
+    out = perf.stop_trace()
+    events = json.load(open(os.path.join(out, TPerf.TRACE_FILE)))["traceEvents"]
+    (probe,) = [e for e in events if e.get("name") == "probe" and e.get("ph") == "X"]
+    (span,) = json.load(open(os.path.join(out, TPerf.RUNNER_SPAN_FILE)))["traceEvents"]
+    assert span["ts"] - 100 <= probe["ts"]
+    assert probe["ts"] + probe["dur"] <= span["ts"] + span["dur"] + 100
+
+
 def test_profiler_start_that_raises_leaves_the_manager_rearmable(tmp_path):
     blocker = tmp_path / "file"
     blocker.write_text("")
